@@ -30,12 +30,37 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    kernels that take the most device time, and each of the port's own
    kernels' device time per launch inside the step.  A profiler that records no
    device time prints "not measured" and does not fail the run.
+7. Build the DGN batch: 1024 molhiv-like graphs with the edge-level
+   cycle-count vector field (the port's copy of
+   ``bench.py::make_dgn_like``), one batch at the tight caps; print its
+   real node and edge counts.
+8. Hold the DGN kernels K5/K6 in each instantiation (B5
+   ``weighted_gather``, B6 ``segment_minmax``, B8 ``dgn_fused``) and
+   their autograd Functions against the plain versions at the DGN
+   shapes (d=70, K=5 weight columns from the batch's own vector field,
+   node rows after relu so maxima tie; tie counts exact), and time each
+   as in phase 3.
+9. Check a small DGN model (d=70, 2 layers, dropout 0) on the card
+   against the CPU for one aggregator set per branch of the layer's
+   kernel dispatch (fused, weighted only, minmax only); each branch must
+   launch its kernels on the card.
+10. Drive the DGN main path: ``bench.py::bench_dgn``'s configuration
+    (d=70, 4 layers, 7 aggregators, dropout 0.3, BCE, Adam lr 1e-3)
+    takes STEPS steps through ``Trainer.train_step``, launch counters
+    zeroed just before and read just after, as in phase 5.
+11. Drive the weighted-only and minmax-only paths at the same width and
+    depth for BRANCH_STEPS steps each, counters zeroed before each.
+12. Profile the DGN main path as phase 6 profiles the zinc one.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside the
-repository, it exits nonzero before printing either.
+Then it prints three lines: ``{"kernels": [...]}`` (each kernel's
+checks, times, bound and its launches on the path named in its
+``path``), the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.  Without a CUDA card, or outside the repository, it
+exits nonzero before printing any of them.
 """
 
+import copy
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -48,6 +73,18 @@ import torch
 STEPS = 20
 PROFILE_STEPS = 5
 D = 128
+# bench.py::bench_dgn: width, aggregators (K=5 of them are weighted sums)
+DGN_D = 70
+DGN_AGGS = ("mean", "max", "min", "dir0-av", "dir1-av", "dir2-av",
+            "dir3-av")
+DGN_K = 5
+# one aggregator set per branch of the DGN layer's kernel dispatch
+DGN_BRANCHES = {
+    "fused": DGN_AGGS,
+    "weighted": ("mean", "dir0-av", "dir1-av", "dir2-av", "dir3-av"),
+    "minmax": ("max", "min"),
+}
+BRANCH_STEPS = 3
 # f32 tolerances (tests/test_mxu_integration.py:48,79-84)
 FWD_RTOL, FWD_ATOL = 2e-4, 2e-5
 GRAD_RTOL = 2e-3
@@ -133,8 +170,44 @@ def grad_check(got, want, what):
                for i, (g, w) in enumerate(zip(got, want)))
 
 
-def profile_steps(trainer, state, data, step_ms):
-    """Phase 6 (see module docstring)."""
+def exact(got, want, what):
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: kernel disagrees with its plain "
+                             f"version")
+
+
+def train_steps(trainer, state, data, steps, counters):
+    """``steps`` Adam steps; the launch counters are zeroed just before
+    and read just after.  Returns (state, losses, step seconds,
+    launches by name)."""
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, data)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    return state, losses, step_s, launches
+
+
+def expect_launches(launches, per_step, steps, what):
+    """Every counter must show exactly its launches a step (0 for the
+    kernels the path does not run)."""
+    for name, n in launches.items():
+        want = per_step.get(name, 0) * steps
+        if n != want:
+            raise AssertionError(f"{what}: {name} launched {n} times in "
+                                 f"{steps} steps, expected {want}")
+
+
+def profile_steps(trainer, state, data, step_ms, tag):
+    """Phases 6 and 12 (see module docstring)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -150,7 +223,7 @@ def profile_steps(trainer, state, data, step_ms):
     try:
         prof.start()
     except RuntimeError as exc:
-        log(f"[profile] not measured ({exc})")
+        log(f"[profile {tag}] not measured ({exc})")
         return
     t0 = time.perf_counter()
     for _ in range(PROFILE_STEPS):
@@ -160,7 +233,7 @@ def profile_steps(trainer, state, data, step_ms):
     try:
         prof.stop()
     except RuntimeError as exc:
-        log(f"[profile] not measured ({exc})")
+        log(f"[profile {tag}] not measured ({exc})")
         return
     # device-side events only (kernels, memcpy, memset): CPU ops also
     # carry the device time of what they launched, and user annotations
@@ -170,24 +243,24 @@ def profile_steps(trainer, state, data, step_ms):
               and not getattr(e, "is_user_annotation", False)]
     events = [(us, e) for us, e in events if us > 0]
     if not events:
-        log("[profile] not measured (no device time recorded)")
+        log(f"[profile {tag}] not measured (no device time recorded)")
         return
     busy = sum(us for us, _ in events) / PROFILE_STEPS
     n_kernels = sum(e.count for _, e in events) / PROFILE_STEPS
-    log(f"[profile] per step: device busy {busy / 1e3:.3f} ms in "
+    log(f"[profile {tag}] per step: device busy {busy / 1e3:.3f} ms in "
         f"{n_kernels:.0f} launches; profiled wall {wall * 1e3:.3f} ms; "
         f"device idle share {1 - busy / 1e3 / step_ms:.3f} of the "
         f"unprofiled median step ({step_ms:.3f} ms)")
     events.sort(key=lambda ue: -ue[0])
     for us, e in events[:12]:
-        log(f"[profile]   {us / PROFILE_STEPS:9.1f} us/step  "
+        log(f"[profile {tag}]   {us / PROFILE_STEPS:9.1f} us/step  "
             f"x{e.count / PROFILE_STEPS:5.1f}  {e.key[:90]}")
     # the port's own kernels (namespace gsn) inside the step
     ours = [(us, e) for us, e in events if "gsn::" in e.key]
     share = sum(us for us, _ in ours) / PROFILE_STEPS / busy
-    log(f"[profile] the port's kernels: {share:.4f} of device busy time")
+    log(f"[profile {tag}] the port's kernels: {share:.4f} of device busy time")
     for us, e in ours:
-        log(f"[profile]   {us / e.count:9.2f} us/launch  "
+        log(f"[profile {tag}]   {us / e.count:9.2f} us/launch  "
             f"x{e.count / PROFILE_STEPS:5.1f}/step  {e.key[:90]}")
 
 
@@ -200,6 +273,320 @@ def zinc_cfg(GSNConfig, d_id):
         input_node_encoder="embedding", edge_encoder="embedding",
         readout="sum", in_features=1, d_in_node_encoder=[28],
         d_in_edge_encoder=[4], d_in_id=d_id)
+
+
+def kernel_counters():
+    """Every kernel wrapper of the port, by name (each carries its
+    ``launches`` count)."""
+    from gsn_tpu_torch.ops.cuda import slab_combine as k3
+    from gsn_tpu_torch.ops.cuda import slab_message as k12
+    from gsn_tpu_torch.ops.cuda import slab_minmax as b6
+    from gsn_tpu_torch.ops.cuda import slab_pool as k4
+    from gsn_tpu_torch.ops.cuda import slab_weighted as b58
+    fns = (k12.edge_message_fwd, k12.edge_message_bwd_recv,
+           k3.segment_sum_sorted, k4.segment_broadcast,
+           b58.weighted_gather_fwd, b58.weighted_gather_bwd,
+           b6.segment_minmax_fwd, b6.segment_minmax_bwd,
+           b58.dgn_fused_fwd, b58.dgn_fused_bwd)
+    return {fn.__name__: fn for fn in fns}
+
+
+def dgn_phases(dev, card, timed):
+    """Phases 7-12 (see module docstring); returns the kernel rows of
+    K5/K6 in their three instantiations."""
+    from gsn_tpu_torch.data.synthetic import make_dgn_like
+    from gsn_tpu_torch.graphs.batching import (iterate_batches,
+                                               tight_epoch_caps)
+    from gsn_tpu_torch.nn.dgn import (DGNConfig, DGNNet, build_agg_ctx,
+                                      build_dgn_model, compute_avg_d)
+    from gsn_tpu_torch.nn.models import edge_segments
+    from gsn_tpu_torch.ops.cuda import slab_combine as k3
+    from gsn_tpu_torch.ops.cuda import slab_message as k12
+    from gsn_tpu_torch.ops.cuda import slab_minmax as b6
+    from gsn_tpu_torch.ops.cuda import slab_weighted as b58
+    from gsn_tpu_torch.train.loop import Trainer, TrainerConfig
+    from gsn_tpu_torch.train.metrics import LOSSES
+
+    # ---- phase 7: the DGN batch --------------------------------------------
+    t0 = time.perf_counter()
+    graphs = make_dgn_like(1024)
+    caps = tight_epoch_caps(np.arange(len(graphs)), graphs, 1024)
+    host = next(iterate_batches(graphs, 1024, caps=caps, y_shape=(),
+                                y_dtype=np.float32))
+    data = host.to(dev)
+    N, E = data.num_node_slots, data.num_edge_slots
+    e_real = data.num_real_edges
+    seg = edge_segments(data)
+    rp, send = seg.recv_ptr, seg.send
+    n_recv = int((rp.diff() > 0).sum())
+    n_send = int((seg.send_ptr.diff() > 0).sum())
+    log(f"[dgn] data {time.perf_counter() - t0:.1f} s: graphs "
+        f"{len(graphs)}, nodes {int(host.node_mask.sum())}/{N}, edges "
+        f"{e_real}/{E}, vector field width {data.edge_eig.shape[1]}; "
+        f"rows with edges: receivers {n_recv}, senders {n_send}")
+
+    # ---- phase 8: K5/K6 against the plain versions -------------------------
+    d, K = DGN_D, DGN_K
+    ctx = build_agg_ctx(DGN_AGGS, data, N)
+    W = ctx.W                         # the main path's own [E_real, K]
+    if tuple(W.shape) != (e_real, K):
+        raise AssertionError(f"weight columns {tuple(W.shape)}")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    # node rows after relu: about half exact zeros, so maxima tie
+    B = torch.relu(rnd(N, d))
+    g_w, g_mm = rnd(N, K * d), rnd(N, 2 * d)
+
+    def dB_plain(dh):
+        return k3.segment_sum_sorted_plain(dh, seg.send_ptr, seg.send_perm)
+
+    def fn_grads(fn, leaves, cots):
+        leaves = [x.clone().requires_grad_(True) for x in leaves]
+        outs = fn(*leaves)
+        return torch.autograd.grad(
+            sum((o * c).sum() for o, c in zip(outs, cots)), leaves)
+
+    errs = {}
+    # B5 weighted_gather
+    out_p = b58.weighted_gather_fwd_plain(B, W, rp, send)
+    errs["weighted_gather_fwd"] = max_err(
+        b58.weighted_gather_fwd(B, W, rp, send), out_p, FWD_RTOL, FWD_ATOL,
+        "weighted_gather_fwd")
+    err = 0.0
+    for need_dw in (False, True):
+        got = b58.weighted_gather_bwd(B, W, g_w, rp, send, need_dw)
+        want = b58.weighted_gather_bwd_plain(B, W, g_w, rp, send, need_dw)
+        err = max(err, grad_check(got[:1 + need_dw], want[:1 + need_dw],
+                                  f"weighted_gather_bwd[dW={need_dw}]"))
+    dh_p, dW_p = b58.weighted_gather_bwd_plain(B, W, g_w, rp, send, True)
+    err = max(err, grad_check(
+        fn_grads(lambda b, w: (b58.weighted_gather(b, w, seg),),
+                 [B, W], [g_w]),
+        [dB_plain(dh_p), dW_p], "WeightedGather"))
+    errs["weighted_gather_bwd"] = err
+
+    # B6 segment_minmax (B7's global max and tie counts folded in)
+    mm, cnt = b6.segment_minmax_fwd(B, rp, send)
+    mm_p, cnt_p = b6.segment_minmax_fwd_plain(B, rp, send)
+    errs["segment_minmax_fwd"] = max_err(mm, mm_p, FWD_RTOL, FWD_ATOL,
+                                         "segment_minmax_fwd")
+    exact(cnt, cnt_p, "segment_minmax_fwd tie counts")
+    tie_share = float((cnt_p > 1).float().mean())
+    dh_mm = b6.minmax_dh_plain(B, mm_p, cnt_p, g_mm, rp, send)
+    err = grad_check([b6.segment_minmax_bwd(B, mm, cnt, g_mm, rp, send)],
+                     [dh_mm], "segment_minmax_bwd")
+    err = max(err, grad_check(
+        fn_grads(lambda b: (b6.segment_minmax(b, seg),), [B], [g_mm]),
+        [dB_plain(dh_mm)], "SegmentMinmax"))
+    errs["segment_minmax_bwd"] = err
+
+    # B8 dgn_fused
+    out, mm, cnt = b58.dgn_fused_fwd(B, W, rp, send)
+    errs["dgn_fused_fwd"] = max(
+        max_err(out, out_p, FWD_RTOL, FWD_ATOL, "dgn_fused_fwd out"),
+        max_err(mm, mm_p, FWD_RTOL, FWD_ATOL, "dgn_fused_fwd mm"))
+    exact(cnt, cnt_p, "dgn_fused_fwd tie counts")
+    err = 0.0
+    for need_dw in (False, True):
+        got = b58.dgn_fused_bwd(B, W, g_w, mm, cnt, g_mm, rp, send, need_dw)
+        want = b58.dgn_fused_bwd_plain(B, W, g_w, mm_p, cnt_p, g_mm, rp,
+                                       send, need_dw)
+        err = max(err, grad_check(got[:1 + need_dw], want[:1 + need_dw],
+                                  f"dgn_fused_bwd[dW={need_dw}]"))
+    err = max(err, grad_check(
+        fn_grads(lambda b, w: b58.dgn_fused(b, w, seg), [B, W],
+                 [g_w, g_mm]),
+        [dB_plain(dh_p + dh_mm), dW_p], "DGNFused"))
+    errs["dgn_fused_bwd"] = err
+    log(f"[dgn] kernels agree with their plain versions: {errs}; "
+        f"share of tied [max, -min] columns {tie_share:.4f}")
+
+    # the library yardsticks: one PyTorch call each, checked against the
+    # plain version.  S [N*K, N] and T [E, N*K] hold W as sparse CSR
+    # matrices (rows v*K+k, and e), so S @ B is the weighted forward and
+    # T @ g the weighted backward's dh; scatter_reduce gives [max, -min]
+    # without the tie counts.
+    recv = k12.receivers(rp)
+    vk = (recv[:, None] * K + torch.arange(K, device=dev)).reshape(-1)
+    S = torch.sparse_coo_tensor(
+        torch.stack([vk, send.long().repeat_interleave(K)]), W.reshape(-1),
+        (N * K, N)).coalesce().to_sparse_csr()
+    T = torch.sparse_coo_tensor(
+        torch.stack([torch.arange(e_real, device=dev).repeat_interleave(K),
+                     vk]), W.reshape(-1), (e_real, N * K)
+    ).coalesce().to_sparse_csr()
+    hc = torch.cat([B[send.long()], -B[send.long()]], dim=1)
+    idx = recv[:, None].expand_as(hc)
+    zeros_2d = torch.zeros(N, 2 * d, device=dev)
+    library = {
+        "weighted_gather_fwd": lambda: torch.sparse.mm(S, B),
+        "weighted_gather_bwd": lambda: torch.sparse.mm(
+            T, g_w.view(N * K, d)),
+        "segment_minmax_fwd": lambda: zeros_2d.scatter_reduce(
+            0, idx, hc, "amax", include_self=False),
+    }
+    max_err(library["weighted_gather_fwd"]().view(N, K * d), out_p,
+            FWD_RTOL, FWD_ATOL, "library weighted forward")
+    max_err(library["weighted_gather_bwd"](), dh_p, FWD_RTOL, FWD_ATOL,
+            "library weighted dh")
+    max_err(library["segment_minmax_fwd"](), mm_p, FWD_RTOL, FWD_ATOL,
+            "library scatter max")
+
+    # bounds: B at the senders with edges, W, recv_ptr and send read
+    # once; every output row written once; the backward's node-level
+    # operands (g_w, mm, cnt, g_mm) at the receivers with edges, and dh
+    # at every real edge.  The main path's backward takes no dW (the
+    # weights do not need a gradient); its weighted-only part reads no B.
+    f32 = 4
+    walk = f32 * (n_send * d + N + 1 + e_real)
+    kd, mm_w = K * d, 2 * d
+    costs = {
+        "weighted_gather_fwd": (walk + f32 * (e_real * K + N * kd),
+                                2 * K * d * e_real),
+        "weighted_gather_bwd": (f32 * (e_real * K + n_recv * kd + N + 1
+                                       + e_real * d), 2 * K * d * e_real),
+        "segment_minmax_fwd": (walk + f32 * 2 * N * mm_w, 2 * d * e_real),
+        "segment_minmax_bwd": (walk + f32 * (3 * n_recv * mm_w
+                                             + e_real * d), 4 * d * e_real),
+        "dgn_fused_fwd": (walk + f32 * (e_real * K + N * kd + 2 * N * mm_w),
+                          (2 * K + 2) * d * e_real),
+        "dgn_fused_bwd": (walk + f32 * (e_real * K + n_recv * (kd + 3 * mm_w)
+                                        + e_real * d),
+                          (2 * K + 4) * d * e_real),
+    }
+    calls = {
+        "weighted_gather_fwd": (
+            lambda: b58.weighted_gather_fwd(B, W, rp, send),
+            lambda: b58.weighted_gather_fwd_plain(B, W, rp, send)),
+        "weighted_gather_bwd": (
+            lambda: b58.weighted_gather_bwd(B, W, g_w, rp, send),
+            lambda: b58.weighted_gather_bwd_plain(B, W, g_w, rp, send)),
+        "segment_minmax_fwd": (
+            lambda: b6.segment_minmax_fwd(B, rp, send),
+            lambda: b6.segment_minmax_fwd_plain(B, rp, send)),
+        "segment_minmax_bwd": (
+            lambda: b6.segment_minmax_bwd(B, mm, cnt, g_mm, rp, send),
+            lambda: b6.minmax_dh_plain(B, mm, cnt, g_mm, rp, send)),
+        "dgn_fused_fwd": (
+            lambda: b58.dgn_fused_fwd(B, W, rp, send),
+            lambda: b58.dgn_fused_fwd_plain(B, W, rp, send)),
+        "dgn_fused_bwd": (
+            lambda: b58.dgn_fused_bwd(B, W, g_w, mm, cnt, g_mm, rp, send),
+            lambda: b58.dgn_fused_bwd_plain(B, W, g_w, mm, cnt, g_mm, rp,
+                                            send)),
+    }
+    replaces = {
+        "weighted_gather_fwd": "gsn_tpu/ops/pallas/slab_weighted.py:76",
+        "weighted_gather_bwd": "gsn_tpu/ops/pallas/slab_weighted.py:102",
+        "segment_minmax_fwd": "gsn_tpu/ops/pallas/slab_minmax.py:119",
+        "segment_minmax_bwd": "gsn_tpu/ops/pallas/slab_minmax.py:140",
+        "dgn_fused_fwd": "gsn_tpu/ops/pallas/slab_weighted.py:294",
+        "dgn_fused_bwd": "gsn_tpu/ops/pallas/slab_weighted.py:315",
+    }
+    # B7 (slab_combine_minmax_cnt) has no slabs to combine here: its
+    # global max and tie count come out of the minmax forwards
+    folds = {"segment_minmax_fwd": "gsn_tpu/ops/pallas/slab_combine.py:119",
+             "dgn_fused_fwd": "gsn_tpu/ops/pallas/slab_combine.py:119"}
+    rows = {}
+    for name, (kernel, plain) in calls.items():
+        t_b, by = bound(*costs[name])
+        rows[name] = dict(
+            source="gsn_tpu_torch/csrc/dgn_aggregate.cu",
+            replaces=replaces[name], max_abs_err=errs[name], bound_ms=t_b,
+            bound_by=by, **timed(kernel, plain, library.get(name)))
+        if name in folds:
+            rows[name]["folds"] = folds[name]
+    torch.cuda.synchronize()
+
+    # ---- phase 9: small models, card vs CPU, one per dispatch branch -------
+    avg_d = compute_avg_d(graphs)
+    bce = LOSSES["BCEWithLogitsLoss"]
+    small = next(iterate_batches(graphs[:64], 64, y_shape=(),
+                                 y_dtype=np.float32))
+    counters = kernel_counters()
+    branch_kernels = {"fused": ("dgn_fused_fwd", "dgn_fused_bwd"),
+                      "weighted": ("weighted_gather_fwd",
+                                   "weighted_gather_bwd"),
+                      "minmax": ("segment_minmax_fwd", "segment_minmax_bwd")}
+    for branch, aggs in DGN_BRANCHES.items():
+        cfg = DGNConfig(hidden_dim=d, out_dim=d, num_layers=2,
+                        aggregators=aggs, avg_d=avg_d, dropout=0.0)
+        ref = build_dgn_model(cfg, torch.Generator().manual_seed(2))
+        preds, grads = {}, {}
+        for where in ("cpu", "cuda"):
+            m = copy.deepcopy(ref).to(where).train()
+            b = small.to(where)
+            before = {k: counters[k].launches for k in branch_kernels[branch]}
+            y_hat = m(b)
+            bce(y_hat, b.y, b.graph_mask).backward()
+            preds[where] = y_hat.detach().cpu()
+            grads[where] = [p.grad.detach().cpu() for p in m.parameters()]
+            ran = {k: counters[k].launches - n for k, n in before.items()}
+            want = cfg.num_layers if where == "cuda" else 0
+            if any(n != want for n in ran.values()):
+                raise AssertionError(f"{branch} branch on {where}: "
+                                     f"launches {ran}, expected {want} each")
+        err = max(max_err(preds["cuda"], preds["cpu"], FWD_RTOL, FWD_ATOL,
+                          f"DGN {branch} prediction (card vs CPU)"),
+                  grad_check(grads["cuda"], grads["cpu"],
+                             f"DGN {branch} gradients (card vs CPU)"))
+        log(f"[dgn] {branch} branch {aggs}: model on the card vs the CPU "
+            f"max abs err {err}")
+
+    # ---- phase 10: the DGN main path (bench.py::bench_dgn) -----------------
+    cfg = DGNConfig(hidden_dim=d, out_dim=d, num_layers=4,
+                    aggregators=DGN_AGGS, scalers=("identity",),
+                    avg_d=avg_d, dropout=0.3, readout="mean",
+                    out_features=1)
+    tcfg = TrainerConfig(lr=1e-3, batch_size=1024, scheduler="None",
+                         loss_fn="BCEWithLogitsLoss", prediction_fn="None")
+    trainer = Trainer(cfg, tcfg, graphs, model=DGNNet(cfg))
+    state = trainer.init_state(seed=0)
+    L = cfg.num_layers
+    # K3: the node sums of build_agg_ctx, the mean readout and each
+    # layer's dB; K4: the readout's backward
+    per_step = {"dgn_fused_fwd": L, "dgn_fused_bwd": L,
+                "segment_sum_sorted": L + 2, "segment_broadcast": 1}
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, step_s, launches = train_steps(trainer, state, data,
+                                                  STEPS, counters)
+    log(f"[dgn] losses {losses}")
+    log(f"[dgn] launches in {STEPS} steps: {launches}")
+    expect_launches(launches, per_step, STEPS, "DGN path")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"DGN loss did not fall: {losses}")
+    for name in ("dgn_fused_fwd", "dgn_fused_bwd"):
+        rows[name].update(launches=launches[name], path="dgn")
+    med = statistics.median(step_s[1:])
+    log(f"[dgn] train step median {med * 1e3:.3f} ms over {STEPS - 1} "
+        f"steps (first {step_s[0] * 1e3:.1f} ms), "
+        f"{e_real / med:.4e} real edges/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+
+    # ---- phase 11: the weighted-only and minmax-only paths -----------------
+    for branch in ("weighted", "minmax"):
+        cfg_b = dataclasses.replace(cfg, aggregators=DGN_BRANCHES[branch])
+        tr = Trainer(cfg_b, tcfg, graphs, model=DGNNet(cfg_b))
+        fwd, bwd = branch_kernels[branch]
+        _, b_losses, b_s, b_launches = train_steps(
+            tr, tr.init_state(seed=0), data, BRANCH_STEPS, counters)
+        expect_launches(b_launches, {fwd: L, bwd: L,
+                                     "segment_sum_sorted": L + 2,
+                                     "segment_broadcast": 1},
+                        BRANCH_STEPS, f"DGN {branch} path")
+        for name in (fwd, bwd):
+            rows[name].update(launches=b_launches[name],
+                              path=f"dgn-{branch}")
+        log(f"[dgn] {branch} path: losses {b_losses}, launches "
+            f"{b_launches}, median step "
+            f"{statistics.median(b_s[1:]) * 1e3:.3f} ms")
+
+    # ---- phase 12 ----------------------------------------------------------
+    profile_steps(trainer, state, data, med * 1e3, "dgn")
+    return rows
 
 
 def main():
@@ -410,47 +797,34 @@ def main():
                          loss_fn="L1Loss", prediction_fn="L1Loss")
     trainer = Trainer(cfg, tcfg, graphs)
     state = trainer.init_state(seed=0)
-    kernels = {"edge_message_fwd": k12.edge_message_fwd,
-               "edge_message_bwd_recv": k12.edge_message_bwd_recv,
-               "segment_sum_sorted": k3.segment_sum_sorted,
-               "segment_broadcast": k4.segment_broadcast}
+    counters = kernel_counters()
     L = cfg.num_layers
     per_step = {"edge_message_fwd": L, "edge_message_bwd_recv": L,
                 "segment_sum_sorted": L + (L + 1),
                 "segment_broadcast": L + 1}
-    for fn in kernels.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    losses, step_s = [], []
-    for _ in range(STEPS):
-        t0 = time.perf_counter()
-        state, loss = trainer.train_step(state, data)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        losses.append(float(loss))
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    state, losses, step_s, launches = train_steps(trainer, state, data,
+                                                  STEPS, counters)
     log(f"[smoke] losses {losses}")
     log(f"[smoke] launches in {STEPS} steps: {launches}")
-    for name, n in launches.items():
-        if n != per_step[name] * STEPS:
-            raise AssertionError(f"{name}: {n} launches in {STEPS} steps, "
-                                 f"expected {per_step[name] * STEPS}")
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite loss: {losses}")
+    expect_launches(launches, per_step, STEPS, "zinc path")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
+    for name in per_step:
+        rows[name].update(launches=launches[name], path="zinc")
     med = statistics.median(step_s[1:])
     log(f"[smoke] train step median {med * 1e3:.3f} ms over {STEPS - 1} "
         f"steps (first {step_s[0] * 1e3:.1f} ms), "
         f"{e_real / med:.4e} real edges/s ({card})")
 
-    profile_steps(trainer, state, data, med * 1e3)
+    profile_steps(trainer, state, data, med * 1e3, "zinc")
+
+    rows.update(dgn_phases(dev, card, timed))
 
     # kernel_ms and bound_us repeat ms and bound_ms in the units the
     # port's kernel table uses
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", launches=launches[name], **row,
-             kernel_ms=row["ms"], bound_us=row["bound_ms"] * 1e3)
+        dict(name=name, route="cuda", **row, kernel_ms=row["ms"],
+             bound_us=row["bound_ms"] * 1e3)
         for name, row in rows.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,19 @@
 """Synthetic molecule-shaped datasets for smoke runs and benchmarks.
 
-A copy of ``bench.py``'s ZINC-like generator (``_molecule_graphs`` and
-``make_zinc_like``), so the port builds the benchmark's inputs without
-importing the JAX package: chains of 15-34 atoms with n/4 random chords,
-28 atom types, 4 bond types, and cycle counts for k=3..8 as global-scope
-identifiers.
+A copy of ``bench.py``'s generators (``_molecule_graphs``,
+``make_zinc_like`` and ``make_dgn_like``), so the port builds the
+benchmark's inputs without importing the JAX package: chains of 15-34
+atoms with n/4 random chords.  ZINC-like graphs have 28 atom types, 4
+bond types, and cycle counts for k=3..8 as global-scope identifiers;
+DGN-like graphs have the 9 OGB atom fields and, as their edge-level
+vector field, local-scope cycle counts for k=3..6.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .directional import assemble_directions
 from .encoding import encode
 from .pipeline import generate_dataset
 from gsn_tpu_torch.graphs.patterns import cycle_graph
@@ -46,3 +49,20 @@ def make_zinc_like(num_graphs, seed=0):
                                  induced=False)
     graphs, _eid, d_id, _ed, _dd = encode(graphs, "one_hot_unique")
     return graphs, d_id
+
+
+def make_dgn_like(num_graphs, seed=0):
+    """molhiv-scale DGN inputs: 9-field atom categoricals, edge-level
+    cycle-count vector field (reference directional_gsn
+    molhiv_10_runs.sh: --directions subgraphs --id_type cycle_graph
+    --k 6 --id_scope local)."""
+    graphs = _molecule_graphs(num_graphs, seed,
+                              [119, 4, 12, 12, 10, 6, 6, 2, 2],
+                              [5, 6, 2])
+    for g in graphs:
+        g.pop("edge_features")
+    vocab = [cycle_graph(k) for k in (3, 4, 5, 6)]
+    graphs, _ = generate_dataset(graphs, vocab, id_scope="local",
+                                 induced=False)
+    return assemble_directions(graphs, directions=("subgraphs",),
+                               id_scope="local")

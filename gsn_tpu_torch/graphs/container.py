@@ -54,6 +54,9 @@ class GraphBatch:
     in_degree: Any                  # [N]     float32
     identifiers: Any = None         # [N, K] or [E, K]
     edge_features: Any = None       # [E, De]
+    # DGN vector fields: node- and edge-level eigenvectors or counts
+    node_eig: Any = None            # [N, Dv] float32
+    edge_eig: Any = None            # [E, Dv] float32, receiver-sorted
     flow: str = "source_to_target"  # which edge_index row is the receiver
 
     @property
@@ -123,7 +126,8 @@ def batch_graphs(
     Each graph dict has keys: ``x`` [n, Dx], ``edge_index`` [2, e],
     ``degrees`` [n] or [n, Kd], ``y``, and optionally ``identifiers``
     ([n, K] for vertex scope / [e, K] for edge scope) and
-    ``edge_features`` [e, De].
+    ``edge_features`` [e, De], ``node_eig`` [n, Dv] and ``edge_eig``
+    [e, Dv] (the DGN vector fields, float32).
     """
     n_tot = sum(g["x"].shape[0] for g in graphs)
     e_tot = sum(g["edge_index"].shape[1] for g in graphs)
@@ -177,6 +181,13 @@ def batch_graphs(
 
     y = np.zeros((graph_cap,) + y_shape, dtype=y_dtype)
 
+    has_neig = g0.get("node_eig") is not None
+    has_eeig = g0.get("edge_eig") is not None
+    node_eig = (np.zeros((node_cap, g0["node_eig"].shape[1]), np.float32)
+                if has_neig else None)
+    edge_eig = (np.zeros((edge_cap, g0["edge_eig"].shape[1]), np.float32)
+                if has_eeig else None)
+
     n_off, e_off = 0, 0
     for gi, g in enumerate(graphs):
         n, e = g["x"].shape[0], g["edge_index"].shape[1]
@@ -195,6 +206,10 @@ def batch_graphs(
                 identifiers[n_off:n_off + n] = ids
         if has_ef:
             edge_features[e_off:e_off + e] = g["edge_features"]
+        if has_neig:
+            node_eig[n_off:n_off + n] = g["node_eig"]
+        if has_eeig:
+            edge_eig[e_off:e_off + e] = g["edge_eig"]
         yg = np.asarray(g["y"])
         y[gi] = yg.reshape(y_shape) if y_shape else yg.reshape(())
         n_off += n
@@ -209,6 +224,8 @@ def batch_graphs(
         edge_features = edge_features[perm]
     if has_ids and id_on_edges:
         identifiers = identifiers[perm]
+    if has_eeig:
+        edge_eig = edge_eig[perm]
     recv = edge_index[select, :e_tot]
     send = edge_index[1 - select, :e_tot]
     send_perm = np.argsort(send, kind="stable").astype(np.int32)
@@ -222,4 +239,5 @@ def batch_graphs(
         send_ptr=_csr(send, node_cap),
         graph_ptr=_csr(batch_vec[:n_tot], graph_cap),
         in_degree=np.bincount(recv, minlength=node_cap).astype(np.float32),
-        identifiers=identifiers, edge_features=edge_features, flow=flow)
+        identifiers=identifiers, edge_features=edge_features,
+        node_eig=node_eig, edge_eig=edge_eig, flow=flow)

@@ -2,8 +2,14 @@
 
 Ported so far: ``GNNSubstructures`` (reference
 ``models_graph_classification.py:15-247``) for the sparse GSN/MPNN model
-names, in f32.  ``GNN_OGB`` (virtual node), ``MLPSubstructures``, random
-features and the bf16 compute dtype raise until a later slice ports them.
+names, in f32, and ``NodeDropout``.  ``GNN_OGB`` (virtual node),
+``MLPSubstructures``, random features and the bf16 compute dtype raise
+until a later slice ports them.  (The DGN model is ``nn/dgn.py``.)
+
+Dropout draws its masks from the ``torch.Generator`` the caller passes
+to ``forward`` (the trainer's seeded generator on the batch's device),
+so a seed fixes them.  They are not the reference's masks: JAX's
+threefry and PyTorch's generators give different bits.
 """
 
 from __future__ import annotations
@@ -12,7 +18,6 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from gsn_tpu_torch.config import GSNConfig
 from gsn_tpu_torch.graphs.container import GraphBatch
@@ -23,6 +28,33 @@ from .embedding import DiscreteEmbedding
 from .filters import GSNLayer
 from .init import init_parameters
 from .mlp import MLP, choose_activation
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale it by 1/(1 - rate); identity outside training or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+    return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
+
+
+class NodeDropout(nn.Module):
+    """Dropout over node rows (reference ``gsn_tpu/nn/models.py``
+    ``NodeDropout``).  The reference's edge-partition fold and its
+    ``rbg`` bit generator belong to its sharded TPU path; here the mask
+    comes from the generator passed in."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        return dropout(x, self.rate, self.training, generator)
 
 
 def _pool_fn(readout: str):
@@ -124,7 +156,9 @@ class GNNSubstructures(nn.Module):
                 proj = nn.Linear(w, c.out_features)
             setattr(self, f"lin_proj_{i}", proj)
 
-    def forward(self, data: GraphBatch) -> torch.Tensor:
+    def forward(self, data: GraphBatch,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         c = self.cfg
         if data.flow != c.flow:
             raise ValueError(f"batch built for flow {data.flow!r}, model "
@@ -166,8 +200,8 @@ class GNNSubstructures(nn.Module):
             proj_fn = getattr(self, f"lin_proj_{i}")
             proj = (proj_fn(xg, data.graph_mask) if c.jk_mlp
                     else proj_fn(xg))
-            if c.dropout_features[i] > 0.0:
-                proj = F.dropout(proj, c.dropout_features[i], self.training)
+            proj = dropout(proj, c.dropout_features[i], self.training,
+                           generator)
             prediction = prediction + proj
         return prediction
 

@@ -48,6 +48,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "segment_broadcast": {
         "gsn_segment_broadcast": [P, P, I, P, I, I, P],
     },
+    "dgn_aggregate": {
+        "gsn_dgn_aggregate_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, P],
+        "gsn_dgn_aggregate_bwd": [P, P, P, P, P, P, P, P, P, P,
+                                  I, I, I, I, I, I, P],
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -37,7 +37,8 @@ class EdgeSegments(NamedTuple):
     send_perm: torch.Tensor   # [E_real] int32 positions, sender-sorted
 
 
-def _receivers(recv_ptr: torch.Tensor) -> torch.Tensor:
+def receivers(recv_ptr: torch.Tensor) -> torch.Tensor:
+    """[E] int64 receiver of each edge from the CSR offsets ``recv_ptr``."""
     n = recv_ptr.numel() - 1
     return torch.repeat_interleave(
         torch.arange(n, device=recv_ptr.device), recv_ptr.diff())
@@ -62,7 +63,7 @@ def _check_act(act: str) -> None:
 def edge_message_fwd_plain(A, B, Pe, b1, recv_ptr, send, act="relu"):
     """Plain PyTorch version of K1."""
     _check_act(act)
-    recv = _receivers(recv_ptr)
+    recv = receivers(recv_ptr)
     h = _pre_activation(A, B, Pe, b1, recv, send)
     if act == "relu":
         h = torch.relu(h)
@@ -75,7 +76,7 @@ def edge_message_bwd_recv_plain(A, B, Pe, b1, g, recv_ptr, send,
                                 act="relu", num_edge_slots=None):
     """Plain PyTorch version of K2: (dH [slots, d], dA [N, d] or None)."""
     _check_act(act)
-    recv = _receivers(recv_ptr)
+    recv = receivers(recv_ptr)
     dh = g[recv]
     if act == "relu":
         h = _pre_activation(A, B, Pe, b1, recv, send)

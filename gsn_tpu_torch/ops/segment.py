@@ -39,6 +39,25 @@ def masked_segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
     return total / denom.reshape((-1,) + (1,) * (data.dim() - 1))
 
 
+def masked_segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                       num_segments: int,
+                       mask: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Max; empty segments get 0 (DGL's max_nodes yields 0 on empty).
+    Plain PyTorch (``scatter_reduce`` amax): it serves the softmax
+    aggregator's logit max, the max readout and the plain aggregators;
+    the DGN layer's max/min run their kernel
+    (``ops/cuda/slab_minmax.py``)."""
+    if mask is not None:
+        data = torch.where(mask.reshape((-1,) + (1,) * (data.dim() - 1)),
+                           data, torch.full_like(data, float("-inf")))
+    out = torch.full((num_segments,) + tuple(data.shape[1:]),
+                     float("-inf"), dtype=data.dtype, device=data.device)
+    idx = segment_ids.long().reshape((-1,) + (1,) * (data.dim() - 1))
+    out = out.scatter_reduce(0, idx.expand_as(data), data, "amax")
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+
+
 def global_add_pool(x: torch.Tensor, graph_ptr: torch.Tensor
                     ) -> torch.Tensor:
     """Per-graph sum readout (reference global_add_pool_sparse) through

@@ -1,8 +1,8 @@
 """Training / evaluation engine (counterpart of
 ``gsn_tpu/train/loop.py``).
 
-Ported so far: ``Trainer.__init__``, ``init_state``, ``train_step`` and
-``evaluate``.  The epoch loop (``fit``), checkpoints and the OGB
+Ported so far: ``Trainer.__init__`` (with the reference's ``model=``),
+``init_state``, ``train_step`` and ``evaluate``.  The epoch loop (``fit``), checkpoints and the OGB
 evaluator metrics wait for a later slice.
 
 The trainer runs on the CUDA card unless the caller passes
@@ -13,6 +13,7 @@ their plain PyTorch versions do.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, List, Optional
 
@@ -23,6 +24,7 @@ from gsn_tpu_torch.graphs.batching import (epoch_caps, infer_y_spec,
                                            iterate_batches,
                                            tight_epoch_caps)
 from gsn_tpu_torch.graphs.container import GraphBatch
+from gsn_tpu_torch.nn.init import init_parameters
 from gsn_tpu_torch.nn.models import build_model
 from .metrics import LOSSES, PREDICTION_FNS
 from .optim import make_optimizer, make_scheduler
@@ -50,6 +52,7 @@ def full_f32_matmuls() -> None:
 class TrainState:
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
+    dropout_gen: torch.Generator   # dropout masks, on the model's device
     epoch: int = 0
 
 
@@ -67,14 +70,20 @@ class TrainerConfig:
 
 class Trainer:
     """Owns the model config, loss, scheduler and batching policy; the
-    model and optimizer live in the ``TrainState`` from ``init_state``."""
+    model and optimizer live in the ``TrainState`` from ``init_state``.
+
+    ``model`` (as in the reference trainer) is a module to train in
+    place of ``build_model(model_cfg)``, e.g. ``DGNNet(cfg)``; each
+    ``init_state`` trains a copy of it with fresh weights."""
 
     def __init__(self, model_cfg, tcfg: TrainerConfig,
-                 graphs_train: List[Dict], device=None):
+                 graphs_train: List[Dict], device=None,
+                 model: Optional[torch.nn.Module] = None):
         self.device = resolve_device(device)
         full_f32_matmuls()
         self.model_cfg = (model_cfg.finalize()
                           if hasattr(model_cfg, "finalize") else model_cfg)
+        self.model = model
         self.tcfg = tcfg
         self.loss_fn = LOSSES[tcfg.loss_fn]
         self.pred_fn = PREDICTION_FNS.get(tcfg.prediction_fn)
@@ -87,12 +96,22 @@ class Trainer:
 
     def init_state(self, seed: int = 0) -> TrainState:
         """Fresh weights drawn from ``torch.Generator`` seeded with
-        ``seed``, on the trainer's device, with a new optimizer."""
+        ``seed``, on the trainer's device, with a new optimizer; the
+        dropout masks come from a generator on that device seeded with
+        ``seed + 1`` (the reference's dropout key)."""
         gen = torch.Generator().manual_seed(seed)
-        model = build_model(self.model_cfg, gen).to(self.device)
+        if self.model is None:
+            model = build_model(self.model_cfg, gen)
+        else:
+            model = copy.deepcopy(self.model)
+            init_parameters(model, gen)
+        model = model.to(self.device)
         opt = make_optimizer(model.parameters(), self.tcfg.lr,
                              self.tcfg.regularization)
-        return TrainState(model=model, optimizer=opt)
+        dropout_gen = torch.Generator(device=self.device)
+        dropout_gen.manual_seed(seed + 1)
+        return TrainState(model=model, optimizer=opt,
+                          dropout_gen=dropout_gen)
 
     def to_device(self, data: GraphBatch) -> GraphBatch:
         """A host-built (numpy) batch moved to the trainer's device."""
@@ -110,7 +129,8 @@ class Trainer:
         for group in opt.param_groups:
             group["lr"] = self.scheduler.lr if lr is None else lr
         opt.zero_grad(set_to_none=True)
-        loss = self.loss_fn(model(data), data.y, data.graph_mask)
+        loss = self.loss_fn(model(data, state.dropout_gen), data.y,
+                            data.graph_mask)
         loss.backward()
         opt.step()
         return state, loss.detach()

@@ -6,8 +6,10 @@ machine with one (no JAX needed):
 
 Shapes are small and ragged (empty segments, a width that is not a
 multiple of 4 next to one that is) so both the float4 and the scalar
-paths run.  Tolerances: forward rtol 2e-4 / atol 2e-5, gradients rtol
-2e-3 / atol 1e-4 * max|g|.
+paths run; the DGN kernels also run at the DGN model's width (d=70)
+with inputs drawn from a few integers, so maxima tie.  Tolerances:
+forward rtol 2e-4 / atol 2e-5, gradients rtol 2e-3 / atol 1e-4 * max|g|;
+tie counts are exact.
 """
 
 import numpy as np
@@ -16,7 +18,9 @@ import torch
 
 from gsn_tpu_torch.ops.cuda import slab_combine as k3
 from gsn_tpu_torch.ops.cuda import slab_message as k12
+from gsn_tpu_torch.ops.cuda import slab_minmax as b6
 from gsn_tpu_torch.ops.cuda import slab_pool as k4
+from gsn_tpu_torch.ops.cuda import slab_weighted as b58
 
 pytestmark = pytest.mark.cuda
 FWD = dict(rtol=2e-4, atol=2e-5)
@@ -133,3 +137,102 @@ def test_kernels_count_launches_and_reject_bf16(dev):
     with pytest.raises(ValueError, match="activation"):
         k12.edge_message_fwd(rows, rows, None, rows[0], ptr,
                              ptr[:2].contiguous(), "id_sq")
+
+
+def tied_rows(gen, n, d, dev):
+    """Rows of small integers and zeros: many exact ties per column."""
+    x = torch.randint(-3, 4, (n, d), device=dev, generator=gen).float()
+    return torch.relu(x) * 0.5
+
+
+@pytest.mark.parametrize("d", [70, 64])
+@pytest.mark.parametrize("K", [1, 5])
+@pytest.mark.parametrize("op", ["weighted", "minmax", "fused"])
+def test_dgn_kernels(dev, d, K, op):
+    """K5/K6 in each instantiation against the plain versions: forward
+    (tie counts exact), the raw backward with dW, and the autograd
+    Function's dB and dW."""
+    rng = np.random.RandomState(d + K)
+    # 400 receivers over 1200 edges: rows without edges included
+    seg = k12.EdgeSegments(*(t.to(dev)
+                             for t in ragged_segments(rng, 400, 1200)))
+    assert (seg.recv_ptr.diff() == 0).any()
+    gen = torch.Generator(device=dev).manual_seed(K)
+    B = tied_rows(gen, 400, d, dev)
+    W = torch.rand(1200, K, device=dev, generator=gen)
+    g_w = torch.randn(400, K * d, device=dev, generator=gen)
+    g_mm = torch.randn(400, 2 * d, device=dev, generator=gen)
+    rp, send = seg.recv_ptr, seg.send
+    if op == "weighted":
+        torch.testing.assert_close(
+            b58.weighted_gather_fwd(B, W, rp, send),
+            b58.weighted_gather_fwd_plain(B, W, rp, send), **FWD)
+        got = b58.weighted_gather_bwd(B, W, g_w, rp, send, True)
+        want = b58.weighted_gather_bwd_plain(B, W, g_w, rp, send, True)
+        fn = lambda b, w: (b58.weighted_gather(b, w, seg),)  # noqa: E731
+        plain = lambda b, w: b58.weighted_gather_bwd_plain(  # noqa: E731
+            b, w, g_w, rp, send, True)
+        cots = (g_w,)
+    elif op == "minmax":
+        mm, cnt = b6.segment_minmax_fwd(B, rp, send)
+        mm_p, cnt_p = b6.segment_minmax_fwd_plain(B, rp, send)
+        torch.testing.assert_close(mm, mm_p, **FWD)
+        assert torch.equal(cnt, cnt_p)
+        assert (cnt_p > 1).any()
+        got = (b6.segment_minmax_bwd(B, mm, cnt, g_mm, rp, send),)
+        want = (b6.minmax_dh_plain(B, mm_p, cnt_p, g_mm, rp, send),)
+        fn = lambda b, w: (b6.segment_minmax(b, seg),)  # noqa: E731
+        plain = lambda b, w: (b6.minmax_dh_plain(  # noqa: E731
+            b, mm_p, cnt_p, g_mm, rp, send), None)
+        cots = (g_mm,)
+    else:
+        out, mm, cnt = b58.dgn_fused_fwd(B, W, rp, send)
+        out_p, mm_p, cnt_p = b58.dgn_fused_fwd_plain(B, W, rp, send)
+        torch.testing.assert_close(out, out_p, **FWD)
+        torch.testing.assert_close(mm, mm_p, **FWD)
+        assert torch.equal(cnt, cnt_p)
+        got = b58.dgn_fused_bwd(B, W, g_w, mm, cnt, g_mm, rp, send, True)
+        want = b58.dgn_fused_bwd_plain(B, W, g_w, mm_p, cnt_p, g_mm, rp,
+                                       send, True)
+        fn = lambda b, w: b58.dgn_fused(b, w, seg)  # noqa: E731
+        plain = lambda b, w: b58.dgn_fused_bwd_plain(  # noqa: E731
+            b, w, g_w, mm_p, cnt_p, g_mm, rp, send, True)
+        cots = (g_w, g_mm)
+    grad_close(got, want)
+
+    Bl = B.clone().requires_grad_(True)
+    Wl = W.clone().requires_grad_(op != "minmax")
+    outs = fn(Bl, Wl)
+    leaves = [Bl, Wl] if op != "minmax" else [Bl]
+    grads = torch.autograd.grad(
+        sum((o * c).sum() for o, c in zip(outs, cots)), leaves)
+    dh_p, dW_p = plain(B, W)
+    want = [k3.segment_sum_sorted_plain(dh_p, seg.send_ptr, seg.send_perm)]
+    if op != "minmax":
+        want.append(dW_p)
+    grad_close(grads, want)
+
+
+def test_dgn_kernels_count_launches_and_reject(dev):
+    seg = k12.EdgeSegments(*(t.to(dev) for t in ragged_segments(
+        np.random.RandomState(2), 50, 120)))
+    B = torch.randn(50, 8, device=dev)
+    W = torch.rand(120, 3, device=dev)
+    rp, send = seg.recv_ptr, seg.send
+    wrappers = (b58.weighted_gather_fwd, b58.weighted_gather_bwd,
+                b6.segment_minmax_fwd, b6.segment_minmax_bwd,
+                b58.dgn_fused_fwd, b58.dgn_fused_bwd)
+    before = [w.launches for w in wrappers]
+    out = b58.weighted_gather_fwd(B, W, rp, send)
+    b58.weighted_gather_bwd(B, W, out, rp, send)
+    mm, cnt = b6.segment_minmax_fwd(B, rp, send)
+    b6.segment_minmax_bwd(B, mm, cnt, mm, rp, send)
+    out, mm, cnt = b58.dgn_fused_fwd(B, W, rp, send)
+    b58.dgn_fused_bwd(B, W, out, mm, cnt, mm, rp, send)
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1] * 6
+    with pytest.raises(ValueError, match="weight columns"):
+        b58.weighted_gather_fwd(B, torch.rand(120, 17, device=dev), rp,
+                                send)
+    with pytest.raises(TypeError, match="dtype"):
+        b6.segment_minmax_fwd(B.bfloat16(), rp, send)
