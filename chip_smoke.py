@@ -51,6 +51,26 @@ Phases (any failure is an uncaught exception and a nonzero exit):
 11. Drive the weighted-only and minmax-only paths at the same width and
     depth for BRANCH_STEPS steps each, counters zeroed before each.
 12. Profile the DGN main path as phase 6 profiles the zinc one.
+13. Build the molhiv batch: 1024 molhiv-like graphs (9 atom and 3 bond
+    fields, induced edge-level cycle counts k=3..6 as ids; the port's
+    copy of ``bench.py::make_molhiv_like``), one batch at the tight caps;
+    print its real and slot node and edge counts.
+14. Hold B4 (``graph_broadcast``: K4 forward, K3 backward) against its
+    plain version at d=300, forward (padding rows exactly 0) and through
+    autograd, and K1/K2 in the ogb message's form (no A side, Pe given,
+    relu, zero b1) against theirs; time B4 as phase 3 times K4, and K1/K2
+    in this form and B4's backward on log lines of their own.
+15. Check a small ``GNN_OGB`` (d=32, 2 layers, virtual node, BN, dropout
+    0) on the card against the CPU on a 60-graph batch in 64 graph slots;
+    B4 and K1 must launch on the card.
+16. Drive the molhiv main path: ``bench.py::molhiv_cfg`` (GSN-VN-AF:
+    ``GNN_OGB``, ogb messages, local ids embedded to 300, d=300, hidden
+    600, 5 layers, virtual node, dropout 0.5, mean readout, BCE, Adam lr
+    1e-3) takes STEPS steps through ``Trainer.train_step``, launch
+    counters zeroed just before and read just after (per step: K1 5, K2
+    5, B4 5, K4 10, K3 15); prints the median step, real edges/s and peak
+    memory.
+17. Profile the molhiv main path as phase 6 profiles the zinc one.
 
 Then it prints three lines: ``{"kernels": [...]}`` (each kernel's
 checks, times, bound and its launches on the path named in its
@@ -78,6 +98,8 @@ DGN_D = 70
 DGN_AGGS = ("mean", "max", "min", "dir0-av", "dir1-av", "dir2-av",
             "dir3-av")
 DGN_K = 5
+# bench.py::molhiv_cfg: width (hidden 2x)
+MOLHIV_D = 300
 # one aggregator set per branch of the DGN layer's kernel dispatch
 DGN_BRANCHES = {
     "fused": DGN_AGGS,
@@ -207,7 +229,7 @@ def expect_launches(launches, per_step, steps, what):
 
 
 def profile_steps(trainer, state, data, step_ms, tag):
-    """Phases 6 and 12 (see module docstring)."""
+    """Phases 6, 12 and 17 (see module docstring)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -277,14 +299,15 @@ def zinc_cfg(GSNConfig, d_id):
 
 def kernel_counters():
     """Every kernel wrapper of the port, by name (each carries its
-    ``launches`` count)."""
+    ``launches`` count; B4's ``graph_broadcast`` counts its calls, whose
+    forwards are also in K4's count)."""
     from gsn_tpu_torch.ops.cuda import slab_combine as k3
     from gsn_tpu_torch.ops.cuda import slab_message as k12
     from gsn_tpu_torch.ops.cuda import slab_minmax as b6
     from gsn_tpu_torch.ops.cuda import slab_pool as k4
     from gsn_tpu_torch.ops.cuda import slab_weighted as b58
     fns = (k12.edge_message_fwd, k12.edge_message_bwd_recv,
-           k3.segment_sum_sorted, k4.segment_broadcast,
+           k3.segment_sum_sorted, k4.segment_broadcast, k4.graph_broadcast,
            b58.weighted_gather_fwd, b58.weighted_gather_bwd,
            b6.segment_minmax_fwd, b6.segment_minmax_bwd,
            b58.dgn_fused_fwd, b58.dgn_fused_bwd)
@@ -589,6 +612,205 @@ def dgn_phases(dev, card, timed):
     return rows
 
 
+def molhiv_cfg(GSNConfig, d_id):
+    """bench.py::molhiv_cfg, the molhiv GSN-VN-AF main path."""
+    return GSNConfig(
+        model_name="GSN_edge_sparse_ogb", num_layers=5, d_out=MOLHIV_D,
+        d_h=2 * MOLHIV_D, out_features=1, msg_kind="ogb", id_scope="local",
+        vn=True, dropout_features=0.5, readout="mean",
+        final_projection=[False], jk_mlp=False, id_embedding="embedding",
+        d_out_id_embedding=MOLHIV_D, input_node_encoder="atom_encoder",
+        edge_encoder="bond_encoder", input_vn_encoder="embedding",
+        in_features=9, in_edge_features=3, d_in_id=d_id)
+
+
+def molhiv_phases(dev, card, timed):
+    """Phases 13-17 (see module docstring); returns B4's kernel row."""
+    from gsn_tpu_torch.config import GSNConfig
+    from gsn_tpu_torch.data.synthetic import make_molhiv_like
+    from gsn_tpu_torch.graphs.batching import (iterate_batches,
+                                               tight_epoch_caps)
+    from gsn_tpu_torch.nn.models import build_model, edge_segments
+    from gsn_tpu_torch.ops.cuda import slab_combine as k3
+    from gsn_tpu_torch.ops.cuda import slab_message as k12
+    from gsn_tpu_torch.ops.cuda import slab_pool as k4
+    from gsn_tpu_torch.train.loop import Trainer, TrainerConfig
+    from gsn_tpu_torch.train.metrics import LOSSES
+
+    # ---- phase 13: the molhiv batch ----------------------------------------
+    t0 = time.perf_counter()
+    graphs, d_id = make_molhiv_like(1024)
+    caps = tight_epoch_caps(np.arange(len(graphs)), graphs, 1024)
+    host = next(iterate_batches(graphs, 1024, caps=caps, y_shape=(),
+                                y_dtype=np.float32))
+    data = host.to(dev)
+    N, E, G = data.num_node_slots, data.num_edge_slots, data.num_graph_slots
+    e_real = data.num_real_edges
+    seg = edge_segments(data)
+    rp, send, gp = seg.recv_ptr, seg.send, data.graph_ptr
+    n_recv = int((rp.diff() > 0).sum())
+    n_send = int((seg.send_ptr.diff() > 0).sum())
+    g_full = int((gp.diff() > 0).sum())
+    log(f"[molhiv] data {time.perf_counter() - t0:.1f} s: graphs "
+        f"{len(graphs)}, nodes {int(host.node_mask.sum())}/{N}, edges "
+        f"{e_real}/{E}, graph slots {G} ({g_full} with nodes), id vocab "
+        f"{d_id}; rows with edges: receivers {n_recv}, senders {n_send}")
+
+    # ---- phase 14: B4 and the ogb form of K1/K2 ----------------------------
+    d = MOLHIV_D
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    vn, g_node = rnd(G, d), rnd(N, d)
+    B, Pe, b1 = rnd(N, d), rnd(E, d), torch.zeros(d, device=dev)
+    out = k4.graph_broadcast(vn, gp, N)
+    out_p = k4.graph_broadcast_plain(vn, gp, N)
+    err = max_err(out, out_p, FWD_RTOL, FWD_ATOL, "graph_broadcast")
+    if out[~data.node_mask].any():
+        raise AssertionError("graph_broadcast: padding rows are not 0")
+    leaves = [vn.clone().requires_grad_(True) for _ in range(2)]
+    err = max(err, grad_check(
+        torch.autograd.grad((k4.graph_broadcast(leaves[0], gp, N)
+                             * g_node).sum(), leaves[:1]),
+        torch.autograd.grad((k4.graph_broadcast_plain(leaves[1], gp, N)
+                             * g_node).sum(), leaves[1:]),
+        "GraphBroadcast"))
+    msg_err = max_err(
+        k12.edge_message_fwd(None, B, Pe, b1, rp, send),
+        k12.edge_message_fwd_plain(None, B, Pe, b1, rp, send),
+        FWD_RTOL, FWD_ATOL, "edge_message_fwd[ogb]")
+    dH, dA = k12.edge_message_bwd_recv(None, B, Pe, b1, g_node, rp, send,
+                                       "relu", E)
+    dH_p, _ = k12.edge_message_bwd_recv_plain(None, B, Pe, b1, g_node, rp,
+                                              send, "relu", E)
+    if dA is not None:
+        raise AssertionError("edge_message_bwd_recv[ogb] returned dA")
+    msg_err = max(msg_err, max_err(dH, dH_p, FWD_RTOL, FWD_ATOL,
+                                   "edge_message_bwd_recv[ogb] dH"))
+    leaves = [t.clone().requires_grad_(True) for t in (B, Pe)]
+    ref = [t.clone().requires_grad_(True) for t in (B, Pe)]
+    msg_err = max(msg_err, grad_check(
+        torch.autograd.grad((k12.edge_message_aggregate(
+            None, *leaves, b1, seg, "relu") * g_node).sum(), leaves),
+        torch.autograd.grad((k12.edge_message_fwd_plain(
+            None, *ref, b1, rp, send) * g_node).sum(), ref),
+        "EdgeMessageAggregate[ogb]"))
+    log(f"[molhiv] at d={d}: B4 agrees with its plain version (max abs err "
+        f"{err}, padding rows 0); K1/K2 in the ogb form max abs err "
+        f"{msg_err}")
+
+    # B4's yardstick: one index_select over vn with a zero row appended
+    vn_ext = torch.cat([vn, torch.zeros(1, d, device=dev)])
+    node_graph = torch.where(data.node_mask, data.batch.long(),
+                             torch.full_like(data.batch.long(), G))
+    max_err(torch.index_select(vn_ext, 0, node_graph), out_p, FWD_RTOL,
+            FWD_ATOL, "library graph broadcast")
+    t_b, by = bound(4 * (g_full * d + N * d + G + 1), 0)
+    row = dict(source="gsn_tpu_torch/csrc/segment_broadcast.cu",
+               replaces="gsn_tpu/ops/pallas/slab_pool.py:201",
+               max_abs_err=err, bound_ms=t_b, bound_by=by,
+               **timed(lambda: k4.graph_broadcast(vn, gp, N),
+                       lambda: k4.graph_broadcast_plain(vn, gp, N),
+                       lambda: torch.index_select(vn_ext, 0, node_graph)))
+    # the ogb form of K1/K2 and B4's backward (K3 over graph_ptr), on
+    # log lines of their own (their rows hold the zinc path's form)
+    n_real = int(data.node_mask.sum())
+    zeros_gd = torch.zeros(G, d, device=dev)
+    batch_l = data.batch[:n_real].long()
+    extra = {
+        "edge_message_fwd[ogb]": (
+            (lambda: k12.edge_message_fwd(None, B, Pe, b1, rp, send)),
+            (lambda: k12.edge_message_fwd_plain(None, B, Pe, b1, rp, send)),
+            None,
+            bound(4 * ((n_send + N) * d + e_real * d + d + N + 1 + e_real),
+                  3 * e_real * d)),
+        "edge_message_bwd_recv[ogb]": (
+            (lambda: k12.edge_message_bwd_recv(None, B, Pe, b1, g_node, rp,
+                                               send, "relu", E)),
+            (lambda: k12.edge_message_bwd_recv_plain(
+                None, B, Pe, b1, g_node, rp, send, "relu", E)),
+            None,
+            bound(4 * ((n_recv + n_send) * d + e_real * d + E * d + d + N
+                       + 1 + e_real), 3 * e_real * d)),
+        "graph_broadcast backward (K3)": (
+            (lambda: k3.segment_sum_sorted(g_node, gp)),
+            (lambda: k3.segment_sum_sorted_plain(g_node, gp)),
+            (lambda: torch.index_add(zeros_gd, 0, batch_l,
+                                     g_node[:n_real])),
+            bound(4 * (n_real * d + G * d + G + 1), n_real * d)),
+    }
+    for name, (kernel, plain, library, (t_x, by_x)) in extra.items():
+        log(f"[molhiv] {name} "
+            + " ".join(f"{k} {v}" for k, v in
+                       timed(kernel, plain, library).items())
+            + f" bound_ms {t_x} bound_by {by_x}")
+    torch.cuda.synchronize()
+
+    # ---- phase 15: a small GNN_OGB, card vs CPU ----------------------------
+    counters = kernel_counters()
+    bce = LOSSES["BCEWithLogitsLoss"]
+    small_cfg = dataclasses.replace(
+        molhiv_cfg(GSNConfig, d_id), num_layers=2, d_out=32, d_h=64,
+        d_out_id_embedding=32, dropout_features=0.0)
+    small = next(iterate_batches(graphs[:60], 64, y_shape=(),
+                                 y_dtype=np.float32))
+    ref_model = build_model(small_cfg, torch.Generator().manual_seed(3))
+    preds, grads = {}, {}
+    for where in ("cpu", "cuda"):
+        m = copy.deepcopy(ref_model).to(where).train()
+        b = small.to(where)
+        before = {k: counters[k].launches
+                  for k in ("graph_broadcast", "edge_message_fwd")}
+        y_hat = m(b)
+        bce(y_hat, b.y, b.graph_mask).backward()
+        preds[where] = y_hat.detach().cpu()
+        grads[where] = [p.grad.detach().cpu() for p in m.parameters()]
+        ran = {k: counters[k].launches - n for k, n in before.items()}
+        want = small_cfg.num_layers if where == "cuda" else 0
+        if any(n != want for n in ran.values()):
+            raise AssertionError(f"small GNN_OGB on {where}: launches "
+                                 f"{ran}, expected {want} each")
+    small_err = max(max_err(preds["cuda"], preds["cpu"], FWD_RTOL, FWD_ATOL,
+                            "GNN_OGB prediction (card vs CPU)"),
+                    grad_check(grads["cuda"], grads["cpu"],
+                               "GNN_OGB gradients (card vs CPU)"))
+    log(f"[molhiv] small GNN_OGB on the card vs the CPU: max abs err "
+        f"{small_err}")
+
+    # ---- phase 16: the molhiv main path (bench.py::molhiv_cfg) -------------
+    cfg = molhiv_cfg(GSNConfig, d_id)
+    tcfg = TrainerConfig(lr=1e-3, batch_size=1024, scheduler="None",
+                         loss_fn="BCEWithLogitsLoss", prediction_fn="None")
+    trainer = Trainer(cfg, tcfg, graphs)
+    state = trainer.init_state(seed=0)
+    L = cfg.num_layers
+    # K3: each layer's dB, the L-1 VN sum pools and the mean readout, and
+    # each B4 backward; K4: each B4 forward and each pool's backward
+    per_step = {"edge_message_fwd": L, "edge_message_bwd_recv": L,
+                "graph_broadcast": L, "segment_broadcast": 2 * L,
+                "segment_sum_sorted": 3 * L}
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, step_s, launches = train_steps(trainer, state, data,
+                                                  STEPS, counters)
+    log(f"[molhiv] losses {losses}")
+    log(f"[molhiv] launches in {STEPS} steps: {launches}")
+    expect_launches(launches, per_step, STEPS, "molhiv path")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"molhiv loss did not fall: {losses}")
+    row.update(launches=launches["graph_broadcast"], path="molhiv")
+    med = statistics.median(step_s[1:])
+    log(f"[molhiv] train step median {med * 1e3:.3f} ms over {STEPS - 1} "
+        f"steps (first {step_s[0] * 1e3:.1f} ms), "
+        f"{e_real / med:.4e} real edges/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+
+    # ---- phase 17 ----------------------------------------------------------
+    profile_steps(trainer, state, data, med * 1e3, "molhiv")
+    return {"graph_broadcast": row}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -819,6 +1041,7 @@ def main():
     profile_steps(trainer, state, data, med * 1e3, "zinc")
 
     rows.update(dgn_phases(dev, card, timed))
+    rows.update(molhiv_phases(dev, card, timed))
 
     # kernel_ms and bound_us repeat ms and bound_ms in the units the
     # port's kernel table uses

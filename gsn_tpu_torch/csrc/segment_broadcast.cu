@@ -3,8 +3,9 @@
 //
 // Replaces gsn_tpu/ops/pallas/slab_pool.py: _pool_bwd_kernel, the
 // backward of slab_add_pool (dx = g[batch], 0 on padding nodes); the
-// same graph->node gather is slab_graph_broadcast's forward, which a
-// later slice reuses it for.  The TPU kernel built a graph one-hot per
+// same graph->node gather is slab_graph_broadcast's forward (B4, the
+// virtual node's broadcast), which launches it too.  The TPU kernel
+// built a graph one-hot per
 // node chunk and multiplied; here each warp owns one output row, finds
 // its segment by binary search over the sorted offsets, and copies the
 // segment's row.  Every output row is written, padding rows with zeros,

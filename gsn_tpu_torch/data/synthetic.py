@@ -1,11 +1,13 @@
 """Synthetic molecule-shaped datasets for smoke runs and benchmarks.
 
 A copy of ``bench.py``'s generators (``_molecule_graphs``,
-``make_zinc_like`` and ``make_dgn_like``), so the port builds the
-benchmark's inputs without importing the JAX package: chains of 15-34
-atoms with n/4 random chords.  ZINC-like graphs have 28 atom types, 4
-bond types, and cycle counts for k=3..8 as global-scope identifiers;
-DGN-like graphs have the 9 OGB atom fields and, as their edge-level
+``make_zinc_like``, ``make_molhiv_like`` and ``make_dgn_like``), so the
+port builds the benchmark's inputs without importing the JAX package:
+chains of 15-34 atoms with n/4 random chords.  ZINC-like graphs have 28
+atom types, 4 bond types, and cycle counts for k=3..8 as global-scope
+identifiers; molhiv-like graphs have the 9 OGB atom fields, the 3 OGB
+bond fields and induced edge-level (local-scope) cycle counts for
+k=3..6; DGN-like graphs have the atom fields and, as their edge-level
 vector field, local-scope cycle counts for k=3..6.
 """
 
@@ -47,6 +49,20 @@ def make_zinc_like(num_graphs, seed=0):
     vocab = [cycle_graph(k) for k in range(3, 9)]
     graphs, _ = generate_dataset(graphs, vocab, id_scope="global",
                                  induced=False)
+    graphs, _eid, d_id, _ed, _dd = encode(graphs, "one_hot_unique")
+    return graphs, d_id
+
+
+def make_molhiv_like(num_graphs, seed=0):
+    """OGB molhiv shapes: 9-field atom / 3-field bond categoricals,
+    edge-scope induced cycle counts (reference --id_scope local
+    --induced True --k 6)."""
+    graphs = _molecule_graphs(num_graphs, seed,
+                              [119, 4, 12, 12, 10, 6, 6, 2, 2],
+                              [5, 6, 2])
+    vocab = [cycle_graph(k) for k in (3, 4, 5, 6)]
+    graphs, _ = generate_dataset(graphs, vocab, id_scope="local",
+                                 induced=True)
     graphs, _eid, d_id, _ed, _dd = encode(graphs, "one_hot_unique")
     return graphs, d_id
 

@@ -5,12 +5,12 @@ Kinds ported so far:
 
 - ``one_hot_encoder``: per-column one-hot concat (vocab sizes d_in)
 - ``embedding``: per-column tables, summed or concatenated
-- ``atom_encoder``: OGB-style summed tables over the 9 atom fields
+- ``atom_encoder`` / ``bond_encoder``: OGB-style summed tables over the
+  9 atom / 3 bond fields
 - ``None``: passthrough (as float)
 
 The other kinds of the reference package (``zero_encoder``, ``linear``,
-``mlp``, the bond encoder, the one-hot OGB encoders) raise until a later
-slice needs them.
+``mlp``, the one-hot OGB encoders) raise until a later slice needs them.
 """
 
 from __future__ import annotations
@@ -23,6 +23,10 @@ from torch.nn import functional as F
 
 # ogb.utils.features allowable-feature vocabulary sizes
 ATOM_FEATURE_DIMS = [119, 4, 12, 12, 10, 6, 6, 2, 2]
+BOND_FEATURE_DIMS = [5, 6, 2]
+# the OGB kinds: summed tables over the standard feature vocabularies
+OGB_TABLES = {"atom_encoder": ATOM_FEATURE_DIMS,
+              "bond_encoder": BOND_FEATURE_DIMS}
 
 
 def _as_2d(x: torch.Tensor) -> torch.Tensor:
@@ -64,10 +68,11 @@ def one_hot_concat(x: torch.Tensor,
 
 class DiscreteEmbedding(nn.Module):
     """Uniform categorical/dense feature encoder (see module docstring).
-    The ``embedding`` and ``atom_encoder`` kinds hold their tables in
+    The ``embedding`` and OGB kinds hold their tables in
     ``MultiEmbedding_0``, the reference package's parameter path."""
 
-    KINDS = ("one_hot_encoder", "embedding", "atom_encoder", "None")
+    KINDS = ("one_hot_encoder", "embedding", "atom_encoder",
+             "bond_encoder", "None")
 
     def __init__(self, kind: str, d_in_features: int,
                  d_in_encoder: Optional[Sequence[int]],
@@ -84,13 +89,13 @@ class DiscreteEmbedding(nn.Module):
         if kind == "embedding":
             self.MultiEmbedding_0 = MultiEmbedding(
                 self.d_in_encoder, d_out_encoder, aggr, zeros_init)
-        elif kind == "atom_encoder":
-            self.MultiEmbedding_0 = MultiEmbedding(ATOM_FEATURE_DIMS,
+        elif kind in OGB_TABLES:
+            self.MultiEmbedding_0 = MultiEmbedding(OGB_TABLES[kind],
                                                    d_out_encoder, "sum")
 
     @property
     def d_out(self) -> int:
-        if self.kind == "atom_encoder":
+        if self.kind in OGB_TABLES:
             return self.d_out_encoder
         if self.kind == "one_hot_encoder":
             return sum(self.d_in_encoder)
@@ -103,6 +108,6 @@ class DiscreteEmbedding(nn.Module):
         x = _as_2d(x)
         if self.kind == "one_hot_encoder":
             return one_hot_concat(x, self.d_in_encoder)
-        if self.kind in ("embedding", "atom_encoder"):
+        if self.kind == "embedding" or self.kind in OGB_TABLES:
             return self.MultiEmbedding_0(x)
         return x.to(torch.float32)

@@ -1,10 +1,18 @@
 """GSN / MPNN message-passing layer (counterpart of
 ``gsn_tpu/nn/filters.py``).
 
-Ported so far: the ``general`` message kind (reference
-``GSN_sparse.py:157-176``): per-edge ``m = MLP(cat(x_i, x_j, ids, e))``,
-update ``MLP(cat(x, Σ_j m))``.  The ``gin`` and ``ogb`` kinds raise until
-a later slice ports them.
+Ported so far:
+
+- ``general`` (reference ``GSN_sparse.py:157-176``): per-edge
+  ``m = MLP(cat(x_i, x_j, ids, e))``, update ``MLP(cat(x, Σ_j m))``;
+- ``ogb`` (reference ``GSN_edge_sparse_ogb.py:119-129``):
+  ``m = relu(x_j + id + e)``, self message ``x + id`` (global scope)
+  else ``x``, update ``MLP((1+ε)·self + Σ_j m)``.  The message is K1/K2's
+  ``act(A[recv] + B[send] + Pe + b1)`` with no A side, ``B = x`` (plus
+  the ids at global scope), ``Pe`` the sum of the edge-level ids and
+  edge features, and a constant zero ``b1``.
+
+The ``gin`` kind raises until a later slice ports it.
 """
 
 from __future__ import annotations
@@ -139,11 +147,12 @@ class EdgeMessageMLP(nn.Module):
 
 
 class GSNLayer(nn.Module):
-    """One GSN/MPNN layer of the ``general`` kind.
+    """One GSN/MPNN layer of the ``general`` or ``ogb`` kind.
 
     ``d_in``: node feature width; ``d_id`` / ``d_ef`` / ``d_degree``: the
     encoded identifier, edge feature and degree widths (used when the
-    layer consumes them)."""
+    layer consumes them); ``train_eps``: the ogb kind's learned ε
+    (parameter ``eps``, initially 0), else ε = 0."""
 
     def __init__(self, d_in: int, d_up: int, d_msg: Optional[int] = None,
                  d_h: Sequence[int] = (), msg_kind: str = "general",
@@ -152,13 +161,15 @@ class GSNLayer(nn.Module):
                  d_ef: int = 0, degree_as_tag: bool = False,
                  d_degree: int = 0, retain_features: bool = True,
                  aggr: str = "add", flow: str = "target_to_source",
-                 activation_mlp: str = "elu", bn_mlp: bool = False):
+                 activation_mlp: str = "elu", bn_mlp: bool = False,
+                 train_eps: bool = False):
         super().__init__()
-        if msg_kind != "general":
+        if msg_kind not in ("general", "ogb"):
             raise NotImplementedError(
                 f"message kind {msg_kind!r} is not ported yet")
         if aggr not in ("add", "mean"):
             raise NotImplementedError(f"aggregation {aggr!r}")
+        self.msg_kind = msg_kind
         self.id_scope, self.use_ids = id_scope, use_ids
         self.use_edge_features = use_edge_features
         self.degree_as_tag, self.retain_features = (degree_as_tag,
@@ -166,6 +177,15 @@ class GSNLayer(nn.Module):
         self.aggr, self.flow = aggr, flow
         if degree_as_tag:
             d_in = d_in + d_degree if retain_features else d_degree
+        if msg_kind == "ogb":
+            # x + ids broadcasts to the wider of the two (global scope)
+            d_self = (max(d_in, d_id) if use_ids and id_scope == "global"
+                      else d_in)
+            if train_eps:
+                self.eps = nn.Parameter(torch.zeros(()))
+            self.update_fn = MLP(d_self, d_up, tuple(d_h), activation_mlp,
+                                 bn_mlp)
+            return
         node_parts = [(d_in, "both")]
         edge_parts = []
         if use_ids:
@@ -194,6 +214,9 @@ class GSNLayer(nn.Module):
         n_nodes = x.shape[0]
         select = 0 if self.flow == "target_to_source" else 1
         recv, send = edge_index[select], edge_index[1 - select]
+        if self.msg_kind == "ogb":
+            return self._ogb(x, recv, send, identifiers, edge_features,
+                             node_mask, edge_mask, seg)
 
         node_parts = [x]
         edge_parts = []
@@ -209,10 +232,50 @@ class GSNLayer(nn.Module):
                  and self.msg_fn.fusable)
         out = self.msg_fn(node_parts, edge_parts, recv, send, edge_mask,
                           seg if fused else None, in_degree)
-        if fused:
-            agg = out
-        elif self.aggr == "add":
-            agg = masked_segment_sum(out, recv, n_nodes, edge_mask)
-        else:
-            agg = masked_segment_mean(out, recv, n_nodes, edge_mask)
+        agg = out if fused else self._aggregate(out, recv, n_nodes,
+                                                edge_mask)
         return self.update_fn(torch.cat([x, agg], -1), node_mask)
+
+    def _aggregate(self, msgs, recv, n_nodes, edge_mask):
+        if self.aggr == "add":
+            return masked_segment_sum(msgs, recv, n_nodes, edge_mask)
+        return masked_segment_mean(msgs, recv, n_nodes, edge_mask)
+
+    def _ogb(self, x, recv, send, identifiers, edge_features, node_mask,
+             edge_mask, seg):
+        """The ``ogb`` kind (reference ``gsn_tpu/nn/filters.py:485-559``).
+        With ``seg`` and add aggregation the message runs K1/K2 (the
+        reference's slab path: ``pe = ids + e`` first, then the sender
+        row added inside the kernel); otherwise per edge,
+        ``relu((x_j + ids) + e)`` and a masked segment sum."""
+        ids = (identifiers.to(torch.float32) if self.use_ids else None)
+        ef = edge_features if self.use_edge_features else None
+        # self message and the kernel's sender side: x, plus the
+        # node-level ids at global scope
+        self_msg = x
+        if ids is not None and self.id_scope == "global":
+            self_msg = x + ids
+        if seg is not None and self.aggr == "add":
+            pe = None
+            for p in (ids if self.id_scope == "local" else None, ef):
+                if p is not None:
+                    pe = p if pe is None else pe + p
+            dm = self_msg.shape[-1]
+            if pe is not None and pe.shape[-1] != dm:
+                if pe.shape[-1] != 1:
+                    raise ValueError(
+                        f"ogb message: edge-level width {pe.shape[-1]} "
+                        f"does not broadcast to the node width {dm}")
+                pe = pe.expand(-1, dm)
+            b1 = torch.zeros(dm, dtype=torch.float32, device=x.device)
+            agg = edge_message_aggregate(None, self_msg, pe, b1, seg, "relu")
+        else:
+            m = self_msg[send]
+            if ids is not None and self.id_scope == "local":
+                m = m + ids
+            if ef is not None:
+                m = m + ef
+            agg = self._aggregate(torch.relu(m), recv, x.shape[0],
+                                  edge_mask)
+        fac = 1.0 + self.eps if hasattr(self, "eps") else 1.0
+        return self.update_fn(fac * self_msg + agg, node_mask)

@@ -32,7 +32,8 @@ def init_parameters(model: nn.Module,
 
     ``nn.Linear``: lecun-normal weight (fan-in = in_features), zero bias.
     ``nn.Embedding``: xavier-uniform table (zeros where the owner set
-    ``zeros_init``).  Loose bias parameters (``*_bias``): zeros.
+    ``zeros_init``).  Loose bias parameters (``*_bias``) and the ogb
+    layer's learned ``eps``: zeros.
     Batch-norm affine and running statistics: ones / zeros."""
     for module in model.modules():
         if isinstance(module, nn.Linear):
@@ -49,5 +50,5 @@ def init_parameters(model: nn.Module,
                 lim = math.sqrt(6.0 / (v + d))
                 module.weight.uniform_(-lim, lim, generator=generator)
         for name, p in module.named_parameters(recurse=False):
-            if name.endswith("_bias"):
+            if name.endswith("_bias") or name == "eps":
                 p.zero_()

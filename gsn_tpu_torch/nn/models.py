@@ -1,10 +1,13 @@
 """Model assemblies (counterpart of ``gsn_tpu/nn/models.py``).
 
-Ported so far: ``GNNSubstructures`` (reference
+Ported so far, in f32: ``GNNSubstructures`` (reference
 ``models_graph_classification.py:15-247``) for the sparse GSN/MPNN model
-names, in f32, and ``NodeDropout``.  ``GNN_OGB`` (virtual node),
-``MLPSubstructures``, random features and the bf16 compute dtype raise
-until a later slice ports them.  (The DGN model is ``nn/dgn.py``.)
+names, ``GNN_OGB`` (reference
+``models_graph_classification_ogb_original.py:17-268``, with or without
+the virtual node) for the ``*_edge_sparse_ogb`` names, and
+``NodeDropout``.  ``MLPSubstructures``, random features and the bf16
+compute dtype raise until a later slice ports them.  (The DGN model is
+``nn/dgn.py``.)
 
 Dropout draws its masks from the ``torch.Generator`` the caller passes
 to ``forward`` (the trainer's seeded generator on the batch's device),
@@ -23,7 +26,8 @@ from gsn_tpu_torch.config import GSNConfig
 from gsn_tpu_torch.graphs.container import GraphBatch
 from gsn_tpu_torch.ops.cuda.slab_message import EdgeSegments
 from gsn_tpu_torch.ops.norm import MaskedBatchNorm
-from gsn_tpu_torch.ops.segment import global_add_pool, global_mean_pool
+from gsn_tpu_torch.ops.segment import (broadcast_graph_to_nodes,
+                                       global_add_pool, global_mean_pool)
 from .embedding import DiscreteEmbedding
 from .filters import GSNLayer
 from .init import init_parameters
@@ -206,8 +210,141 @@ class GNNSubstructures(nn.Module):
         return prediction
 
 
+class GNN_OGB(nn.Module):
+    """OGB model with virtual node (reference
+    models_graph_classification_ogb_original.py:17-268).
+
+    Each layer adds the graph's virtual node to its node rows (B4) and
+    the sum is what the conv, the pool into the next virtual node and
+    the residual read; then the ``ogb`` conv, BN, relu (not in the last
+    layer) and node dropout.  Between layers the virtual node becomes
+    ``Dropout(relu(MLP(sum_pool(h) + vn)))``, its MLP's BN over the real
+    graph slots.  The readout is the pool of the summed
+    ``final_projection`` layers, then ``lin_proj``.  Submodule names
+    follow the reference package's parameter paths."""
+
+    def __init__(self, cfg: GSNConfig):
+        super().__init__()
+        c = self.cfg = cfg
+        if c.compute_dtype:
+            raise NotImplementedError(
+                f"compute_dtype {c.compute_dtype!r}: the port runs f32 only")
+        L = len(c.d_out)
+        self.act = choose_activation(c.activation)
+        self.use_degrees = any(c.degree_as_tag)
+        if self.use_degrees:
+            self.degree_encoder = DiscreteEmbedding(
+                c.degree_embedding, 1, c.d_degree, c.d_out_degree_embedding,
+                aggr=c.multi_embedding_aggr)
+        self.input_node_encoder = DiscreteEmbedding(
+            c.input_node_encoder, c.in_features, c.d_in_node_encoder,
+            c.d_out_node_encoder, aggr=c.multi_embedding_aggr)
+        with_ids = c.model_name == "GSN_edge_sparse_ogb"
+        d_id = 0
+        if with_ids:
+            for j in range(L if c.inject_ids else 1):
+                setattr(self, f"id_encoder_{j}", DiscreteEmbedding(
+                    c.id_embedding, len(c.d_in_id), c.d_in_id,
+                    c.d_out_id_embedding, aggr=c.multi_embedding_aggr))
+            d_id = self.id_encoder_0.d_out
+        for j in range(L):
+            setattr(self, f"edge_encoder_{j}", DiscreteEmbedding(
+                c.edge_encoder, c.in_edge_features, c.d_in_edge_encoder,
+                c.d_out_edge_encoder[j], aggr=c.multi_embedding_aggr))
+        d_deg = self.degree_encoder.d_out if self.use_degrees else 0
+        if c.vn:
+            # zeros-init embedding of a single category (reference :77-86)
+            self.vn_encoder = DiscreteEmbedding(
+                c.input_vn_encoder, 1, [1], c.d_out_vn_encoder,
+                aggr=c.multi_embedding_aggr, zeros_init=True)
+            d_vn = self.vn_encoder.d_out
+
+        widths = [self.input_node_encoder.d_out]
+        for i in range(L):
+            use_ids = ((i > 0 and c.inject_ids) or i == 0) and with_ids
+            d_x = max(widths[-1], d_vn) if c.vn else widths[-1]
+            setattr(self, f"conv_{i}", GSNLayer(
+                d_x, c.d_out[i], c.d_msg[i], tuple(c.d_h[i]),
+                msg_kind="ogb", id_scope=c.id_scope, use_ids=use_ids,
+                use_edge_features=True, d_id=d_id,
+                degree_as_tag=c.degree_as_tag[i], d_degree=d_deg,
+                retain_features=c.retain_features[i], aggr=c.aggr,
+                flow=c.flow, activation_mlp=c.activation_mlp,
+                bn_mlp=c.bn_mlp, train_eps=c.train_eps[i]))
+            if c.bn[i]:
+                setattr(self, f"bn_{i}", MaskedBatchNorm(c.d_out[i]))
+            if c.vn and i < L - 1:
+                setattr(self, f"mlp_vn_{i}", MLP(
+                    d_x, c.d_out_vn[i], tuple(c.d_h[i]), c.activation_mlp,
+                    c.bn_mlp))
+                d_vn = c.d_out_vn[i]
+            widths.append(c.d_out[i])
+        self.lin_proj = nn.Linear(widths[-1], c.out_features)
+
+    def forward(self, data: GraphBatch,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        c = self.cfg
+        if data.flow != c.flow:
+            raise ValueError(f"batch built for flow {data.flow!r}, model "
+                             f"uses {c.flow!r}")
+        nm, em = data.node_mask, data.edge_mask
+        L = len(c.d_out)
+        pool = _make_pool(c.readout, data)
+        vn_pool = _make_pool(c.vn_pooling, data)
+        seg = edge_segments(data)
+        degrees = (self.degree_encoder(data.degrees)
+                   if self.use_degrees else None)
+        x = self.input_node_encoder(data.x)
+        n_nodes = x.shape[0]
+        if c.vn:
+            vn = self.vn_encoder(torch.zeros(
+                data.num_graph_slots, 1, dtype=torch.long, device=x.device))
+
+        x_interm = [x]
+        for i in range(L):
+            conv = getattr(self, f"conv_{i}")
+            ids_i = ef_i = None
+            if conv.use_ids:
+                ids_i = getattr(self, "id_encoder_"
+                                f"{i if c.inject_ids else 0}")(
+                                    data.identifiers)
+            if data.edge_features is not None:
+                ef_i = getattr(self, f"edge_encoder_{i}")(
+                    data.edge_features)
+            h = x_interm[i]
+            if c.vn:
+                h = h + broadcast_graph_to_nodes(vn, data.graph_ptr,
+                                                 n_nodes)
+                x_interm[i] = h
+            x = conv(h, data.edge_index, ids_i, degrees, ef_i, nm, em, seg)
+            if c.bn[i]:
+                x = getattr(self, f"bn_{i}")(x, nm)
+            # reference :242-245: no activation on the last conv layer
+            if i < L - 1:
+                x = self.act(x)
+            x = dropout(x, c.dropout_features[i], self.training, generator)
+            if c.residual:
+                x = x + x_interm[-1]
+            x_interm.append(x)
+
+            if c.vn and i < L - 1:
+                vn = getattr(self, f"mlp_vn_{i}")(
+                    vn_pool(x_interm[i]) + vn, data.graph_mask)
+                vn_post = dropout(self.act(vn), c.dropout_features[i],
+                                  self.training, generator)
+                vn = vn + vn_post if c.residual else vn_post
+
+        prediction = torch.zeros_like(x_interm[-1])
+        for i, xi in enumerate(x_interm):
+            if c.final_projection[i]:
+                prediction = prediction + xi
+        return self.lin_proj(pool(prediction))
+
+
 SPARSE_MODELS = {"GSN_sparse", "GSN_edge_sparse", "MPNN_sparse",
                  "MPNN_edge_sparse"}
+OGB_MODELS = {"GSN_edge_sparse_ogb", "MPNN_edge_sparse_ogb"}
 
 
 def build_model(cfg: GSNConfig,
@@ -215,9 +352,12 @@ def build_model(cfg: GSNConfig,
     """The finalized config's model on the CPU, its weights drawn from
     ``generator`` (the reference package's initializers)."""
     cfg = cfg.finalize()
-    if cfg.model_name not in SPARSE_MODELS:
+    if cfg.model_name in OGB_MODELS:
+        model = GNN_OGB(cfg)
+    elif cfg.model_name in SPARSE_MODELS:
+        model = GNNSubstructures(cfg)
+    else:
         raise NotImplementedError(
             f"model {cfg.model_name!r} is not ported yet")
-    model = GNNSubstructures(cfg)
     init_parameters(model, generator)
     return model

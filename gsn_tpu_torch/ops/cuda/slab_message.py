@@ -9,7 +9,8 @@ Counterpart of ``gsn_tpu/ops/pallas/slab_message.py``'s
 with ``act`` relu or identity.  Its gradient: ``dH = act'(H)·g[recv]``,
 ``dA`` the receiver sums of dH (K2), ``dB`` the sender sums of dH (K3
 over the host-built sender-sorted permutation, deterministic),
-``dPe = dH`` and ``db1 = Σ_e dH``.  Edges are the batch's real edges in
+``dPe = dH`` and ``db1 = Σ_e dH`` (each only where its input needs a
+gradient).  Edges are the batch's real edges in
 receiver-sorted order (``GraphBatch.recv_ptr``); Pe and dH keep the
 batch's edge-slot rows, padding slots last (dH is zero there).
 
@@ -190,7 +191,9 @@ class EdgeMessageAggregate(torch.autograd.Function):
         dB = (segment_sum_sorted(dH, seg.send_ptr, seg.send_perm)
               if ctx.needs_input_grad[1] else None)
         dPe = dH if Pe is not None and ctx.needs_input_grad[2] else None
-        return dA, dB, dPe, dH.sum(0), None, None
+        # a constant b1 (the ogb message's zeros) skips the [E, d] reduction
+        db1 = dH.sum(0) if ctx.needs_input_grad[3] else None
+        return dA, dB, dPe, db1, None, None
 
 
 def edge_message_aggregate(A, B, Pe, b1, seg: EdgeSegments,

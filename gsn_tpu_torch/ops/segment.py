@@ -1,7 +1,8 @@
 """Masked segment reductions and graph pooling (counterpart of
 ``gsn_tpu/ops/segment.py``).
 
-``global_add_pool`` / ``global_mean_pool`` route through the pool kernel
+``global_add_pool`` / ``global_mean_pool`` and the virtual node's
+``broadcast_graph_to_nodes`` route through the pool kernels
 (``ops/cuda/slab_pool.py``) over the batch's ``graph_ptr``; the masked
 segment sums serve the message layers' unfused aggregation.
 """
@@ -12,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from .cuda.slab_pool import add_pool
+from .cuda.slab_pool import add_pool, graph_broadcast
 
 
 def masked_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -56,6 +57,16 @@ def masked_segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
     idx = segment_ids.long().reshape((-1,) + (1,) * (data.dim() - 1))
     out = out.scatter_reduce(0, idx.expand_as(data), data, "amax")
     return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+
+
+def broadcast_graph_to_nodes(vn: torch.Tensor, graph_ptr: torch.Tensor,
+                             num_nodes: int) -> torch.Tensor:
+    """``vn[batch]`` (the GNN_OGB virtual-node broadcast, reference
+    ``models_graph_classification_ogb_original.py:236``) through B4 over
+    the batch's ``graph_ptr``; its gradient is the add-pool.  Padding
+    nodes get 0, as on the reference's kernel path (they are masked
+    everywhere downstream)."""
+    return graph_broadcast(vn, graph_ptr, num_nodes)
 
 
 def global_add_pool(x: torch.Tensor, graph_ptr: torch.Tensor

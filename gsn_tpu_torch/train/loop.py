@@ -2,8 +2,9 @@
 ``gsn_tpu/train/loop.py``).
 
 Ported so far: ``Trainer.__init__`` (with the reference's ``model=``),
-``init_state``, ``train_step`` and ``evaluate``.  The epoch loop (``fit``), checkpoints and the OGB
-evaluator metrics wait for a later slice.
+``init_state``, ``train_step`` and ``evaluate`` (with the ``rocauc``
+evaluator).  The epoch loop (``fit``) and checkpoints wait for a later
+slice.
 
 The trainer runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no explicit device it raises rather
@@ -26,7 +27,7 @@ from gsn_tpu_torch.graphs.batching import (epoch_caps, infer_y_spec,
 from gsn_tpu_torch.graphs.container import GraphBatch
 from gsn_tpu_torch.nn.init import init_parameters
 from gsn_tpu_torch.nn.models import build_model
-from .metrics import LOSSES, PREDICTION_FNS
+from .metrics import LOSSES, PREDICTION_FNS, roc_auc_score
 from .optim import make_optimizer, make_scheduler
 
 
@@ -66,6 +67,7 @@ class TrainerConfig:
     batch_size: int = 16
     loss_fn: str = "CrossEntropyLoss"
     prediction_fn: str = "multi_class_accuracy"
+    evaluator: Optional[str] = None       # None | "rocauc"
 
 
 class Trainer:
@@ -158,11 +160,15 @@ class Trainer:
                  n_iters: Optional[int] = None):
         """Returns (avg_loss, avg_metric).  avg_loss weights each batch
         loss by its graph count (reference test(), :198-206); the metric
-        is the sum-reduction prediction fn over |D|."""
+        is the sum-reduction prediction fn over |D|, or the evaluator
+        (ROC-AUC) on the split's concatenated predictions."""
+        if self.tcfg.evaluator not in (None, "rocauc"):
+            raise ValueError(f"unknown evaluator {self.tcfg.evaluator!r}")
         model = state.model
         model.eval()
         total_loss = total_acc = 0.0
         total_n = 0
+        y_true_all, y_pred_all = [], []
         for data in self._eval_batches(graphs, n_iters):
             data = self.to_device(data)
             y_hat = model(data)
@@ -173,4 +179,12 @@ class Trainer:
                 total_acc += float(self.pred_fn(y_hat, data.y,
                                                 data.graph_mask))
             total_n += n
-        return total_loss / max(total_n, 1), total_acc / max(total_n, 1)
+            if self.tcfg.evaluator is not None:
+                mask = data.graph_mask.cpu().numpy()
+                y_true_all.append(data.y.cpu().numpy()[mask])
+                y_pred_all.append(y_hat.cpu().numpy()[mask])
+        avg_loss = total_loss / max(total_n, 1)
+        if self.tcfg.evaluator == "rocauc":
+            return avg_loss, roc_auc_score(np.concatenate(y_true_all),
+                                           np.concatenate(y_pred_all))
+        return avg_loss, total_acc / max(total_n, 1)

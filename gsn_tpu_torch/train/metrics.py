@@ -3,11 +3,14 @@
 
 All take a graph mask so padded graph slots contribute nothing: losses
 are means over real graphs (training), prediction fns are sums (eval
-accumulation), as in the reference (``utils.py:163-192``).
+accumulation), as in the reference (``utils.py:163-192``).  The OGB
+evaluator metrics (ROC-AUC, AP) run on the host over a split's
+concatenated predictions.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch.nn import functional as F
 
@@ -78,3 +81,66 @@ PREDICTION_FNS = {
     "L1Loss": l1_sum,
     "None": None,
 }
+
+
+# ---------------------------------------------------------------------------
+# ROC-AUC / AP (host-side numpy; replaces ogb.Evaluator)
+# ---------------------------------------------------------------------------
+
+def roc_auc_score(y_true: np.ndarray, y_score: np.ndarray) -> float:
+    """Rank-based AUC (ties averaged), averaged over labeled tasks —
+    matches ogb's rocauc eval for molhiv (single task)."""
+    y_true = np.asarray(y_true, dtype=np.float64)
+    y_score = np.asarray(y_score, dtype=np.float64)
+    y_true = y_true.reshape(len(y_true), -1)
+    y_score = y_score.reshape(len(y_score), -1)
+    aucs = []
+    for t in range(y_true.shape[1]):
+        yt, ys = y_true[:, t], y_score[:, t]
+        labeled = np.isfinite(yt)
+        yt, ys = yt[labeled], ys[labeled]
+        pos, neg = (yt == 1).sum(), (yt == 0).sum()
+        if pos == 0 or neg == 0:
+            continue
+        order = np.argsort(ys, kind="mergesort")
+        ranks = np.empty(len(ys), dtype=np.float64)
+        ranks[order] = np.arange(1, len(ys) + 1)
+        # average tied ranks
+        sorted_scores = ys[order]
+        i = 0
+        while i < len(ys):
+            j = i
+            while j + 1 < len(ys) and sorted_scores[j + 1] == sorted_scores[i]:
+                j += 1
+            if j > i:
+                avg = (i + j) / 2.0 + 1.0
+                ranks[order[i:j + 1]] = avg
+            i = j + 1
+        auc = (ranks[yt == 1].sum() - pos * (pos + 1) / 2.0) / (pos * neg)
+        aucs.append(auc)
+    if not aucs:
+        raise ValueError("no task with both positive and negative labels")
+    return float(np.mean(aucs))
+
+
+def average_precision_score(y_true: np.ndarray, y_score: np.ndarray) -> float:
+    """AP, averaged over labeled tasks (ogb 'ap' metric, molpcba)."""
+    y_true = np.asarray(y_true, dtype=np.float64)
+    y_score = np.asarray(y_score, dtype=np.float64)
+    y_true = y_true.reshape(len(y_true), -1)
+    y_score = y_score.reshape(len(y_score), -1)
+    aps = []
+    for t in range(y_true.shape[1]):
+        yt, ys = y_true[:, t], y_score[:, t]
+        labeled = np.isfinite(yt)
+        yt, ys = yt[labeled], ys[labeled]
+        if (yt == 1).sum() == 0 or (yt == 0).sum() == 0:
+            continue
+        order = np.argsort(-ys, kind="mergesort")
+        yt = yt[order]
+        tp = np.cumsum(yt == 1)
+        precision = tp / np.arange(1, len(yt) + 1)
+        aps.append((precision * (yt == 1)).sum() / (yt == 1).sum())
+    if not aps:
+        raise ValueError("no task with both positive and negative labels")
+    return float(np.mean(aps))

@@ -7,7 +7,9 @@ machine with one (no JAX needed):
 Shapes are small and ragged (empty segments, a width that is not a
 multiple of 4 next to one that is) so both the float4 and the scalar
 paths run; the DGN kernels also run at the DGN model's width (d=70)
-with inputs drawn from a few integers, so maxima tie.  Tolerances:
+with inputs drawn from a few integers, so maxima tie, and the molhiv
+path's forms (K1/K2 with no A side, B4) at its width (d=300).
+Tolerances:
 forward rtol 2e-4 / atol 2e-5, gradients rtol 2e-3 / atol 1e-4 * max|g|;
 tie counts are exact.
 """
@@ -124,6 +126,64 @@ def test_segment_kernels_and_pool(dev, d):
     torch.testing.assert_close(out, out_p, **FWD)
     grad_close(torch.autograd.grad((out * g).sum(), [x]),
                torch.autograd.grad((out_p * g).sum(), [x_p]))
+
+
+@pytest.mark.parametrize("d", [300, 30])
+def test_edge_message_ogb_form(dev, d):
+    """K1/K2 as the ogb message runs them: no A side, Pe given, relu, a
+    constant zero b1 that takes no gradient; d=300 is the molhiv width
+    (float4 path, three column passes of a warp, the third with 11
+    lanes live)."""
+    rng = np.random.RandomState(d + 1)
+    n, e, slots = 300, 900, 1000
+    seg = k12.EdgeSegments(*(t.to(dev)
+                             for t in ragged_segments(rng, n, e)))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B = torch.randn(n, d, device=dev, generator=gen)
+    Pe = torch.randn(slots, d, device=dev, generator=gen)
+    b1 = torch.zeros(d, device=dev)
+    g = torch.randn(n, d, device=dev, generator=gen)
+    torch.testing.assert_close(
+        k12.edge_message_fwd(None, B, Pe, b1, seg.recv_ptr, seg.send),
+        k12.edge_message_fwd_plain(None, B, Pe, b1, seg.recv_ptr, seg.send),
+        **FWD)
+    dH, dA = k12.edge_message_bwd_recv(None, B, Pe, b1, g, seg.recv_ptr,
+                                       seg.send, "relu", slots)
+    dH_p, _ = k12.edge_message_bwd_recv_plain(None, B, Pe, b1, g,
+                                              seg.recv_ptr, seg.send,
+                                              "relu", slots)
+    assert dA is None
+    torch.testing.assert_close(dH, dH_p, **FWD)
+    leaves = [x.clone().requires_grad_(True) for x in (B, Pe)]
+    ref = [x.clone().requires_grad_(True) for x in (B, Pe)]
+    out = k12.edge_message_aggregate(None, *leaves, b1, seg, "relu")
+    out_p = k12.edge_message_fwd_plain(None, *ref, b1, seg.recv_ptr,
+                                       seg.send)
+    grad_close(torch.autograd.grad((out * g).sum(), leaves),
+               torch.autograd.grad((out_p * g).sum(), ref))
+
+
+@pytest.mark.parametrize("d", [300, 30])
+def test_graph_broadcast(dev, d):
+    """B4: K4 forward (exact copies, padding rows exactly 0) and K3
+    backward against autograd through the plain version; one B4 count
+    per call."""
+    sizes = np.array([5, 40, 17, 0, 60, 58])
+    graph_ptr = torch.from_numpy(
+        np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    vn = torch.randn(len(sizes), d, device=dev, generator=gen)
+    g = torch.randn(200, d, device=dev, generator=gen)
+    before = k4.graph_broadcast.launches
+    vl = vn.clone().requires_grad_(True)
+    out = k4.graph_broadcast(vl, graph_ptr, 200)
+    assert k4.graph_broadcast.launches == before + 1
+    vp = vn.clone().requires_grad_(True)
+    out_p = k4.graph_broadcast_plain(vp, graph_ptr, 200)
+    assert torch.equal(out, out_p)
+    assert not out[180:].any()
+    grad_close(torch.autograd.grad((out * g).sum(), [vl]),
+               torch.autograd.grad((out_p * g).sum(), [vp]))
 
 
 def test_kernels_count_launches_and_reject_bf16(dev):

@@ -25,7 +25,8 @@ from gsn_tpu.graphs.patterns import cycle_graph as jax_cycle
 from gsn_tpu_torch.counting import count_identifiers, counts
 from gsn_tpu_torch.data.encoding import encode
 from gsn_tpu_torch.data.pipeline import build_pattern_infos, generate_dataset
-from gsn_tpu_torch.data.synthetic import _molecule_graphs, make_zinc_like
+from gsn_tpu_torch.data.synthetic import (_molecule_graphs, make_molhiv_like,
+                                          make_zinc_like)
 from gsn_tpu_torch.graphs import batching
 from gsn_tpu_torch.graphs.container import batch_graphs
 from gsn_tpu_torch.graphs.patterns import cycle_graph
@@ -40,19 +41,17 @@ def _graphs(num=24, seed=0):
     return _molecule_graphs(num, seed, [28], [4])
 
 
-def _counted(scope, num=24, seed=0):
+def _counted(scope, num=24, seed=0, induced=False):
     vocab_t = [cycle_graph(k) for k in range(3, 7)]
     vocab_j = [jax_cycle(k) for k in range(3, 7)]
     ours, sizes = generate_dataset(_graphs(num, seed), vocab_t,
-                                   id_scope=scope)
+                                   id_scope=scope, induced=induced)
     ref, ref_sizes = jax_generate(_graphs(num, seed), vocab_j,
-                                  id_scope=scope)
+                                  id_scope=scope, induced=induced)
     return ours, sizes, ref, ref_sizes
 
 
-@pytest.mark.parametrize("scope", ["global", "local"])
-def test_generate_dataset_and_encode_match(scope):
-    ours, sizes, ref, ref_sizes = _counted(scope)
+def _assert_counted_and_encoded_match(ours, sizes, ref, ref_sizes):
     assert sizes == ref_sizes
     for a, b in zip(ours, ref):
         for key in ("identifiers", "degrees", "edge_index"):
@@ -63,6 +62,20 @@ def test_generate_dataset_and_encode_match(scope):
     assert d_id == ref_d_id
     for a, b in zip(ours, ref):
         np.testing.assert_array_equal(a["identifiers"], b["identifiers"])
+
+
+@pytest.mark.parametrize("scope", ["global", "local"])
+def test_generate_dataset_and_encode_match(scope):
+    _assert_counted_and_encoded_match(*_counted(scope))
+
+
+def test_generate_dataset_induced_local_matches():
+    """Induced edge-level (local-scope) counts, the molhiv path's ids."""
+    ours, sizes, ref, ref_sizes = _counted("local", induced=True)
+    _assert_counted_and_encoded_match(ours, sizes, ref, ref_sizes)
+    plain, *_ = _counted("local", induced=False)
+    assert any((a["identifiers"] != b["identifiers"]).any()
+               for a, b in zip(ours, plain))
 
 
 @pytest.mark.parametrize("scope", ["global", "local"])
@@ -91,6 +104,21 @@ def test_make_zinc_like_matches_reference_pipeline():
     for a, b in zip(graphs, ref):
         np.testing.assert_array_equal(a["identifiers"], b["identifiers"])
         np.testing.assert_array_equal(a["x"], b["x"])
+
+
+def test_make_molhiv_like_matches_reference_pipeline():
+    graphs, d_id = make_molhiv_like(16, seed=2)
+    atoms, bonds = [119, 4, 12, 12, 10, 6, 6, 2, 2], [5, 6, 2]
+    ref = _molecule_graphs(16, 2, atoms, bonds)
+    ref, _ = jax_generate(ref, [jax_cycle(k) for k in (3, 4, 5, 6)],
+                          id_scope="local", induced=True)
+    ref, _e, ref_d_id, _ed, _dd = jax_encode(ref, "one_hot_unique")
+    assert d_id == ref_d_id
+    for a, b in zip(graphs, ref):
+        assert a["ids_on_edges"] and b["ids_on_edges"]
+        for key in ("x", "edge_index", "edge_features", "identifiers",
+                    "degrees", "y"):
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
 
 
 @pytest.mark.parametrize("scope,flow", [("global", "source_to_target"),
