@@ -39,7 +39,12 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    their autograd Functions against the plain versions at the DGN
    shapes (d=70, K=5 weight columns from the batch's own vector field,
    node rows after relu so maxima tie; tie counts exact), and time each
-   as in phase 3.
+   as in phase 3.  Then the same checks (forward, raw backward with and
+   without dW, autograd) on stress shapes: a synthetic edge set with
+   empty rows and a hub row of 100 edges, at d in {33, 64, 70, 130} and
+   K in {1, 5, 16}.  A ``[dgn] ptxas`` line gives the registers, spills
+   and resident blocks per SM of the path's K5/K6 instantiations, as
+   ``nvcc -Xptxas -v`` and the occupancy calculator report them.
 9. Check a small DGN model (d=70, 2 layers, dropout 0) on the card
    against the CPU for one aggregator set per branch of the layer's
    kernel dispatch (fused, weighted only, minmax only); each branch must
@@ -198,6 +203,159 @@ def exact(got, want, what):
                              f"version")
 
 
+def fn_grads(fn, leaves, cots):
+    """Gradients of sum(out * cot) over ``fn``'s outputs w.r.t. fresh
+    copies of ``leaves``."""
+    leaves = [x.clone().requires_grad_(True) for x in leaves]
+    outs = fn(*leaves)
+    return torch.autograd.grad(
+        sum((o * c).sum() for o, c in zip(outs, cots)), leaves)
+
+
+def dgn_stress(dev):
+    """Phase 8's stress shapes (see module docstring); returns the number
+    of (width, K) cases checked."""
+    from gsn_tpu_torch.ops.cuda import slab_combine as k3
+    from gsn_tpu_torch.ops.cuda import slab_message as k12
+    from gsn_tpu_torch.ops.cuda import slab_minmax as b6
+    from gsn_tpu_torch.ops.cuda import slab_weighted as b58
+
+    rng = np.random.RandomState(4)
+    n, e, hub = 400, 1200, 100
+    recv = rng.randint(0, n, e)
+    recv[:hub] = n // 2
+    recv = np.sort(recv)
+    send = rng.randint(0, n, e).astype(np.int32)
+    ptrs = [np.zeros(n + 1, np.int32) for _ in range(2)]
+    for ptr, keys in zip(ptrs, (recv, send)):
+        np.cumsum(np.bincount(keys, minlength=n), out=ptr[1:])
+    perm = np.argsort(send, kind="stable").astype(np.int32)
+    seg = k12.EdgeSegments(*(torch.from_numpy(a).to(dev)
+                             for a in (ptrs[0], send, ptrs[1], perm)))
+    rp, send = seg.recv_ptr, seg.send
+    deg = rp.diff()
+    if not (deg == 0).any() or int(deg.max()) < hub:
+        raise AssertionError("stress edge set lacks empty or hub rows")
+
+    def dB_plain(dh):
+        return k3.segment_sum_sorted_plain(dh, seg.send_ptr, seg.send_perm)
+
+    cases = 0
+    for d in (33, 64, 70, 130):
+        gen = torch.Generator(device=dev).manual_seed(d)
+        B = torch.relu(torch.randint(-3, 4, (n, d), device=dev,
+                                     generator=gen).float()) * 0.5
+        g_mm = torch.randn(n, 2 * d, device=dev, generator=gen)
+        tag = f"stress d={d}"
+        mm_p, cnt_p = b6.segment_minmax_fwd_plain(B, rp, send)
+        mm, cnt = b6.segment_minmax_fwd(B, rp, send)
+        max_err(mm, mm_p, FWD_RTOL, FWD_ATOL, f"{tag} segment_minmax_fwd")
+        exact(cnt, cnt_p, f"{tag} segment_minmax_fwd tie counts")
+        dh_mm = b6.minmax_dh_plain(B, mm_p, cnt_p, g_mm, rp, send)
+        grad_check([b6.segment_minmax_bwd(B, mm, cnt, g_mm, rp, send)],
+                   [dh_mm], f"{tag} segment_minmax_bwd")
+        grad_check(fn_grads(lambda b: (b6.segment_minmax(b, seg),), [B],
+                            [g_mm]), [dB_plain(dh_mm)],
+                   f"{tag} SegmentMinmax")
+        for K in (1, 5, 16):
+            tag = f"stress d={d} K={K}"
+            W = torch.rand(e, K, device=dev, generator=gen)
+            g_w = torch.randn(n, K * d, device=dev, generator=gen)
+            out_p = b58.weighted_gather_fwd_plain(B, W, rp, send)
+            max_err(b58.weighted_gather_fwd(B, W, rp, send), out_p,
+                    FWD_RTOL, FWD_ATOL, f"{tag} weighted_gather_fwd")
+            out, mm, cnt = b58.dgn_fused_fwd(B, W, rp, send)
+            max_err(out, out_p, FWD_RTOL, FWD_ATOL, f"{tag} dgn_fused_fwd")
+            max_err(mm, mm_p, FWD_RTOL, FWD_ATOL, f"{tag} dgn_fused_fwd mm")
+            exact(cnt, cnt_p, f"{tag} dgn_fused_fwd tie counts")
+            for need_dw in (False, True):
+                n_out = 1 + need_dw
+                grad_check(
+                    b58.weighted_gather_bwd(B, W, g_w, rp, send,
+                                            need_dw)[:n_out],
+                    b58.weighted_gather_bwd_plain(B, W, g_w, rp, send,
+                                                  need_dw)[:n_out],
+                    f"{tag} weighted_gather_bwd[dW={need_dw}]")
+                grad_check(
+                    b58.dgn_fused_bwd(B, W, g_w, mm, cnt, g_mm, rp, send,
+                                      need_dw)[:n_out],
+                    b58.dgn_fused_bwd_plain(B, W, g_w, mm_p, cnt_p, g_mm,
+                                            rp, send, need_dw)[:n_out],
+                    f"{tag} dgn_fused_bwd[dW={need_dw}]")
+            dh_w, dW_p = b58.weighted_gather_bwd_plain(B, W, g_w, rp, send,
+                                                       True)
+            grad_check(fn_grads(lambda b, w: (b58.weighted_gather(b, w, seg),),
+                                [B, W], [g_w]), [dB_plain(dh_w), dW_p],
+                       f"{tag} WeightedGather")
+            grad_check(fn_grads(lambda b, w: b58.dgn_fused(b, w, seg), [B, W],
+                                [g_w, g_mm]),
+                       [dB_plain(dh_w + dh_mm), dW_p], f"{tag} DGNFused")
+            cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+def dgn_ptxas_line(d, K):
+    """The ``[dgn] ptxas`` line: registers, shared memory and spill bytes
+    that ``nvcc -Xptxas -v`` reported for the K5/K6 instantiations the
+    DGN paths launch at width d with K weight columns (and for the dW
+    form of K6), with each one's resident blocks per SM, and the most
+    registers and spill bytes over every instantiation of the source."""
+    import re
+
+    from gsn_tpu_torch.ops.cuda import build
+    text = build.build_logs.get("dgn_aggregate", "")
+    # <V, NG, KT, WEIGHTED, MINMAX[, DW]> from the mangled template args
+    fns, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            a = re.search(r"dgn_aggregate_(fwd|bwd)_kernelI((?:L[ib]\d+E)+)",
+                          m.group(1))
+            cur = ((a.group(1),) + tuple(
+                int(x) for x in re.findall(r"L[ib](\d+)E", a.group(2)))
+                   if a else None)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            fns.setdefault(cur, {})["spill"] = int(m.group(1)) + int(
+                m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            fns.setdefault(cur, {}).update(
+                regs=int(m.group(1)), smem=int(smem.group(1)) if smem else 0)
+    if not fns:
+        return ("[dgn] ptxas: not reported (the library was not built in "
+                "this process)")
+    vec = 4 if d % 4 == 0 else 1
+    v, ng = (4, 1) if vec == 4 else (1, 3)
+    kt = 5 if K == 5 else 0
+    lib = build.lib("dgn_aggregate")
+    parts = []
+    for name, w, mmx, dw in (("fused", 1, 1, 0), ("fused+dW", 1, 1, 1),
+                             ("weighted", 1, 0, 0), ("minmax", 0, 1, 0)):
+        for bwd, kname in ((0, "K5"), (1, "K6")):
+            if dw and not bwd:
+                continue
+            key = (("bwd", v, ng, kt if w else 0, w, mmx, dw) if bwd
+                   else ("fwd", v, ng, kt if w else 0, w, mmx))
+            info = fns.get(key, {})
+            blocks = lib.gsn_dgn_aggregate_occupancy(bwd, d, K, w, mmx, dw,
+                                                     vec)
+            parts.append(f"{kname}<{name}> {info.get('regs')} regs "
+                         f"{info.get('smem')} B smem {info.get('spill')} B "
+                         f"spilled {blocks} blocks/SM")
+    most = max(f.get("regs", 0) for f in fns.values())
+    spill = sum(f.get("spill", 0) for f in fns.values())
+    return (f"[dgn] ptxas at d={d} K={K} (layout V={v} NG={ng}): "
+            + "; ".join(parts) + f"; all {len(fns)} instantiations: at most "
+            f"{most} regs, {spill} B spilled in all")
+
+
 def train_steps(trainer, state, data, steps, counters):
     """``steps`` Adam steps; the launch counters are zeroed just before
     and read just after.  Returns (state, losses, step seconds,
@@ -228,14 +386,25 @@ def expect_launches(launches, per_step, steps, what):
                                  f"{steps} steps, expected {want}")
 
 
-def profile_steps(trainer, state, data, step_ms, tag):
-    """Phases 6, 12 and 17 (see module docstring)."""
+def device_events(prof):
+    """(device us, event) of each kernel, copy and fill a profile
+    recorded: CPU ops also carry the device time of what they launched,
+    and user annotations (Optimizer.step) span kernels already counted."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     def dev_us(e):
         return (getattr(e, "self_device_time_total", None)
                 or getattr(e, "self_cuda_time_total", 0))
+
+    events = [(dev_us(e), e) for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    return [(us, e) for us, e in events if us > 0]
+
+
+def profile_steps(trainer, state, data, step_ms, tag):
+    """Phases 6, 12 and 17 (see module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -257,13 +426,7 @@ def profile_steps(trainer, state, data, step_ms, tag):
     except RuntimeError as exc:
         log(f"[profile {tag}] not measured ({exc})")
         return
-    # device-side events only (kernels, memcpy, memset): CPU ops also
-    # carry the device time of what they launched, and user annotations
-    # (Optimizer.step) span kernels already counted
-    events = [(dev_us(e), e) for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-    events = [(us, e) for us, e in events if us > 0]
+    events = device_events(prof)
     if not events:
         log(f"[profile {tag}] not measured (no device time recorded)")
         return
@@ -314,32 +477,100 @@ def kernel_counters():
     return {fn.__name__: fn for fn in fns}
 
 
-def dgn_phases(dev, card, timed):
-    """Phases 7-12 (see module docstring); returns the kernel rows of
-    K5/K6 in their three instantiations."""
+def dgn_batch(dev):
+    """Phase 7's batch: (graphs of ``make_dgn_like(1024)``, their one
+    batch on the host, the batch on ``dev``)."""
     from gsn_tpu_torch.data.synthetic import make_dgn_like
     from gsn_tpu_torch.graphs.batching import (iterate_batches,
                                                tight_epoch_caps)
-    from gsn_tpu_torch.nn.dgn import (DGNConfig, DGNNet, build_agg_ctx,
-                                      build_dgn_model, compute_avg_d)
-    from gsn_tpu_torch.nn.models import edge_segments
-    from gsn_tpu_torch.ops.cuda import slab_combine as k3
-    from gsn_tpu_torch.ops.cuda import slab_message as k12
-    from gsn_tpu_torch.ops.cuda import slab_minmax as b6
-    from gsn_tpu_torch.ops.cuda import slab_weighted as b58
-    from gsn_tpu_torch.train.loop import Trainer, TrainerConfig
-    from gsn_tpu_torch.train.metrics import LOSSES
-
-    # ---- phase 7: the DGN batch --------------------------------------------
-    t0 = time.perf_counter()
     graphs = make_dgn_like(1024)
     caps = tight_epoch_caps(np.arange(len(graphs)), graphs, 1024)
     host = next(iterate_batches(graphs, 1024, caps=caps, y_shape=(),
                                 y_dtype=np.float32))
-    data = host.to(dev)
+    return graphs, host, host.to(dev)
+
+
+def dgn_operands(dev, data):
+    """Phase 8's operands at the DGN shapes: (the batch's edge segments,
+    its own weight columns W [E_real, K], node rows B [N, d] after relu
+    (about half exact zeros, so maxima tie), cotangents g_w [N, K*d] and
+    g_mm [N, 2d]), from seed 1."""
+    from gsn_tpu_torch.nn.dgn import build_agg_ctx
+    from gsn_tpu_torch.nn.models import edge_segments
+    N, d, K = data.num_node_slots, DGN_D, DGN_K
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    B = torch.relu(rnd(N, d))
+    g_w, g_mm = rnd(N, K * d), rnd(N, 2 * d)
+    return (edge_segments(data), build_agg_ctx(DGN_AGGS, data, N).W, B, g_w,
+            g_mm)
+
+
+def dgn_kernel_calls(B, W, g_w, mm, cnt, g_mm, seg):
+    """The six functions on K5/K6 in the main path's forms (the backward
+    without dW), each as (kernel call, plain call)."""
+    from gsn_tpu_torch.ops.cuda import slab_minmax as b6
+    from gsn_tpu_torch.ops.cuda import slab_weighted as b58
+    rp, send = seg.recv_ptr, seg.send
+    return {
+        "weighted_gather_fwd": (
+            lambda: b58.weighted_gather_fwd(B, W, rp, send),
+            lambda: b58.weighted_gather_fwd_plain(B, W, rp, send)),
+        "weighted_gather_bwd": (
+            lambda: b58.weighted_gather_bwd(B, W, g_w, rp, send),
+            lambda: b58.weighted_gather_bwd_plain(B, W, g_w, rp, send)),
+        "segment_minmax_fwd": (
+            lambda: b6.segment_minmax_fwd(B, rp, send),
+            lambda: b6.segment_minmax_fwd_plain(B, rp, send)),
+        "segment_minmax_bwd": (
+            lambda: b6.segment_minmax_bwd(B, mm, cnt, g_mm, rp, send),
+            lambda: b6.minmax_dh_plain(B, mm, cnt, g_mm, rp, send)),
+        "dgn_fused_fwd": (
+            lambda: b58.dgn_fused_fwd(B, W, rp, send),
+            lambda: b58.dgn_fused_fwd_plain(B, W, rp, send)),
+        "dgn_fused_bwd": (
+            lambda: b58.dgn_fused_bwd(B, W, g_w, mm, cnt, g_mm, rp, send),
+            lambda: b58.dgn_fused_bwd_plain(B, W, g_w, mm, cnt, g_mm, rp,
+                                            send)),
+    }
+
+
+def dgn_main_config(graphs):
+    """bench.py::bench_dgn: the DGN main path's (DGNConfig,
+    TrainerConfig)."""
+    from gsn_tpu_torch.nn.dgn import DGNConfig, compute_avg_d
+    from gsn_tpu_torch.train.loop import TrainerConfig
+    cfg = DGNConfig(hidden_dim=DGN_D, out_dim=DGN_D, num_layers=4,
+                    aggregators=DGN_AGGS, scalers=("identity",),
+                    avg_d=compute_avg_d(graphs), dropout=0.3,
+                    readout="mean", out_features=1)
+    tcfg = TrainerConfig(lr=1e-3, batch_size=1024, scheduler="None",
+                         loss_fn="BCEWithLogitsLoss", prediction_fn="None")
+    return cfg, tcfg
+
+
+def dgn_phases(dev, card, timed):
+    """Phases 7-12 (see module docstring); returns the kernel rows of
+    K5/K6 in their three instantiations."""
+    from gsn_tpu_torch.graphs.batching import iterate_batches
+    from gsn_tpu_torch.nn.dgn import (DGNConfig, DGNNet, build_dgn_model,
+                                      compute_avg_d)
+    from gsn_tpu_torch.ops.cuda import slab_combine as k3
+    from gsn_tpu_torch.ops.cuda import slab_message as k12
+    from gsn_tpu_torch.ops.cuda import slab_minmax as b6
+    from gsn_tpu_torch.ops.cuda import slab_weighted as b58
+    from gsn_tpu_torch.train.loop import Trainer
+    from gsn_tpu_torch.train.metrics import LOSSES
+
+    # ---- phase 7: the DGN batch --------------------------------------------
+    t0 = time.perf_counter()
+    graphs, host, data = dgn_batch(dev)
     N, E = data.num_node_slots, data.num_edge_slots
     e_real = data.num_real_edges
-    seg = edge_segments(data)
+    seg, W, B, g_w, g_mm = dgn_operands(dev, data)
     rp, send = seg.recv_ptr, seg.send
     n_recv = int((rp.diff() > 0).sum())
     n_send = int((seg.send_ptr.diff() > 0).sum())
@@ -350,27 +581,11 @@ def dgn_phases(dev, card, timed):
 
     # ---- phase 8: K5/K6 against the plain versions -------------------------
     d, K = DGN_D, DGN_K
-    ctx = build_agg_ctx(DGN_AGGS, data, N)
-    W = ctx.W                         # the main path's own [E_real, K]
     if tuple(W.shape) != (e_real, K):
         raise AssertionError(f"weight columns {tuple(W.shape)}")
-    gen = torch.Generator(device=dev).manual_seed(1)
-
-    def rnd(*shape):
-        return torch.randn(*shape, device=dev, generator=gen)
-
-    # node rows after relu: about half exact zeros, so maxima tie
-    B = torch.relu(rnd(N, d))
-    g_w, g_mm = rnd(N, K * d), rnd(N, 2 * d)
 
     def dB_plain(dh):
         return k3.segment_sum_sorted_plain(dh, seg.send_ptr, seg.send_perm)
-
-    def fn_grads(fn, leaves, cots):
-        leaves = [x.clone().requires_grad_(True) for x in leaves]
-        outs = fn(*leaves)
-        return torch.autograd.grad(
-            sum((o * c).sum() for o, c in zip(outs, cots)), leaves)
 
     errs = {}
     # B5 weighted_gather
@@ -426,6 +641,10 @@ def dgn_phases(dev, card, timed):
     errs["dgn_fused_bwd"] = err
     log(f"[dgn] kernels agree with their plain versions: {errs}; "
         f"share of tied [max, -min] columns {tie_share:.4f}")
+    log(f"[dgn] stress shapes (empty rows, a 100-edge hub row): "
+        f"{dgn_stress(dev)} width/K cases agree with the plain versions, "
+        f"tie counts exact")
+    log(dgn_ptxas_line(d, K))
 
     # the library yardsticks: one PyTorch call each, checked against the
     # plain version.  S [N*K, N] and T [E, N*K] hold W as sparse CSR
@@ -480,27 +699,7 @@ def dgn_phases(dev, card, timed):
                                         + e_real * d),
                           (2 * K + 4) * d * e_real),
     }
-    calls = {
-        "weighted_gather_fwd": (
-            lambda: b58.weighted_gather_fwd(B, W, rp, send),
-            lambda: b58.weighted_gather_fwd_plain(B, W, rp, send)),
-        "weighted_gather_bwd": (
-            lambda: b58.weighted_gather_bwd(B, W, g_w, rp, send),
-            lambda: b58.weighted_gather_bwd_plain(B, W, g_w, rp, send)),
-        "segment_minmax_fwd": (
-            lambda: b6.segment_minmax_fwd(B, rp, send),
-            lambda: b6.segment_minmax_fwd_plain(B, rp, send)),
-        "segment_minmax_bwd": (
-            lambda: b6.segment_minmax_bwd(B, mm, cnt, g_mm, rp, send),
-            lambda: b6.minmax_dh_plain(B, mm, cnt, g_mm, rp, send)),
-        "dgn_fused_fwd": (
-            lambda: b58.dgn_fused_fwd(B, W, rp, send),
-            lambda: b58.dgn_fused_fwd_plain(B, W, rp, send)),
-        "dgn_fused_bwd": (
-            lambda: b58.dgn_fused_bwd(B, W, g_w, mm, cnt, g_mm, rp, send),
-            lambda: b58.dgn_fused_bwd_plain(B, W, g_w, mm, cnt, g_mm, rp,
-                                            send)),
-    }
+    calls = dgn_kernel_calls(B, W, g_w, mm, cnt, g_mm, seg)
     replaces = {
         "weighted_gather_fwd": "gsn_tpu/ops/pallas/slab_weighted.py:76",
         "weighted_gather_bwd": "gsn_tpu/ops/pallas/slab_weighted.py:102",
@@ -560,12 +759,7 @@ def dgn_phases(dev, card, timed):
             f"max abs err {err}")
 
     # ---- phase 10: the DGN main path (bench.py::bench_dgn) -----------------
-    cfg = DGNConfig(hidden_dim=d, out_dim=d, num_layers=4,
-                    aggregators=DGN_AGGS, scalers=("identity",),
-                    avg_d=avg_d, dropout=0.3, readout="mean",
-                    out_features=1)
-    tcfg = TrainerConfig(lr=1e-3, batch_size=1024, scheduler="None",
-                         loss_fn="BCEWithLogitsLoss", prediction_fn="None")
+    cfg, tcfg = dgn_main_config(graphs)
     trainer = Trainer(cfg, tcfg, graphs, model=DGNNet(cfg))
     state = trainer.init_state(seed=0)
     L = cfg.num_layers

@@ -21,7 +21,7 @@
 //             mm[v, c]        = max_e  B[send[e], c]
 //             mm[v, d + c]    = max_e -B[send[e], c]            (= -min)
 //             cnt[v, .]       = number of edges attaining mm[v, .]
-//             (rows with no edges: mm = cnt = 0)
+//             (rows with no edges: out = mm = cnt = 0)
 //   backward  dh[e, c] = sum_k W[e, k] * g_w[v, k*d + c]
 //                      + [B == mm_max] g_mm[v, c] / max(cnt, 1)
 //                      - [-B == mm_negmin] g_mm[v, d + c] / max(cnt, 1)
@@ -33,167 +33,439 @@
 // Bound: bytes.  Per element the forward does K multiply-adds and two
 // compare-selects, far below the card's f32 rate; what it must move is
 // B's rows (once per sender with edges), W, and the outputs (K*d + 4d
-// floats a node row).  The backward reads B, W and the node-level
-// cotangents and writes dh (one row per edge).  The per-row operands
-// (g_w, mm, cnt, g_mm) are re-read for every edge of the row and stay
-// in L1; B's rows are shared by a sender's few receivers and stay in L2.
+// floats a node row, most of the forward's bytes).  The backward reads
+// B, W and the node-level cotangents and writes dh (one row per edge).
+// A receiver row has few edges (2.3 on average on the DGN batch), so the
+// work per row is short and mostly latency: the design keeps many bytes
+// in flight and few instructions per row.
+//
+// - One walk per row, and kRows consecutive rows per warp.  A lane owns
+//   NG column groups of V values for the whole walk: one float4 group
+//   when the width is a multiple of 4 and the rows are aligned, else
+//   three single columns (d=70 needs all three).  A width beyond the
+//   32*NG*V columns of that register tile (128 or 96) loops over column
+//   tiles, each of which walks the edges again.  The warp's rows own one
+//   contiguous edge range, so one recv_ptr load and one index chunk
+//   serve all of them.
+// - Each edge's index and weights load once.  Lane i loads send[c+i] and
+//   W[c+i, :] for a chunk of 32 edges of the warp's range, and
+//   __shfl_sync hands them to the other lanes.  The sender rows of
+//   kInFlight edges are gathered before any is consumed.  The sums still
+//   run in edge order, column by column, so they give the same bits as a
+//   walk that takes one edge at a time.
+// - Outputs leave straight from registers, each store instruction a
+//   contiguous 128-byte strip of a row (512 bytes with float4 groups).
+//   Staging rows in shared memory for wider stores was measured slower
+//   at d=70 in every instantiation: the copy's instructions cost more
+//   than the wider stores saved.
+// - K6 loads the receiver's node-level operands (g_w, mm, cnt, g_mm) once
+//   per row and column tile and precomputes g_mm / max(cnt, 1) once,
+//   then walks the edges, writing one dh row each.  dW stays a per-edge
+//   warp sum.
+// - The number of weight columns is a template parameter for the value
+//   the DGN paths launch (kPathK) and generic up to kMaxK otherwise; the
+//   element type of the loads and stores is a template parameter,
+//   instantiated for f32 (sums, maxima and counts are f32 throughout).
+#include <algorithm>
+#include <climits>
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace gsn {
 
-// most weight columns one launch takes (registers: kMaxK x V sums)
-constexpr int kMaxK = 16;
+constexpr int kMaxK = 16;       // most weight columns one launch takes
+constexpr int kPathK = 5;       // the DGN paths' K, with its own registers
+constexpr int kInFlight = 4;    // sender rows gathered before any is used
+constexpr int kGroups = 3;      // single columns a lane owns in one tile
+constexpr int kRows = 4;        // consecutive receiver rows a warp walks
+constexpr int kMinBlocks = 3;   // resident blocks per SM the path's
+                                // instantiations are compiled for
+constexpr unsigned kFull = 0xffffffffu;
+
+template <int N>
+using IntC = std::integral_constant<int, N>;
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = kWarp / 2; o > 0; o >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, o);
+    x += __shfl_xor_sync(kFull, x, o);
   return x;
 }
 
-template <int V, bool WEIGHTED, bool MINMAX>
-__global__ void __launch_bounds__(kThreads)
-dgn_aggregate_fwd_kernel(const float* __restrict__ B,
-                         const float* __restrict__ W,
-                         const int32_t* __restrict__ recv_ptr,
-                         const int32_t* __restrict__ send,
-                         float* __restrict__ out, float* __restrict__ mm,
-                         float* __restrict__ cnt, int n_rows, int d,
-                         int K) {
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & (kWarp - 1);
-  if (row >= n_rows) return;
-  const int e0 = recv_ptr[row];
-  const int e1 = recv_ptr[row + 1];
-  const float neg_inf = __int_as_float(0xff800000);
-  for (int c = lane * V; c < d; c += kWarp * V) {
-    Frag<V> acc[WEIGHTED ? kMaxK : 1];
+// The lane's columns of one row of a column tile: group g covers the V
+// columns from (lane + 32 g) V; columns at or past tc read as 0.
+template <int V, int NG, typename T>
+__device__ __forceinline__ void load_cols(const T* __restrict__ p, int tc,
+                                          int lane, float (&x)[NG * V]) {
 #pragma unroll
-    for (int k = 0; k < (WEIGHTED ? kMaxK : 1); ++k) acc[k] = Frag<V>::zero();
-    Frag<V> mx, nmn, cmx, cmn;
+  for (int g = 0; g < NG; ++g) {
+    const int c = (lane + kWarp * g) * V;
+    if (c < tc) {
+      if constexpr (V == 4) {
+        static_assert(std::is_same<T, float>::value,
+                      "float4 groups are f32 only");
+        const float4 t = *reinterpret_cast<const float4*>(p + c);
+        x[g * 4 + 0] = t.x; x[g * 4 + 1] = t.y;
+        x[g * 4 + 2] = t.z; x[g * 4 + 3] = t.w;
+      } else {
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      mx.v[i] = neg_inf; nmn.v[i] = neg_inf;
-      cmx.v[i] = 0.f; cmn.v[i] = 0.f;
-    }
-    for (int e = e0; e < e1; ++e) {
-      const Frag<V> h = Frag<V>::load(B + (size_t)send[e] * d + c);
-      if constexpr (WEIGHTED) {
-        const float* w = W + (size_t)e * K;
-#pragma unroll
-        for (int k = 0; k < kMaxK; ++k) {
-          if (k < K) {
-            const float wk = w[k];
-#pragma unroll
-            for (int i = 0; i < V; ++i) acc[k].v[i] += wk * h.v[i];
-          }
-        }
+        for (int i = 0; i < V; ++i)
+          x[g * V + i] = static_cast<float>(p[c + i]);
       }
-      if constexpr (MINMAX) {
+    } else {
 #pragma unroll
-        for (int i = 0; i < V; ++i) {
-          const float x = h.v[i];
-          if (x > mx.v[i]) { mx.v[i] = x; cmx.v[i] = 1.f; }
-          else if (x == mx.v[i]) cmx.v[i] += 1.f;
-          const float y = -x;
-          if (y > nmn.v[i]) { nmn.v[i] = y; cmn.v[i] = 1.f; }
-          else if (y == nmn.v[i]) cmn.v[i] += 1.f;
-        }
-      }
-    }
-    if constexpr (WEIGHTED) {
-      float* o = out + (size_t)row * K * d + c;
-#pragma unroll
-      for (int k = 0; k < kMaxK; ++k)
-        if (k < K) acc[k].store(o + (size_t)k * d);
-    }
-    if constexpr (MINMAX) {
-      if (e0 == e1) {  // no edges: the DGL max fill 0, no ties
-        mx = Frag<V>::zero(); nmn = Frag<V>::zero();
-      }
-      float* m = mm + (size_t)row * 2 * d + c;
-      float* n = cnt + (size_t)row * 2 * d + c;
-      mx.store(m);
-      nmn.store(m + d);
-      cmx.store(n);
-      cmn.store(n + d);
+      for (int i = 0; i < V; ++i) x[g * V + i] = 0.f;
     }
   }
 }
 
-template <int V, bool WEIGHTED, bool MINMAX, bool DW>
-__global__ void __launch_bounds__(kThreads)
-dgn_aggregate_bwd_kernel(const float* __restrict__ B,
-                         const float* __restrict__ W,
-                         const float* __restrict__ g_w,
-                         const float* __restrict__ mm,
-                         const float* __restrict__ cnt,
-                         const float* __restrict__ g_mm,
+// Store the lane's columns (those before tc) of one row.
+template <int V, int NG, typename T>
+__device__ __forceinline__ void store_cols(T* __restrict__ p, int tc,
+                                           int lane,
+                                           const float (&x)[NG * V]) {
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    const int c = (lane + kWarp * g) * V;
+    if (c < tc) {
+      if constexpr (V == 4) {
+        *reinterpret_cast<float4*>(p + c) =
+            make_float4(x[g * 4], x[g * 4 + 1], x[g * 4 + 2], x[g * 4 + 3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) p[c + i] = static_cast<T>(x[g * V + i]);
+      }
+    }
+  }
+}
+
+// The path's instantiations (K = kPathK, or no weighted sums) are held to
+// kMinBlocks resident blocks per SM: the few bytes some of them spill
+// cost less than the occupancy they buy.  The generic-K ones, whose sums
+// need more registers, are not held.
+template <int KT, bool WEIGHTED>
+constexpr int min_blocks() {
+  return KT > 0 || !WEIGHTED ? kMinBlocks : 1;
+}
+
+// The warp's rows [row0, row0 + nr) and the edge chunk its lanes hold:
+// lane i holds the first edge of row row0 + i (i <= nr) in `ptr`, and
+// send and the K weights of edge cb + i in `s` and `w`.
+template <int KM>
+struct Walk {
+  int nr, ptr, e_end, cb, s;
+  float w[KM];
+
+  __device__ __forceinline__ Walk(const int32_t* __restrict__ recv_ptr,
+                                  int row0, int n_rows, int lane)
+      : nr(min(kRows, n_rows - row0)),
+        ptr(lane <= nr ? recv_ptr[row0 + lane] : 0),
+        e_end(__shfl_sync(kFull, ptr, nr)), cb(INT_MIN / 2), s(0) {}
+
+  __device__ __forceinline__ int first(int r) const {
+    return __shfl_sync(kFull, ptr, r);
+  }
+
+  // Make edge e one the lanes hold: load the chunk of 32 edges from e
+  // when e is past the held one.
+  template <bool SEND, bool WEIGHTED, typename T>
+  __device__ __forceinline__ void hold(int e,
+                                       const int32_t* __restrict__ send,
+                                       const T* __restrict__ W, int K,
+                                       int lane) {
+    if (e < cb + kWarp) return;
+    cb = e;
+    const int i = cb + lane;
+    if constexpr (SEND) s = i < e_end ? send[i] : 0;
+    if constexpr (WEIGHTED) {
+#pragma unroll
+      for (int k = 0; k < KM; ++k)
+        w[k] = i < e_end && k < K
+                   ? static_cast<float>(W[static_cast<size_t>(i) * K + k])
+                   : 0.f;
+    }
+  }
+};
+
+// Gather the lane's columns of B's rows for the window's edges
+// [e, e + nu), all issued before any is used; a window shorter than
+// kInFlight re-reads its last edge's row.
+template <int V, int NG, int KM, typename T>
+__device__ __forceinline__ void gather(const Walk<KM>& walk, int e, int nu,
+                                       const T* __restrict__ B, int d,
+                                       int t0, int tc, int lane,
+                                       float (&h)[kInFlight][NG * V]) {
+#pragma unroll
+  for (int u = 0; u < kInFlight; ++u) {
+    const int s = __shfl_sync(kFull, walk.s, e - walk.cb + min(u, nu - 1));
+    load_cols<V, NG>(B + static_cast<size_t>(s) * d + t0, tc, lane, h[u]);
+  }
+}
+
+template <int V, int NG, int KT, bool WEIGHTED, bool MINMAX, typename T>
+__global__ void __launch_bounds__(kThreads, (min_blocks<KT, WEIGHTED>()))
+dgn_aggregate_fwd_kernel(const T* __restrict__ B, const T* __restrict__ W,
                          const int32_t* __restrict__ recv_ptr,
                          const int32_t* __restrict__ send,
-                         float* __restrict__ dh, float* __restrict__ dW,
-                         int n_rows, int d, int K) {
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & (kWarp - 1);
-  if (row >= n_rows) return;
-  const int e0 = recv_ptr[row];
-  const int e1 = recv_ptr[row + 1];
-  const float* gw_row = g_w + (size_t)row * K * d;
-  const float* mm_row = mm + (size_t)row * 2 * d;
-  const float* cnt_row = cnt + (size_t)row * 2 * d;
-  const float* gmm_row = g_mm + (size_t)row * 2 * d;
-  for (int e = e0; e < e1; ++e) {
-    const float* h_row = B + (size_t)send[e] * d;
-    const float* w = W + (size_t)e * K;
-    float part[DW ? kMaxK : 1];
+                         T* __restrict__ out, T* __restrict__ mm,
+                         T* __restrict__ cnt, int n_rows, int d, int k_arg) {
+  constexpr int P = NG * V;            // columns a lane holds
+  constexpr int TW = kWarp * P;        // columns a tile spans
+  constexpr int KM = WEIGHTED ? (KT > 0 ? KT : kMaxK) : 1;
+  const int K = WEIGHTED ? (KT > 0 ? KT : k_arg) : 0;
+  const int lane = threadIdx.x % kWarp;
+  const int row0 = (blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp)
+                   * kRows;
+  if (row0 >= n_rows) return;
+  Walk<KM> walk(recv_ptr, row0, n_rows, lane);
+  const float neg_inf = __int_as_float(0xff800000);
+
+  for (int t0 = 0; t0 < d; t0 += TW) {
+    const int tc = min(TW, d - t0);
+    walk.cb = INT_MIN / 2;
+    for (int r = 0; r < walk.nr; ++r) {
+      const int row = row0 + r;
+      const int e0 = walk.first(r), e1 = walk.first(r + 1);
+      float acc[KM][P];
+      float mx[P], nmn[P], cmx[P], cmn[P];
 #pragma unroll
-    for (int k = 0; k < (DW ? kMaxK : 1); ++k) part[k] = 0.f;
-    for (int c = lane * V; c < d; c += kWarp * V) {
-      Frag<V> g = Frag<V>::zero();
-      Frag<V> h;
-      if constexpr (MINMAX || DW) h = Frag<V>::load(h_row + c);
-      if constexpr (WEIGHTED) {
+      for (int i = 0; i < P; ++i) {
 #pragma unroll
-        for (int k = 0; k < kMaxK; ++k) {
-          if (k < K) {
-            const float wk = w[k];
-            const Frag<V> gk = Frag<V>::load(gw_row + (size_t)k * d + c);
+        for (int k = 0; k < KM; ++k) acc[k][i] = 0.f;
+        mx[i] = neg_inf; nmn[i] = neg_inf;
+        cmx[i] = 0.f; cmn[i] = 0.f;
+      }
+      for (int e = e0; e < e1;) {
+        walk.template hold<true, WEIGHTED>(e, send, W, K, lane);
+        const int nu = min(kInFlight, min(e1 - e, walk.cb + kWarp - e));
+        float h[kInFlight][P];
+        gather<V, NG>(walk, e, nu, B, d, t0, tc, lane, h);
 #pragma unroll
-            for (int i = 0; i < V; ++i) {
-              g.v[i] += wk * gk.v[i];
-              if constexpr (DW) part[k] += h.v[i] * gk.v[i];
+        for (int u = 0; u < kInFlight; ++u) {
+          if (u < nu) {
+            if constexpr (WEIGHTED) {
+#pragma unroll
+              for (int k = 0; k < KM; ++k) {
+                if (k < K) {
+                  const float wk =
+                      __shfl_sync(kFull, walk.w[k], e - walk.cb + u);
+#pragma unroll
+                  for (int i = 0; i < P; ++i) acc[k][i] += wk * h[u][i];
+                }
+              }
             }
+            if constexpr (MINMAX) {
+#pragma unroll
+              for (int i = 0; i < P; ++i) {
+                const float x = h[u][i];
+                if (x > mx[i]) { mx[i] = x; cmx[i] = 1.f; }
+                else if (x == mx[i]) cmx[i] += 1.f;
+                const float y = -x;
+                if (y > nmn[i]) { nmn[i] = y; cmn[i] = 1.f; }
+                else if (y == nmn[i]) cmn[i] += 1.f;
+              }
+            }
+          }
+        }
+        e += nu;
+      }
+
+      if constexpr (WEIGHTED) {
+        T* o = out + static_cast<size_t>(row) * K * d + t0;
+#pragma unroll
+        for (int k = 0; k < KM; ++k)
+          if (k < K) store_cols<V, NG>(o + k * d, tc, lane, acc[k]);
+      }
+      if constexpr (MINMAX) {
+        if (e0 == e1) {  // no edges: the DGL max fill 0, no ties
+#pragma unroll
+          for (int i = 0; i < P; ++i) { mx[i] = 0.f; nmn[i] = 0.f; }
+        }
+        const size_t o = static_cast<size_t>(row) * 2 * d + t0;
+        store_cols<V, NG>(mm + o, tc, lane, mx);
+        store_cols<V, NG>(mm + o + d, tc, lane, nmn);
+        store_cols<V, NG>(cnt + o, tc, lane, cmx);
+        store_cols<V, NG>(cnt + o + d, tc, lane, cmn);
+      }
+    }
+  }
+}
+
+template <int V, int NG, int KT, bool WEIGHTED, bool MINMAX, bool DW,
+          typename T>
+__global__ void __launch_bounds__(kThreads, (min_blocks<KT, WEIGHTED>()))
+dgn_aggregate_bwd_kernel(const T* __restrict__ B, const T* __restrict__ W,
+                         const T* __restrict__ g_w,
+                         const T* __restrict__ mm,
+                         const T* __restrict__ cnt,
+                         const T* __restrict__ g_mm,
+                         const int32_t* __restrict__ recv_ptr,
+                         const int32_t* __restrict__ send,
+                         T* __restrict__ dh, T* __restrict__ dW,
+                         int n_rows, int d, int k_arg) {
+  constexpr int P = NG * V;
+  constexpr int TW = kWarp * P;
+  constexpr int KM = WEIGHTED ? (KT > 0 ? KT : kMaxK) : 1;
+  constexpr bool GATHER = MINMAX || DW;   // does the walk read B at all
+  const int K = WEIGHTED ? (KT > 0 ? KT : k_arg) : 0;
+  const int lane = threadIdx.x % kWarp;
+  const int row0 = (blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp)
+                   * kRows;
+  if (row0 >= n_rows) return;
+  Walk<KM> walk(recv_ptr, row0, n_rows, lane);
+
+  for (int t0 = 0; t0 < d; t0 += TW) {
+    const int tc = min(TW, d - t0);
+    walk.cb = INT_MIN / 2;
+    for (int r = 0; r < walk.nr; ++r) {
+      const int row = row0 + r;
+      const int e0 = walk.first(r), e1 = walk.first(r + 1);
+      if (e0 == e1) continue;
+      // the receiver's operands, once per row and tile
+      float gw[KM][P];
+      float mx[P], nmn[P], pmx[P], pmn[P];
+      if constexpr (WEIGHTED) {
+        const T* o = g_w + static_cast<size_t>(row) * K * d + t0;
+#pragma unroll
+        for (int k = 0; k < KM; ++k) {
+          if (k < K) {
+            load_cols<V, NG>(o + k * d, tc, lane, gw[k]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < P; ++i) gw[k][i] = 0.f;
           }
         }
       }
       if constexpr (MINMAX) {
-        const Frag<V> mx = Frag<V>::load(mm_row + c);
-        const Frag<V> nmn = Frag<V>::load(mm_row + d + c);
-        const Frag<V> cmx = Frag<V>::load(cnt_row + c);
-        const Frag<V> cmn = Frag<V>::load(cnt_row + d + c);
-        const Frag<V> gmx = Frag<V>::load(gmm_row + c);
-        const Frag<V> gmn = Frag<V>::load(gmm_row + d + c);
+        const size_t o = static_cast<size_t>(row) * 2 * d + t0;
+        float cmx[P], cmn[P];
+        load_cols<V, NG>(mm + o, tc, lane, mx);
+        load_cols<V, NG>(mm + o + d, tc, lane, nmn);
+        load_cols<V, NG>(cnt + o, tc, lane, cmx);
+        load_cols<V, NG>(cnt + o + d, tc, lane, cmn);
+        load_cols<V, NG>(g_mm + o, tc, lane, pmx);
+        load_cols<V, NG>(g_mm + o + d, tc, lane, pmn);
 #pragma unroll
-        for (int i = 0; i < V; ++i) {
-          const float up = h.v[i] == mx.v[i]
-                               ? gmx.v[i] / fmaxf(cmx.v[i], 1.f) : 0.f;
-          const float dn = -h.v[i] == nmn.v[i]
-                               ? gmn.v[i] / fmaxf(cmn.v[i], 1.f) : 0.f;
-          g.v[i] += up - dn;
+        for (int i = 0; i < P; ++i) {
+          pmx[i] = pmx[i] / fmaxf(cmx[i], 1.f);
+          pmn[i] = pmn[i] / fmaxf(cmn[i], 1.f);
         }
       }
-      g.store(dh + (size_t)e * d + c);
-    }
-    if constexpr (DW) {
+
+      for (int e = e0; e < e1;) {
+        walk.template hold<GATHER, WEIGHTED>(e, send, W, K, lane);
+        const int nu = min(kInFlight, min(e1 - e, walk.cb + kWarp - e));
+        float h[kInFlight][P];
+        if constexpr (GATHER)
+          gather<V, NG>(walk, e, nu, B, d, t0, tc, lane, h);
 #pragma unroll
-      for (int k = 0; k < kMaxK; ++k) {
-        if (k < K) {
-          const float s = warp_sum(part[k]);
-          if (lane == 0) dW[(size_t)e * K + k] = s;
+        for (int u = 0; u < kInFlight; ++u) {
+          if (u < nu) {
+            float g[P];
+#pragma unroll
+            for (int i = 0; i < P; ++i) g[i] = 0.f;
+            if constexpr (WEIGHTED) {
+#pragma unroll
+              for (int k = 0; k < KM; ++k) {
+                if (k < K) {
+                  const float wk =
+                      __shfl_sync(kFull, walk.w[k], e - walk.cb + u);
+#pragma unroll
+                  for (int i = 0; i < P; ++i) g[i] += wk * gw[k][i];
+                }
+              }
+            }
+            if constexpr (MINMAX) {
+#pragma unroll
+              for (int i = 0; i < P; ++i) {
+                const float up = h[u][i] == mx[i] ? pmx[i] : 0.f;
+                const float dn = -h[u][i] == nmn[i] ? pmn[i] : 0.f;
+                g[i] += up - dn;
+              }
+            }
+            store_cols<V, NG>(dh + static_cast<size_t>(e + u) * d + t0, tc,
+                              lane, g);
+            if constexpr (DW) {
+#pragma unroll
+              for (int k = 0; k < KM; ++k) {
+                if (k < K) {
+                  float part = 0.f;
+#pragma unroll
+                  for (int i = 0; i < P; ++i) part += h[u][i] * gw[k][i];
+                  const float s = warp_sum(part);
+                  if (lane == 0) {
+                    T* p = dW + static_cast<size_t>(e + u) * K + k;
+                    // later tiles add to the first tile's partial sum
+                    *p = static_cast<T>(t0 == 0 ? s
+                                                : static_cast<float>(*p) + s);
+                  }
+                }
+              }
+            }
+          }
         }
+        e += nu;
       }
     }
   }
+}
+
+// Run f with the column layout <V, NG> of a launch: one float4 group when
+// the width and pointers allow it, else kGroups single columns a lane
+// (other widths loop over or leave part of the 96-column tile).
+template <typename F>
+void with_layout(int vec, F&& f) {
+  if (vec == 4) f(IntC<4>{}, IntC<1>{});
+  else f(IntC<1>{}, IntC<kGroups>{});
+}
+
+// Run f with the <WEIGHTED, MINMAX> flags of one of the three
+// instantiations and KT = kPathK when a weighted launch has that many
+// columns, else the generic KT = 0.
+template <typename F>
+void with_flags(int weighted, int minmax, int K, F&& f) {
+  using Y = std::true_type;
+  using N = std::false_type;
+  if (weighted && K == kPathK) {
+    if (minmax) f(Y{}, Y{}, IntC<kPathK>{});
+    else f(Y{}, N{}, IntC<kPathK>{});
+  } else if (weighted) {
+    if (minmax) f(Y{}, Y{}, IntC<0>{});
+    else f(Y{}, N{}, IntC<0>{});
+  } else {
+    f(N{}, Y{}, IntC<0>{});
+  }
+}
+
+// The instantiation of K5 (BACKWARD false) or K6 (true) for these
+// arguments, passed to f.
+template <bool BACKWARD, typename F>
+void with_kernel(int K, int weighted, int minmax, int need_dw, int vec,
+                 F&& f) {
+  using T = float;
+  with_layout(vec, [&](auto v, auto ng) {
+    constexpr int V = decltype(v)::value, NG = decltype(ng)::value;
+    with_flags(weighted, minmax, K, [&](auto wt, auto mmx, auto kt) {
+      constexpr bool WT = decltype(wt)::value, MM = decltype(mmx)::value;
+      constexpr int KT = decltype(kt)::value;
+      if constexpr (!BACKWARD) {
+        f(dgn_aggregate_fwd_kernel<V, NG, KT, WT, MM, T>);
+      } else if (WT && need_dw) {
+        f(dgn_aggregate_bwd_kernel<V, NG, KT, WT, MM, WT, T>);
+      } else {
+        f(dgn_aggregate_bwd_kernel<V, NG, KT, WT, MM, false, T>);
+      }
+    });
+  });
+}
+
+template <typename... KArgs, typename... Args>
+int launch_rows(void (*kernel)(KArgs...), int n_rows, cudaStream_t st,
+                Args... args) {
+  constexpr int rows = kWarpsPerBlock * kRows;
+  kernel<<<(n_rows + rows - 1) / rows, kThreads, 0, st>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace gsn
@@ -208,18 +480,13 @@ extern "C" int gsn_dgn_aggregate_fwd(const float* B, const float* W,
     return static_cast<int>(cudaErrorInvalidValue);
   const void* ptrs[] = {B, out, mm, cnt};
   const int vec = gsn::vec_width(d, ptrs, 4);
-  const dim3 grid(gsn::row_blocks(n_rows));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  GSN_VEC_SWITCH(vec, V, [&] {
-    GSN_BOOL_SWITCH(weighted, WT, [&] {
-      GSN_BOOL_SWITCH(minmax, MM, [&] {
-        gsn::dgn_aggregate_fwd_kernel<V, WT, MM>
-            <<<grid, gsn::kThreads, 0, st>>>(B, W, recv_ptr, send, out, mm,
-                                             cnt, n_rows, d, K);
-      });
-    });
+  int rc = 0;
+  gsn::with_kernel<false>(K, weighted, minmax, 0, vec, [&](auto kernel) {
+    rc = gsn::launch_rows(kernel, n_rows, st, B, W, recv_ptr, send, out, mm,
+                          cnt, n_rows, d, K);
   });
-  return static_cast<int>(cudaGetLastError());
+  return rc;
 }
 
 extern "C" int gsn_dgn_aggregate_bwd(const float* B, const float* W,
@@ -235,19 +502,32 @@ extern "C" int gsn_dgn_aggregate_bwd(const float* B, const float* W,
     return static_cast<int>(cudaErrorInvalidValue);
   const void* ptrs[] = {B, g_w, mm, cnt, g_mm, dh};
   const int vec = gsn::vec_width(d, ptrs, 6);
-  const dim3 grid(gsn::row_blocks(n_rows));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  GSN_VEC_SWITCH(vec, V, [&] {
-    GSN_BOOL_SWITCH(weighted, WT, [&] {
-      GSN_BOOL_SWITCH(minmax, MM, [&] {
-        GSN_BOOL_SWITCH(need_dw, DWG, [&] {
-          gsn::dgn_aggregate_bwd_kernel<V, WT, MM, DWG>
-              <<<grid, gsn::kThreads, 0, st>>>(B, W, g_w, mm, cnt, g_mm,
-                                               recv_ptr, send, dh, dW,
-                                               n_rows, d, K);
-        });
-      });
-    });
+  int rc = 0;
+  gsn::with_kernel<true>(K, weighted, minmax, need_dw, vec, [&](auto kernel) {
+    rc = gsn::launch_rows(kernel, n_rows, st, B, W, g_w, mm, cnt, g_mm,
+                          recv_ptr, send, dh, dW, n_rows, d, K);
   });
-  return static_cast<int>(cudaGetLastError());
+  return rc;
+}
+
+// Resident blocks per SM of the instantiation a launch with these
+// arguments takes, or a negative error; vec is 4 for float4 rows, else 1.
+extern "C" int gsn_dgn_aggregate_occupancy(int backward, int d, int K,
+                                           int weighted, int minmax,
+                                           int need_dw, int vec) {
+  if ((!weighted && !minmax) || (weighted && (K < 1 || K > gsn::kMaxK))
+      || (need_dw && !weighted) || d < 1 || (vec == 4 && d % 4 != 0))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  int blocks = -1;
+  auto occupancy = [&](auto kernel) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, kernel, gsn::kThreads, 0) != cudaSuccess)
+      blocks = -1;
+  };
+  if (backward)
+    gsn::with_kernel<true>(K, weighted, minmax, need_dw, vec, occupancy);
+  else
+    gsn::with_kernel<false>(K, weighted, minmax, 0, vec, occupancy);
+  return blocks;
 }

@@ -10,12 +10,16 @@ cold start pays for the slowest file, not the sum.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a nonzero code into an exception.  ``on_cuda`` and
 ``require`` are the wrappers' shared dispatch and argument checks.
+``build_other`` and ``use`` build another source tree's kernel beside
+this one's and route the wrappers' launches to it, to time two builds
+on one card.
 Nothing here runs on import, so hosts without ``nvcc`` or a card import
 it freely.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -52,6 +56,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "gsn_dgn_aggregate_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, P],
         "gsn_dgn_aggregate_bwd": [P, P, P, P, P, P, P, P, P, P,
                                   I, I, I, I, I, I, P],
+        "gsn_dgn_aggregate_occupancy": [I, I, I, I, I, I, I],
     },
 }
 
@@ -91,27 +96,32 @@ def _stale(name: str) -> bool:
     return any(os.path.getmtime(p) > built for p in deps)
 
 
-def _start(name: str) -> subprocess.Popen:
+def _start(name: str, csrc: str = CSRC, stem: str = "") -> subprocess.Popen:
+    """Start compiling ``<csrc>/<name>.cu`` into ``lib<stem>.so``
+    (``stem`` defaults to ``name``)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_so_path(name)}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    stem = stem or name
+    tmp = f"{_so_path(stem)}.{os.getpid()}.tmp"
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(csrc, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    proc.tmp = tmp
+    proc.tmp, proc.stem = tmp, stem
     return proc
 
 
 def _finish(name: str, proc: subprocess.Popen) -> None:
     out, _ = proc.communicate()
-    build_logs[name] = out
+    build_logs[proc.stem] = out
     if proc.returncode != 0:
         raise KernelError(f"nvcc failed for {name}.cu:\n{out}")
-    os.replace(proc.tmp, _so_path(name))
+    os.replace(proc.tmp, _so_path(proc.stem))
 
 
-def _load(name: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(_so_path(name))
+def _load(name: str, stem: str = "") -> ctypes.CDLL:
+    lib = ctypes.CDLL(_so_path(stem or name))
     for sym, argtypes in SIGNATURES[name].items():
+        if stem and not hasattr(lib, sym):
+            continue  # another tree's build may predate an entry point
         fn = getattr(lib, sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -147,6 +157,28 @@ def lib(name: str) -> ctypes.CDLL:
                     _finish(name, _start(name))
                 _libs[name] = _load(name)
     return _libs[name]
+
+
+def build_other(name: str, csrc: str) -> ctypes.CDLL:
+    """Build ``<csrc>/<name>.cu`` of another source tree (with that
+    tree's headers) into ``build/lib<name>_other.so`` and load it with
+    the entry points of ``name`` that it has."""
+    stem = f"{name}_other"
+    with _lock:
+        _finish(name, _start(name, csrc, stem))
+    return _load(name, stem)
+
+
+@contextlib.contextmanager
+def use(name: str, other: ctypes.CDLL):
+    """Inside the block, the wrappers launch ``name``'s kernels from the
+    library ``other`` (one ``build_other`` returned)."""
+    own = lib(name)
+    _libs[name] = other
+    try:
+        yield
+    finally:
+        _libs[name] = own
 
 
 def check(rc: int, what: str) -> None:

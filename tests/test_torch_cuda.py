@@ -4,11 +4,13 @@ machine with one (no JAX needed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Shapes are small and ragged (empty segments, a width that is not a
-multiple of 4 next to one that is) so both the float4 and the scalar
-paths run; the DGN kernels also run at the DGN model's width (d=70)
-with inputs drawn from a few integers, so maxima tie, and the molhiv
-path's forms (K1/K2 with no A side, B4) at its width (d=300).
+Shapes are small and ragged (empty segments, a hub row of more than 32
+edges, a width that is not a multiple of 4 next to one that is) so both
+the float4 and the scalar paths run; the DGN kernels run at widths that
+take each of their column layouts (d=33, 64, the DGN model's 70, and
+130, which spans two column tiles) with K of 1, 5 and 16 weight
+columns and inputs drawn from a few integers, so maxima tie, and the
+molhiv path's forms (K1/K2 with no A side, B4) at its width (d=300).
 Tolerances:
 forward rtol 2e-4 / atol 2e-5, gradients rtol 2e-3 / atol 1e-4 * max|g|;
 tie counts are exact.
@@ -37,8 +39,11 @@ def dev():
 
 
 def ragged_segments(rng, n, e):
-    """Receiver-sorted random edges over n nodes, with CSR views."""
-    recv = np.sort(rng.randint(0, n, e))
+    """Receiver-sorted random edges over n nodes, with CSR views; a third
+    of them (at most 100) go to one hub receiver."""
+    recv = rng.randint(0, n, e)
+    recv[:min(100, e // 3)] = n // 2
+    recv = np.sort(recv)
     send = rng.randint(0, n, e).astype(np.int32)
     recv_ptr = np.zeros(n + 1, np.int32)
     np.cumsum(np.bincount(recv, minlength=n), out=recv_ptr[1:])
@@ -205,18 +210,20 @@ def tied_rows(gen, n, d, dev):
     return torch.relu(x) * 0.5
 
 
-@pytest.mark.parametrize("d", [70, 64])
-@pytest.mark.parametrize("K", [1, 5])
+@pytest.mark.parametrize("d", [70, 64, 33, 130])
+@pytest.mark.parametrize("K", [1, 5, 16])
 @pytest.mark.parametrize("op", ["weighted", "minmax", "fused"])
 def test_dgn_kernels(dev, d, K, op):
     """K5/K6 in each instantiation against the plain versions: forward
     (tie counts exact), the raw backward with dW, and the autograd
     Function's dB and dW."""
     rng = np.random.RandomState(d + K)
-    # 400 receivers over 1200 edges: rows without edges included
+    # 400 receivers over 1200 edges: rows without edges included, and a
+    # hub row whose edges take several 32-edge chunks
     seg = k12.EdgeSegments(*(t.to(dev)
                              for t in ragged_segments(rng, 400, 1200)))
     assert (seg.recv_ptr.diff() == 0).any()
+    assert int(seg.recv_ptr.diff().max()) >= 100
     gen = torch.Generator(device=dev).manual_seed(K)
     B = tied_rows(gen, 400, d, dev)
     W = torch.rand(1200, K, device=dev, generator=gen)

@@ -116,11 +116,13 @@ def port_grads(fn, c, with_w, cots=("g_w", "g_mm")):
             W.grad.numpy() if with_w else None)
 
 
+@pytest.mark.parametrize("d", [24, 70])
 @pytest.mark.parametrize("K", [1, 5])
 @pytest.mark.parametrize("e_pad", [0, 300])
-def test_weighted_gather_matches_slab_kernel(K, e_pad):
-    """B5: forward, dB and dW against slab_weighted_gather."""
-    c = kernel_case(K, e_pad)
+def test_weighted_gather_matches_slab_kernel(K, e_pad, d):
+    """B5: forward, dB and dW against slab_weighted_gather (d=70 is the
+    DGN path's width)."""
+    c = kernel_case(K, e_pad, d)
 
     def ref(B, W):
         return slab_weighted_gather(B, W, *c["meta"])
@@ -137,13 +139,14 @@ def test_weighted_gather_matches_slab_kernel(K, e_pad):
     grads_close(dW, np.asarray(gW)[:c["E"]], 5e-3, 5e-4, "dW")
 
 
+@pytest.mark.parametrize("d", [24, 70])
 @pytest.mark.parametrize("e_pad", [0, 300])
-def test_segment_minmax_matches_slab_kernel(e_pad):
+def test_segment_minmax_matches_slab_kernel(e_pad, d):
     """B6: [max, -min] and dB (even tie split) against
     slab_segment_minmax; the minmax-only branch passes no ``kc``, so the
     reference combines on the XLA path, in the slab dtype (compared after
     a cast to f32)."""
-    c = kernel_case(3, e_pad)
+    c = kernel_case(3, e_pad, d)
 
     def ref(B):
         return slab_segment_minmax(B, *c["meta"])
@@ -176,11 +179,13 @@ def test_tie_counts_match_jax_combine():
                                   raw[:c["N"]][has_edges])
 
 
+@pytest.mark.parametrize("d", [24, 70])
 @pytest.mark.parametrize("K", [1, 5])
 @pytest.mark.parametrize("e_pad", [0, 300])
-def test_dgn_fused_matches_slab_kernel(K, e_pad):
-    """B8: both outputs, dB and dW against slab_dgn_fused."""
-    c = kernel_case(K, e_pad)
+def test_dgn_fused_matches_slab_kernel(K, e_pad, d):
+    """B8: both outputs, dB and dW against slab_dgn_fused (d=70 is the
+    DGN path's width)."""
+    c = kernel_case(K, e_pad, d)
 
     def ref(B, W):
         return slab_dgn_fused(B, W, *c["meta"])
