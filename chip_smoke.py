@@ -15,7 +15,15 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    against their plain PyTorch versions on the card at the main path's
    shapes (d=128), and time kernel, plain version and, where one exists,
    the one PyTorch call that computes the same function (device time;
-   the kernel's host time to issue a call is reported beside it).
+   the kernel's host time to issue a call is reported beside it;
+   ``time_ms`` refuses a window the host let go idle).  K4 copies rows,
+   so it must equal its plain version bit for bit, here and at every
+   other shape.  Then K4's stress shapes: empty graphs with trailing
+   padding, leading padding, and one graph, at d in K4_STRESS_D, each
+   with g aligned and as a view one float off 16-byte alignment, through
+   K4, AddPool's backward and GraphBroadcast; and a ``[k4] ptxas`` line
+   (registers, spills, blocks/SM of its three instantiations).  K4's
+   rows also carry ``fill_ms``, a fill of the same output bytes.
 4. Check the whole model on a small batch: the card (kernels) against the
    CPU (plain versions), same weights, forward and gradients.
 5. Drive the main path: the ZINC GSN-EF model (``bench.py::zinc_cfg``:
@@ -44,7 +52,9 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    empty rows and a hub row of 100 edges, at d in {33, 64, 70, 130} and
    K in {1, 5, 16}.  A ``[dgn] ptxas`` line gives the registers, spills
    and resident blocks per SM of the path's K5/K6 instantiations, as
-   ``nvcc -Xptxas -v`` and the occupancy calculator report them.
+   ``nvcc -Xptxas -v`` and the occupancy calculator report them.  K4 as
+   the DGN mean readout's backward (d=70) is checked and timed on a log
+   line of its own.
 9. Check a small DGN model (d=70, 2 layers, dropout 0) on the card
    against the CPU for one aggregator set per branch of the layer's
    kernel dispatch (fused, weighted only, minmax only); each branch must
@@ -61,10 +71,11 @@ Phases (any failure is an uncaught exception and a nonzero exit):
     copy of ``bench.py::make_molhiv_like``), one batch at the tight caps;
     print its real and slot node and edge counts.
 14. Hold B4 (``graph_broadcast``: K4 forward, K3 backward) against its
-    plain version at d=300, forward (padding rows exactly 0) and through
-    autograd, and K1/K2 in the ogb message's form (no A side, Pe given,
-    relu, zero b1) against theirs; time B4 as phase 3 times K4, and K1/K2
-    in this form and B4's backward on log lines of their own.
+    plain version at d=300, forward (bit for bit, padding rows 0) and
+    through autograd, and K1/K2 in the ogb message's form (no A side, Pe
+    given, relu, zero b1) against theirs; time B4 as phase 3 times K4,
+    and K4 as the virtual node's sum-pool backward, K1/K2 in this form
+    and B4's backward on log lines of their own.
 15. Check a small ``GNN_OGB`` (d=32, 2 layers, virtual node, BN, dropout
     0) on the card against the CPU on a 60-graph batch in 64 graph slots;
     B4 and K1 must launch on the card.
@@ -87,6 +98,7 @@ exits nonzero before printing any of them.
 import copy
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -112,6 +124,12 @@ DGN_BRANCHES = {
     "minmax": ("max", "min"),
 }
 BRANCH_STEPS = 3
+# timing windows time_ms tries before it fails (each holds at least
+# twice as long as the last held and took to issue)
+HOLD_TRIES = 5
+# K4's stress widths: below a float4, odd, the paths' 70, 128 and 300,
+# and 130 (rows that are not whole float4s past 128)
+K4_STRESS_D = (1, 3, 33, 70, 128, 130, 300)
 # f32 tolerances (tests/test_mxu_integration.py:48,79-84)
 FWD_RTOL, FWD_ATOL = 2e-4, 2e-5
 GRAD_RTOL = 2e-3
@@ -148,13 +166,20 @@ def spin_cycles_per_ms():
     return cycles / start.elapsed_time(end)
 
 
-def time_ms(fn, cycles_per_ms, iters=50, warmup=3):
+def time_ms(fn, cycles_per_ms, iters=50, warmup=3, guard=True):
     """(device ms, host ms) per call of ``fn`` over ``iters`` back-to-back
     calls.  A spin kernel holds the stream until every call is queued, so
     the CUDA events see the device time alone, not the host's cost of
     issuing each call through its Python wrapper; that cost is the host
-    ms.  A ``fn`` that synchronises (the plain versions read
-    data-dependent sizes back) pays its host time in the device time."""
+    ms.  With ``guard``, a window whose hold had ended (its start event
+    had fired) before the host finished issuing it may have let the
+    device idle inside it: it is refused and retried with a hold twice
+    as long and at least twice that issue time, up to HOLD_TRIES
+    windows, and then the run fails.  The check reads the event, not
+    the clock, as the spin's length in ms follows the card's clock.  A
+    ``fn`` that synchronises (the plain versions read data-dependent
+    sizes back) pays its host time in the device time and is timed with
+    ``guard=False``."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -163,16 +188,29 @@ def time_ms(fn, cycles_per_ms, iters=50, warmup=3):
         fn()
     torch.cuda.synchronize()
     hold_ms = min(2e3 * (time.perf_counter() - t0), 500.0)
-    start, end = _events()
-    torch.cuda._sleep(int(hold_ms * cycles_per_ms))
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host_ms = (time.perf_counter() - t0) * 1e3 / iters
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters, host_ms
+    issues = []
+    for _ in range(HOLD_TRIES):
+        start, end = _events()
+        t_hold = time.perf_counter()
+        torch.cuda._sleep(int(hold_ms * cycles_per_ms))
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3 / iters
+        end.record()
+        issue_ms = (time.perf_counter() - t_hold) * 1e3
+        held = not start.query()
+        torch.cuda.synchronize()
+        if not guard or held:
+            return start.elapsed_time(end) / iters, host_ms
+        issues.append((hold_ms, issue_ms))
+        log(f"[time_ms] window refused: the hold of {hold_ms:.3f} ms ended "
+            f"before the host had issued the window ({issue_ms:.3f} ms)")
+        hold_ms = 2 * max(hold_ms, issue_ms)
+    raise AssertionError(
+        f"time_ms: every window's hold ended before its issue did (hold "
+        f"ms, issue ms): {issues}")
 
 
 def bound(nbytes, nops):
@@ -210,6 +248,85 @@ def fn_grads(fn, leaves, cots):
     outs = fn(*leaves)
     return torch.autograd.grad(
         sum((o * c).sum() for o, c in zip(outs, cots)), leaves)
+
+
+def k4_layouts():
+    """K4's stress layouts: name -> (segment offsets [G+1], rows)."""
+    sizes = np.random.RandomState(5).randint(1, 40, 300)
+    sizes[::7] = 0
+    off = np.cumsum(sizes)
+    return {
+        "empty graphs, trailing padding": (np.r_[0, off], off[-1] + 37),
+        "leading padding": (np.r_[13, 13 + off], off[-1] + 13),
+        "G=1": (np.array([3, 900]), 950),
+    }
+
+
+def k4_stress(dev):
+    """Phase 3's K4 stress shapes (see module docstring); returns the
+    number of cases, each equal to its plain version bit for bit."""
+    from gsn_tpu_torch.ops.cuda import slab_combine as k3
+    from gsn_tpu_torch.ops.cuda import slab_pool as k4
+
+    cases = 0
+    for name, (ptr, n_rows) in k4_layouts().items():
+        ptr = torch.from_numpy(ptr.astype(np.int32)).to(dev)
+        G = ptr.numel() - 1
+        for d in K4_STRESS_D:
+            gen = torch.Generator(device=dev).manual_seed(d)
+            base = torch.randn(G * d + 1, device=dev, generator=gen)
+            x = torch.randn(n_rows, d, device=dev, generator=gen)
+            # the view one float into base is not 16-byte aligned
+            for where, sl in (("aligned", slice(0, G * d)),
+                              ("unaligned view", slice(1, G * d + 1))):
+                tag = f"K4 {name} d={d} {where}"
+                g = base[sl].view(G, d)
+                want = k4.segment_broadcast_plain(g, ptr, n_rows)
+                exact(k4.segment_broadcast(g, ptr, n_rows), want, tag)
+                # AddPool's backward is K4 of the cotangent g as given
+                xl = x.clone().requires_grad_(True)
+                (dx,) = torch.autograd.grad(k4.add_pool(xl, ptr), [xl],
+                                            grad_outputs=g)
+                exact(dx, want, f"{tag} AddPool backward")
+                bl = base.clone().requires_grad_(True)
+                out = k4.graph_broadcast(bl[sl].view(G, d), ptr, n_rows)
+                exact(out, k4.graph_broadcast_plain(g, ptr, n_rows),
+                      f"{tag} GraphBroadcast")
+                (dv,) = torch.autograd.grad((out * x).sum(), [bl])
+                grad_check([dv[sl].view(G, d)],
+                           [k3.segment_sum_sorted_plain(x, ptr)],
+                           f"{tag} GraphBroadcast backward")
+                cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+def k4_timed(timed, data, g, kernel, plain):
+    """K4 (``kernel`` is ``segment_broadcast`` or B4's
+    ``graph_broadcast``) at a path's shape: ``g`` [G, d] over the batch's
+    graphs into its node slots, equal to ``plain`` bit for bit and to one
+    ``index_select`` over ``g`` with a zero row appended; timed beside
+    both, with its bytes bound (graphs with nodes read, every slot
+    written) and, as ``fill_ms``, a fill of an output-sized tensor: the
+    streaming write K4 is to approach."""
+    gp, N = data.graph_ptr, data.num_node_slots
+    G, d = g.shape
+    want = plain(g, gp, N)
+    exact(kernel(g, gp, N), want, f"{kernel.__name__} d={d}")
+    g_ext = torch.cat([g, torch.zeros(1, d, device=g.device)])
+    node_graph = torch.where(data.node_mask, data.batch.long(),
+                             torch.full_like(data.batch.long(), G))
+    exact(torch.index_select(g_ext, 0, node_graph), want,
+          f"library {kernel.__name__} d={d}")
+    t_b, by = bound(4 * (int((gp.diff() > 0).sum()) * d + N * d + G + 1), 0)
+    return dict(max_abs_err=0.0, bound_ms=t_b, bound_by=by,
+                **timed(lambda: kernel(g, gp, N), lambda: plain(g, gp, N),
+                        lambda: torch.index_select(g_ext, 0, node_graph),
+                        fill=want.zero_))
+
+
+def log_row(tag, name, row):
+    log(f"[{tag}] {name} " + " ".join(f"{k} {v}" for k, v in row.items()))
 
 
 def dgn_stress(dev):
@@ -295,26 +412,16 @@ def dgn_stress(dev):
     return cases
 
 
-def dgn_ptxas_line(d, K):
-    """The ``[dgn] ptxas`` line: registers, shared memory and spill bytes
-    that ``nvcc -Xptxas -v`` reported for the K5/K6 instantiations the
-    DGN paths launch at width d with K weight columns (and for the dW
-    form of K6), with each one's resident blocks per SM, and the most
-    registers and spill bytes over every instantiation of the source."""
-    import re
-
+def ptxas_report(source, key):
+    """{key: {"regs", "smem", "spill"}} from what ``nvcc -Xptxas -v``
+    reported when this process built ``csrc/<source>.cu``, for each entry
+    function whose mangled name ``key`` maps to a key (not None)."""
     from gsn_tpu_torch.ops.cuda import build
-    text = build.build_logs.get("dgn_aggregate", "")
-    # <V, NG, KT, WEIGHTED, MINMAX[, DW]> from the mangled template args
     fns, cur = {}, None
-    for line in text.splitlines():
+    for line in build.build_logs.get(source, "").splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            a = re.search(r"dgn_aggregate_(fwd|bwd)_kernelI((?:L[ib]\d+E)+)",
-                          m.group(1))
-            cur = ((a.group(1),) + tuple(
-                int(x) for x in re.findall(r"L[ib](\d+)E", a.group(2)))
-                   if a else None)
+            cur = key(m.group(1))
             continue
         if cur is None:
             continue
@@ -328,6 +435,52 @@ def dgn_ptxas_line(d, K):
             smem = re.search(r"(\d+) bytes smem", line)
             fns.setdefault(cur, {}).update(
                 regs=int(m.group(1)), smem=int(smem.group(1)) if smem else 0)
+    return fns
+
+
+def k4_ptxas_line():
+    """The ``[k4] ptxas`` line: registers, static shared memory and spill
+    bytes of K4's three instantiations (loads of g of 4, 2 or 1 floats),
+    and the resident blocks per SM of each at the widths that take it
+    (its row table in shared memory grows as the width shrinks)."""
+    from gsn_tpu_torch.ops.cuda import build
+
+    def key(name):
+        m = re.search(r"segment_broadcast_kernelILi(\d)E", name)
+        return int(m.group(1)) if m else None
+
+    fns = ptxas_report("segment_broadcast", key)
+    if not fns:
+        return ("[k4] ptxas: not reported (the library was not built in "
+                "this process)")
+    occ = build.lib("segment_broadcast").gsn_segment_broadcast_occupancy
+    parts = []
+    for load, widths in ((4, (D, MOLHIV_D)), (2, (DGN_D,)), (1, (33, 1))):
+        info = fns.get(load, {})
+        parts.append(
+            f"<{load}-float loads> {info.get('regs')} regs {info.get('smem')}"
+            f" B smem {info.get('spill')} B spilled, blocks/SM "
+            + ", ".join(f"{occ(d, load)} at d={d}" for d in widths))
+    return "[k4] ptxas: " + "; ".join(parts)
+
+
+def dgn_ptxas_line(d, K):
+    """The ``[dgn] ptxas`` line: registers, shared memory and spill bytes
+    that ``nvcc -Xptxas -v`` reported for the K5/K6 instantiations the
+    DGN paths launch at width d with K weight columns (and for the dW
+    form of K6), with each one's resident blocks per SM, and the most
+    registers and spill bytes over every instantiation of the source."""
+    from gsn_tpu_torch.ops.cuda import build
+
+    def key(name):
+        # <V, NG, KT, WEIGHTED, MINMAX[, DW]> from the mangled template args
+        a = re.search(r"dgn_aggregate_(fwd|bwd)_kernelI((?:L[ib]\d+E)+)",
+                      name)
+        return ((a.group(1),) + tuple(
+            int(x) for x in re.findall(r"L[ib](\d+)E", a.group(2)))
+                if a else None)
+
+    fns = ptxas_report("dgn_aggregate", key)
     if not fns:
         return ("[dgn] ptxas: not reported (the library was not built in "
                 "this process)")
@@ -449,15 +602,37 @@ def profile_steps(trainer, state, data, step_ms, tag):
             f"x{e.count / PROFILE_STEPS:5.1f}/step  {e.key[:90]}")
 
 
-def zinc_cfg(GSNConfig, d_id):
-    """bench.py::zinc_cfg, the ZINC GSN-EF main path."""
-    return GSNConfig(
+def one_batch(graphs, dev):
+    """All ``graphs`` as one batch at the tight epoch caps: (the batch on
+    the host, on ``dev``)."""
+    from gsn_tpu_torch.graphs.batching import (iterate_batches,
+                                               tight_epoch_caps)
+    n = len(graphs)
+    caps = tight_epoch_caps(np.arange(n), graphs, n)
+    host = next(iterate_batches(graphs, n, caps=caps, y_shape=(),
+                                y_dtype=np.float32))
+    return host, host.to(dev)
+
+
+def zinc_setup(dev):
+    """Phase 2's batch and the main path's configuration,
+    ``bench.py::zinc_cfg`` (ZINC GSN-EF): (graphs of
+    ``make_zinc_like(1024)``, the batch on the host, on ``dev``,
+    GSNConfig, TrainerConfig)."""
+    from gsn_tpu_torch.config import GSNConfig
+    from gsn_tpu_torch.data.synthetic import make_zinc_like
+    from gsn_tpu_torch.train.loop import TrainerConfig
+    graphs, d_id = make_zinc_like(1024)
+    cfg = GSNConfig(
         model_name="GSN_edge_sparse", num_layers=4, d_out=D,
         out_features=1, msg_kind="general", id_scope="global",
         bn_mlp=False, id_embedding="one_hot_encoder",
         input_node_encoder="embedding", edge_encoder="embedding",
         readout="sum", in_features=1, d_in_node_encoder=[28],
         d_in_edge_encoder=[4], d_in_id=d_id)
+    tcfg = TrainerConfig(lr=1e-3, batch_size=1024, scheduler="None",
+                         loss_fn="L1Loss", prediction_fn="L1Loss")
+    return (graphs, *one_batch(graphs, dev), cfg, tcfg)
 
 
 def kernel_counters():
@@ -481,13 +656,8 @@ def dgn_batch(dev):
     """Phase 7's batch: (graphs of ``make_dgn_like(1024)``, their one
     batch on the host, the batch on ``dev``)."""
     from gsn_tpu_torch.data.synthetic import make_dgn_like
-    from gsn_tpu_torch.graphs.batching import (iterate_batches,
-                                               tight_epoch_caps)
     graphs = make_dgn_like(1024)
-    caps = tight_epoch_caps(np.arange(len(graphs)), graphs, 1024)
-    host = next(iterate_batches(graphs, 1024, caps=caps, y_shape=(),
-                                y_dtype=np.float32))
-    return graphs, host, host.to(dev)
+    return (graphs, *one_batch(graphs, dev))
 
 
 def dgn_operands(dev, data):
@@ -561,6 +731,7 @@ def dgn_phases(dev, card, timed):
     from gsn_tpu_torch.ops.cuda import slab_combine as k3
     from gsn_tpu_torch.ops.cuda import slab_message as k12
     from gsn_tpu_torch.ops.cuda import slab_minmax as b6
+    from gsn_tpu_torch.ops.cuda import slab_pool as k4
     from gsn_tpu_torch.ops.cuda import slab_weighted as b58
     from gsn_tpu_torch.train.loop import Trainer
     from gsn_tpu_torch.train.metrics import LOSSES
@@ -645,6 +816,12 @@ def dgn_phases(dev, card, timed):
         f"{dgn_stress(dev)} width/K cases agree with the plain versions, "
         f"tie counts exact")
     log(dgn_ptxas_line(d, K))
+    # K4 as the mean readout's backward at d=70 (float2 loads of g)
+    g_graph = torch.randn(data.num_graph_slots, d, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(3))
+    log_row("dgn", f"segment_broadcast[mean-pool backward, d={d}]",
+            k4_timed(timed, data, g_graph, k4.segment_broadcast,
+                     k4.segment_broadcast_plain))
 
     # the library yardsticks: one PyTorch call each, checked against the
     # plain version.  S [N*K, N] and T [E, N*K] hold W as sparse CSR
@@ -806,9 +983,16 @@ def dgn_phases(dev, card, timed):
     return rows
 
 
-def molhiv_cfg(GSNConfig, d_id):
-    """bench.py::molhiv_cfg, the molhiv GSN-VN-AF main path."""
-    return GSNConfig(
+def molhiv_setup(dev):
+    """Phase 13's batch and the molhiv path's configuration,
+    ``bench.py::molhiv_cfg`` (GSN-VN-AF): (graphs of
+    ``make_molhiv_like(1024)``, the batch on the host, on ``dev``,
+    GSNConfig, TrainerConfig)."""
+    from gsn_tpu_torch.config import GSNConfig
+    from gsn_tpu_torch.data.synthetic import make_molhiv_like
+    from gsn_tpu_torch.train.loop import TrainerConfig
+    graphs, d_id = make_molhiv_like(1024)
+    cfg = GSNConfig(
         model_name="GSN_edge_sparse_ogb", num_layers=5, d_out=MOLHIV_D,
         d_h=2 * MOLHIV_D, out_features=1, msg_kind="ogb", id_scope="local",
         vn=True, dropout_features=0.5, readout="mean",
@@ -816,28 +1000,24 @@ def molhiv_cfg(GSNConfig, d_id):
         d_out_id_embedding=MOLHIV_D, input_node_encoder="atom_encoder",
         edge_encoder="bond_encoder", input_vn_encoder="embedding",
         in_features=9, in_edge_features=3, d_in_id=d_id)
+    tcfg = TrainerConfig(lr=1e-3, batch_size=1024, scheduler="None",
+                         loss_fn="BCEWithLogitsLoss", prediction_fn="None")
+    return (graphs, *one_batch(graphs, dev), cfg, tcfg)
 
 
 def molhiv_phases(dev, card, timed):
     """Phases 13-17 (see module docstring); returns B4's kernel row."""
-    from gsn_tpu_torch.config import GSNConfig
-    from gsn_tpu_torch.data.synthetic import make_molhiv_like
-    from gsn_tpu_torch.graphs.batching import (iterate_batches,
-                                               tight_epoch_caps)
+    from gsn_tpu_torch.graphs.batching import iterate_batches
     from gsn_tpu_torch.nn.models import build_model, edge_segments
     from gsn_tpu_torch.ops.cuda import slab_combine as k3
     from gsn_tpu_torch.ops.cuda import slab_message as k12
     from gsn_tpu_torch.ops.cuda import slab_pool as k4
-    from gsn_tpu_torch.train.loop import Trainer, TrainerConfig
+    from gsn_tpu_torch.train.loop import Trainer
     from gsn_tpu_torch.train.metrics import LOSSES
 
     # ---- phase 13: the molhiv batch ----------------------------------------
     t0 = time.perf_counter()
-    graphs, d_id = make_molhiv_like(1024)
-    caps = tight_epoch_caps(np.arange(len(graphs)), graphs, 1024)
-    host = next(iterate_batches(graphs, 1024, caps=caps, y_shape=(),
-                                y_dtype=np.float32))
-    data = host.to(dev)
+    graphs, host, data, cfg, tcfg = molhiv_setup(dev)
     N, E, G = data.num_node_slots, data.num_edge_slots, data.num_graph_slots
     e_real = data.num_real_edges
     seg = edge_segments(data)
@@ -848,7 +1028,7 @@ def molhiv_phases(dev, card, timed):
     log(f"[molhiv] data {time.perf_counter() - t0:.1f} s: graphs "
         f"{len(graphs)}, nodes {int(host.node_mask.sum())}/{N}, edges "
         f"{e_real}/{E}, graph slots {G} ({g_full} with nodes), id vocab "
-        f"{d_id}; rows with edges: receivers {n_recv}, senders {n_send}")
+        f"{cfg.d_in_id}; rows with edges: receivers {n_recv}, senders {n_send}")
 
     # ---- phase 14: B4 and the ogb form of K1/K2 ----------------------------
     d = MOLHIV_D
@@ -860,17 +1040,16 @@ def molhiv_phases(dev, card, timed):
     vn, g_node = rnd(G, d), rnd(N, d)
     B, Pe, b1 = rnd(N, d), rnd(E, d), torch.zeros(d, device=dev)
     out = k4.graph_broadcast(vn, gp, N)
-    out_p = k4.graph_broadcast_plain(vn, gp, N)
-    err = max_err(out, out_p, FWD_RTOL, FWD_ATOL, "graph_broadcast")
+    exact(out, k4.graph_broadcast_plain(vn, gp, N), "graph_broadcast")
     if out[~data.node_mask].any():
         raise AssertionError("graph_broadcast: padding rows are not 0")
     leaves = [vn.clone().requires_grad_(True) for _ in range(2)]
-    err = max(err, grad_check(
+    err = grad_check(
         torch.autograd.grad((k4.graph_broadcast(leaves[0], gp, N)
                              * g_node).sum(), leaves[:1]),
         torch.autograd.grad((k4.graph_broadcast_plain(leaves[1], gp, N)
                              * g_node).sum(), leaves[1:]),
-        "GraphBroadcast"))
+        "GraphBroadcast")
     msg_err = max_err(
         k12.edge_message_fwd(None, B, Pe, b1, rp, send),
         k12.edge_message_fwd_plain(None, B, Pe, b1, rp, send),
@@ -891,23 +1070,20 @@ def molhiv_phases(dev, card, timed):
         torch.autograd.grad((k12.edge_message_fwd_plain(
             None, *ref, b1, rp, send) * g_node).sum(), ref),
         "EdgeMessageAggregate[ogb]"))
-    log(f"[molhiv] at d={d}: B4 agrees with its plain version (max abs err "
-        f"{err}, padding rows 0); K1/K2 in the ogb form max abs err "
-        f"{msg_err}")
+    log(f"[molhiv] at d={d}: B4's forward equals its plain version bit for "
+        f"bit (padding rows 0), its backward max abs err {err}; K1/K2 in "
+        f"the ogb form max abs err {msg_err}")
 
-    # B4's yardstick: one index_select over vn with a zero row appended
-    vn_ext = torch.cat([vn, torch.zeros(1, d, device=dev)])
-    node_graph = torch.where(data.node_mask, data.batch.long(),
-                             torch.full_like(data.batch.long(), G))
-    max_err(torch.index_select(vn_ext, 0, node_graph), out_p, FWD_RTOL,
-            FWD_ATOL, "library graph broadcast")
-    t_b, by = bound(4 * (g_full * d + N * d + G + 1), 0)
+    # B4 (its row; the backward's error in max_abs_err), then K4 as the
+    # virtual node's sum-pool backward on a log line of its own
     row = dict(source="gsn_tpu_torch/csrc/segment_broadcast.cu",
                replaces="gsn_tpu/ops/pallas/slab_pool.py:201",
-               max_abs_err=err, bound_ms=t_b, bound_by=by,
-               **timed(lambda: k4.graph_broadcast(vn, gp, N),
-                       lambda: k4.graph_broadcast_plain(vn, gp, N),
-                       lambda: torch.index_select(vn_ext, 0, node_graph)))
+               **k4_timed(timed, data, vn, k4.graph_broadcast,
+                          k4.graph_broadcast_plain))
+    row["max_abs_err"] = err
+    log_row("molhiv", f"segment_broadcast[pool backward, d={d}]",
+            k4_timed(timed, data, rnd(G, d), k4.segment_broadcast,
+                     k4.segment_broadcast_plain))
     # the ogb form of K1/K2 and B4's backward (K3 over graph_ptr), on
     # log lines of their own (their rows hold the zinc path's form)
     n_real = int(data.node_mask.sum())
@@ -936,18 +1112,16 @@ def molhiv_phases(dev, card, timed):
             bound(4 * (n_real * d + G * d + G + 1), n_real * d)),
     }
     for name, (kernel, plain, library, (t_x, by_x)) in extra.items():
-        log(f"[molhiv] {name} "
-            + " ".join(f"{k} {v}" for k, v in
-                       timed(kernel, plain, library).items())
-            + f" bound_ms {t_x} bound_by {by_x}")
+        log_row("molhiv", name, dict(**timed(kernel, plain, library),
+                                     bound_ms=t_x, bound_by=by_x))
     torch.cuda.synchronize()
 
     # ---- phase 15: a small GNN_OGB, card vs CPU ----------------------------
     counters = kernel_counters()
     bce = LOSSES["BCEWithLogitsLoss"]
     small_cfg = dataclasses.replace(
-        molhiv_cfg(GSNConfig, d_id), num_layers=2, d_out=32, d_h=64,
-        d_out_id_embedding=32, dropout_features=0.0)
+        cfg, num_layers=2, d_out=32, d_h=64, d_out_id_embedding=32,
+        dropout_features=0.0)
     small = next(iterate_batches(graphs[:60], 64, y_shape=(),
                                  y_dtype=np.float32))
     ref_model = build_model(small_cfg, torch.Generator().manual_seed(3))
@@ -974,9 +1148,6 @@ def molhiv_phases(dev, card, timed):
         f"{small_err}")
 
     # ---- phase 16: the molhiv main path (bench.py::molhiv_cfg) -------------
-    cfg = molhiv_cfg(GSNConfig, d_id)
-    tcfg = TrainerConfig(lr=1e-3, batch_size=1024, scheduler="None",
-                         loss_fn="BCEWithLogitsLoss", prediction_fn="None")
     trainer = Trainer(cfg, tcfg, graphs)
     state = trainer.init_state(seed=0)
     L = cfg.num_layers
@@ -1009,17 +1180,13 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from gsn_tpu_torch.config import GSNConfig
-    from gsn_tpu_torch.data.synthetic import make_zinc_like
-    from gsn_tpu_torch.graphs.batching import (iterate_batches,
-                                               tight_epoch_caps)
+    from gsn_tpu_torch.graphs.batching import iterate_batches
     from gsn_tpu_torch.nn.models import build_model, edge_segments
     from gsn_tpu_torch.ops.cuda import build
     from gsn_tpu_torch.ops.cuda import slab_combine as k3
     from gsn_tpu_torch.ops.cuda import slab_message as k12
     from gsn_tpu_torch.ops.cuda import slab_pool as k4
-    from gsn_tpu_torch.train.loop import (Trainer, TrainerConfig,
-                                          full_f32_matmuls)
+    from gsn_tpu_torch.train.loop import Trainer, full_f32_matmuls
     from gsn_tpu_torch.train.metrics import l1_loss
 
     dev = torch.device("cuda")
@@ -1035,17 +1202,13 @@ def main():
 
     # ---- phase 2: the main path's batch ----------------------------------
     t0 = time.perf_counter()
-    graphs, d_id = make_zinc_like(1024)
-    caps = tight_epoch_caps(np.arange(len(graphs)), graphs, 1024)
-    host_batch = next(iterate_batches(graphs, 1024, caps=caps, y_shape=(),
-                                      y_dtype=np.float32))
-    data = host_batch.to(dev)
+    graphs, host_batch, data, cfg, tcfg = zinc_setup(dev)
     N, E, G = (data.num_node_slots, data.num_edge_slots,
                data.num_graph_slots)
     e_real = data.num_real_edges
     n_real = int(host_batch.node_mask.sum())
     log(f"[smoke] data {time.perf_counter() - t0:.1f} s: nodes {n_real}/{N}"
-        f", edges {e_real}/{E}, graphs {G}, id vocab {d_id}")
+        f", edges {e_real}/{E}, graphs {G}, id vocab {cfg.d_in_id}")
 
     # ---- phase 3: each kernel against its plain version ------------------
     seg = edge_segments(data)
@@ -1068,11 +1231,14 @@ def main():
     rows = {}
     cpm = spin_cycles_per_ms()
 
-    def timed(kernel, plain, library=None):
+    def timed(kernel, plain, library=None, fill=None):
         ms, host_ms = time_ms(kernel, cpm)
-        return dict(ms=ms, host_ms=host_ms,
-                    plain_ms=time_ms(plain, cpm)[0],
-                    library_ms=time_ms(library, cpm)[0] if library else None)
+        row = dict(ms=ms, host_ms=host_ms,
+                   plain_ms=time_ms(plain, cpm, guard=False)[0],
+                   library_ms=time_ms(library, cpm)[0] if library else None)
+        if fill is not None:
+            row["fill_ms"] = time_ms(fill, cpm)[0]
+        return row
 
     # K1
     err = 0.0
@@ -1150,22 +1316,17 @@ def main():
         + " ".join(f"{k} {v}" for k, v in pool.items())
         + f" bound_ms {pool_b}")
 
-    # K4
-    err = max_err(k4.segment_broadcast(g_graph, data.graph_ptr, N),
-                  k4.segment_broadcast_plain(g_graph, data.graph_ptr, N),
-                  FWD_RTOL, FWD_ATOL, "segment_broadcast")
-    g_ext = torch.cat([g_graph, torch.zeros(1, D, device=dev)])
-    node_graph = torch.where(data.node_mask, data.batch.long(),
-                             torch.full_like(data.batch.long(), G))
-    t_b, by = bound(4 * (g_full * D + N * D + G + 1), 0)
+    # K4: the pool backward at d=128 (its row), then the stress shapes
     rows["segment_broadcast"] = dict(
         source="gsn_tpu_torch/csrc/segment_broadcast.cu",
         replaces="gsn_tpu/ops/pallas/slab_pool.py:90",
-        max_abs_err=err, bound_ms=t_b, bound_by=by,
-        **timed(lambda: k4.segment_broadcast(g_graph, data.graph_ptr, N),
-                lambda: k4.segment_broadcast_plain(g_graph, data.graph_ptr,
-                                                   N),
-                lambda: torch.index_select(g_ext, 0, node_graph)))
+        **k4_timed(timed, data, g_graph, k4.segment_broadcast,
+                   k4.segment_broadcast_plain))
+    log(f"[k4] stress shapes ({', '.join(k4_layouts())}; d in "
+        f"{K4_STRESS_D}; aligned g and an unaligned view; K4, AddPool and "
+        f"GraphBroadcast): {k4_stress(dev)} cases equal their plain "
+        f"versions bit for bit")
+    log(k4_ptxas_line())
 
     # the autograd Functions' backward passes against autograd through
     # the plain versions
@@ -1182,12 +1343,12 @@ def main():
     x_p = A.clone().requires_grad_(True)
     want = torch.autograd.grad((k3.segment_sum_sorted_plain(
         x_p, data.graph_ptr) * g_graph).sum(), [x_p])
-    fn_err = max(fn_err, grad_check(got, want, "AddPool"))
-    log(f"[smoke] autograd backward max abs err {fn_err}")
+    exact(got[0], want[0], "AddPool backward")
+    log(f"[smoke] autograd backward max abs err {fn_err} (AddPool's "
+        f"backward, K4, bit for bit)")
     torch.cuda.synchronize()
 
     # ---- phase 4: whole model, card vs CPU, on a small batch -------------
-    cfg = zinc_cfg(GSNConfig, d_id)
     small = next(iterate_batches(graphs[:64], 64, y_shape=(),
                                  y_dtype=np.float32))
     models, preds, grads = {}, {}, {}
@@ -1209,8 +1370,6 @@ def main():
     log(f"[smoke] model on the card vs the CPU: max abs err {model_err}")
 
     # ---- phase 5: the main path --------------------------------------------
-    tcfg = TrainerConfig(lr=1e-3, batch_size=1024, scheduler="None",
-                         loss_fn="L1Loss", prediction_fn="L1Loss")
     trainer = Trainer(cfg, tcfg, graphs)
     state = trainer.init_state(seed=0)
     counters = kernel_counters()

@@ -51,6 +51,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "segment_broadcast": {
         "gsn_segment_broadcast": [P, P, I, P, I, I, P],
+        "gsn_segment_broadcast_occupancy": [I, I],
     },
     "dgn_aggregate": {
         "gsn_dgn_aggregate_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, P],

@@ -39,7 +39,8 @@ def segment_broadcast(g: torch.Tensor, ptr: torch.Tensor,
                       n_rows: int) -> torch.Tensor:
     """[n_rows, d]: row v is ``g[k]`` for the segment k holding v
     (``ptr[k] <= v < ptr[k+1]``), 0 outside every segment.  CPU tensors
-    take the plain version; CUDA tensors launch K4 (f32 only)."""
+    take the plain version; CUDA tensors launch K4 (f32 only; ``g`` may
+    be a view at any 4-byte offset)."""
     if not build.on_cuda(g):
         return segment_broadcast_plain(g, ptr, n_rows)
     build.require("segment_broadcast", g.device, g, dtype=torch.float32)

@@ -10,10 +10,12 @@ the float4 and the scalar paths run; the DGN kernels run at widths that
 take each of their column layouts (d=33, 64, the DGN model's 70, and
 130, which spans two column tiles) with K of 1, 5 and 16 weight
 columns and inputs drawn from a few integers, so maxima tie, and the
-molhiv path's forms (K1/K2 with no A side, B4) at its width (d=300).
-Tolerances:
+molhiv path's forms (K1/K2 with no A side, B4) at its width (d=300);
+K4 runs on its stress layouts (empty graphs, leading and trailing
+padding, one graph, none) at widths 1 to 300 with aligned and unaligned
+g.  Tolerances:
 forward rtol 2e-4 / atol 2e-5, gradients rtol 2e-3 / atol 1e-4 * max|g|;
-tie counts are exact.
+tie counts are exact, and so is K4, which copies rows.
 """
 
 import numpy as np
@@ -121,9 +123,8 @@ def test_segment_kernels_and_pool(dev, d):
     graph_ptr = torch.from_numpy(
         np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)).to(dev)
     g = torch.randn(len(sizes), d, device=dev, generator=gen)
-    torch.testing.assert_close(
-        k4.segment_broadcast(g, graph_ptr, 200),
-        k4.segment_broadcast_plain(g, graph_ptr, 200), **FWD)
+    assert torch.equal(k4.segment_broadcast(g, graph_ptr, 200),
+                       k4.segment_broadcast_plain(g, graph_ptr, 200))
     x = torch.randn(200, d, device=dev, generator=gen, requires_grad=True)
     x_p = x.detach().clone().requires_grad_(True)
     out = k4.add_pool(x, graph_ptr)
@@ -189,6 +190,57 @@ def test_graph_broadcast(dev, d):
     assert not out[180:].any()
     grad_close(torch.autograd.grad((out * g).sum(), [vl]),
                torch.autograd.grad((out_p * g).sum(), [vp]))
+
+
+def k4_layout(name):
+    """(graph_ptr [G+1] int32, rows) of a K4 stress layout."""
+    sizes = np.random.RandomState(5).randint(1, 40, 300)
+    sizes[::7] = 0
+    off = np.cumsum(sizes)
+    ptr, n_rows = {
+        "empty graphs, trailing padding": (np.r_[0, off], off[-1] + 37),
+        "leading padding": (np.r_[13, 13 + off], off[-1] + 13),
+        "one graph": (np.array([3, 900]), 950),
+        "no graphs": (np.array([5]), 40),
+    }[name]
+    return torch.from_numpy(ptr.astype(np.int32)), int(n_rows)
+
+
+@pytest.mark.parametrize("layout", ["empty graphs, trailing padding",
+                                    "leading padding", "one graph",
+                                    "no graphs"])
+@pytest.mark.parametrize("d", [1, 3, 33, 70, 128, 130, 300])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_segment_broadcast_stress(dev, layout, d, aligned):
+    """K4 equals its plain version bit for bit on empty graphs, leading
+    and trailing padding, one graph and none, at widths below, at and
+    past a float4 and at the paths' 70, 128 and 300, with g aligned or a
+    view one float off 16-byte alignment; through K4, AddPool's backward
+    (K4 of the cotangent as given) and GraphBroadcast (K4 forward, K3
+    backward)."""
+    ptr, n_rows = k4_layout(layout)
+    ptr = ptr.to(dev)
+    G = ptr.numel() - 1
+    gen = torch.Generator(device=dev).manual_seed(d)
+    base = torch.randn(G * d + 1, device=dev, generator=gen)
+    x = torch.randn(n_rows, d, device=dev, generator=gen)
+    sl = slice(0, G * d) if aligned else slice(1, G * d + 1)
+    g = base[sl].view(G, d)
+    want = k4.segment_broadcast_plain(g, ptr, n_rows)
+    before = k4.segment_broadcast.launches
+    assert torch.equal(k4.segment_broadcast(g, ptr, n_rows), want)
+    assert k4.segment_broadcast.launches == before + 1
+    if G == 0:  # every row is 0; there is nothing to pool or broadcast
+        return
+    assert (g.data_ptr() % 16 == 0) == aligned
+    xl = x.clone().requires_grad_(True)
+    (dx,) = torch.autograd.grad(k4.add_pool(xl, ptr), [xl], grad_outputs=g)
+    assert torch.equal(dx, want)
+    bl = base.clone().requires_grad_(True)
+    out = k4.graph_broadcast(bl[sl].view(G, d), ptr, n_rows)
+    assert torch.equal(out, k4.graph_broadcast_plain(g, ptr, n_rows))
+    (dv,) = torch.autograd.grad((out * x).sum(), [bl])
+    grad_close([dv[sl].view(G, d)], [k3.segment_sum_sorted_plain(x, ptr)])
 
 
 def test_kernels_count_launches_and_reject_bf16(dev):

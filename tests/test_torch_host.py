@@ -204,7 +204,7 @@ def test_port_imports_no_jax_or_reference_package():
                 for mod in _imports(path):
                     if mod.split(".")[0] in FORBIDDEN:
                         bad.append(f"{os.path.relpath(path, REPO)}: {mod}")
-    for script in ("chip_smoke.py", "dgn_turns.py"):
+    for script in ("chip_smoke.py", "kernel_turns.py"):
         for mod in _imports(os.path.join(REPO, script)):
             if mod.split(".")[0] in FORBIDDEN:
                 bad.append(f"{script}: {mod}")

@@ -153,6 +153,45 @@ def test_add_pool_matches_slab_add_pool(graph_cap):
     assert not xt.grad.numpy()[~mask].any()
 
 
+@pytest.mark.parametrize("lead,trail", [(0, 29), (13, 0), (7, 40)])
+@pytest.mark.parametrize("d", [1, 3, 70])
+def test_segment_broadcast_matches_slab_pool_vjp(lead, trail, d):
+    """K4's plain version, alone and as AddPool's backward, against the
+    VJP of slab_add_pool (interpret mode) on a ragged batch: every fifth
+    graph empty, ``lead`` padding rows before the first graph and
+    ``trail`` after the last; the one-hot product copies rows, so the
+    two agree exactly."""
+    rng = np.random.RandomState(lead + d)
+    sizes = rng.randint(3, 13, 40)
+    sizes[::5] = 0
+    G, n_rows = len(sizes), lead + int(sizes.sum()) + trail
+    batch = np.zeros(n_rows, np.int32)
+    mask = np.zeros(n_rows, bool)
+    batch[lead:n_rows - trail] = np.repeat(np.arange(G), sizes)
+    mask[lead:n_rows - trail] = True
+    meta = build_pool_metadata(batch, mask, G, block_g=16, block_e=32)
+    assert meta is not None
+    n_pad = meta["recv_local"].shape[0]
+    g = rng.randn(G, d).astype(np.float32)
+
+    def ref(xp):
+        return slab_add_pool(xp, jnp.asarray(meta["recv_local"]),
+                             jnp.asarray(meta["fb"]), G, meta["block_g"],
+                             meta["block_e"], True)
+
+    _, vjp = jax.vjp(ref, jnp.zeros((n_pad, d), jnp.float32))
+    want = np.asarray(vjp(jnp.asarray(g))[0])[:n_rows]
+
+    ptr = torch.from_numpy(
+        (lead + np.r_[0, np.cumsum(sizes)]).astype(np.int32))
+    np.testing.assert_array_equal(
+        k4.segment_broadcast(t(g), ptr, n_rows).numpy(), want)
+    x = torch.zeros(n_rows, d, requires_grad=True)
+    k4.add_pool(x, ptr).backward(t(g))
+    np.testing.assert_array_equal(x.grad.numpy(), want)
+    assert not want[~mask].any()
+
+
 def test_segment_broadcast_plain_zero_outside_segments():
     """K4 fills rows before the first and after the last segment with 0
     and skips empty segments."""
