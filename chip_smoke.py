@@ -87,12 +87,35 @@ Phases (any failure is an uncaught exception and a nonzero exit):
     5, B4 5, K4 10, K3 15); prints the median step, real edges/s and peak
     memory.
 17. Profile the molhiv main path as phase 6 profiles the zinc one.
+18. The bf16 modes (``compute_dtype="bfloat16"``) at the zinc path's
+    shapes (d=128): K1 (relu and identity), K2, K3 into bf16 (dB) and
+    into f32 (the pool) and K4 on bf16 data, and the autograd
+    Functions, against their plain versions: K4, dH, dPe and AddPool's
+    backward bit for bit, K3 into f32 at the f32 tolerances, the rest at
+    BF16_RTOL (one bf16 ulp: the plain versions sum in another order);
+    each timed as in phase 3, with its bound from its bf16 bytes.
+19. The same at the molhiv shapes (d=300): B4 (forward bit for bit,
+    padding rows 0; backward K3 into bf16), K4 as the pool backward, and
+    K1/K2 in the ogb form; B4's backward and the pool on log lines.
+20. A small zinc model and a small ``GNN_OGB`` in bf16 on the card
+    against the CPU from the same weights: loss rel 2e-2, all-parameter
+    gradient cosine above 0.99 (``tests/test_compute_dtype.py:80-85``);
+    K1 and K4 must launch in bf16 on the card and not on the CPU.
+21. Drive the zinc path in bf16 (``zinc_cfg`` + ``compute_dtype=
+    "bfloat16"``, d=128, 4 layers) for STEPS steps, counters zeroed just
+    before and read just after: per step K1 4, K2 4, K3 9 (4 into bf16,
+    5 into f32), K4 5, every one in bf16; the median step, real edges/s,
+    peak memory and a profile as in phases 5-6.
+22. The same for the molhiv path in bf16 (``molhiv_cfg`` +
+    ``compute_dtype="bfloat16"``, d=300, 5 layers): per step K1 5, K2
+    5, B4 5, K4 10, K3 15 (10 into bf16, 5 into f32).
 
 Then it prints three lines: ``{"kernels": [...]}`` (each kernel's
 checks, times, bound and its launches on the path named in its
-``path``), the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``.  Without a CUDA card, or outside the repository, it
-exits nonzero before printing any of them.
+``path``; a bf16 mode's row is named ``kernel[bf16 ...]``), the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``.
+Without a CUDA card, or outside the repository, it exits nonzero before
+printing any of them.
 """
 
 import copy
@@ -133,6 +156,12 @@ K4_STRESS_D = (1, 3, 33, 70, 128, 130, 300)
 # f32 tolerances (tests/test_mxu_integration.py:48,79-84)
 FWD_RTOL, FWD_ATOL = 2e-4, 2e-5
 GRAD_RTOL = 2e-3
+# bf16 kernel outputs that a plain version sums in another order: one
+# bf16 ulp (2^-7 relative at most) / atol 1e-4 * max|want|
+BF16_RTOL = 8e-3
+# bf16 models card vs CPU (tests/test_compute_dtype.py:80-85): loss rel
+# 2e-2, all-parameter gradient cosine > 0.99
+BF16_LOSS_REL, BF16_COSINE = 2e-2, 0.99
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -236,9 +265,18 @@ def grad_check(got, want, what):
 
 
 def exact(got, want, what):
-    if not torch.equal(got, want):
+    if got.dtype != want.dtype or not torch.equal(got, want):
         raise AssertionError(f"{what}: kernel disagrees with its plain "
                              f"version")
+
+
+def bf16_check(got, want, what):
+    """A bf16 kernel output against its plain version's, at BF16_RTOL /
+    atol 1e-4 * max|want|; both must be bf16."""
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        raise AssertionError(f"{what}: dtypes {got.dtype}, {want.dtype}")
+    return max_err(got, want, BF16_RTOL,
+                   1e-4 * float(want.float().abs().max()), what)
 
 
 def fn_grads(fn, leaves, cots):
@@ -307,18 +345,19 @@ def k4_timed(timed, data, g, kernel, plain):
     graphs into its node slots, equal to ``plain`` bit for bit and to one
     ``index_select`` over ``g`` with a zero row appended; timed beside
     both, with its bytes bound (graphs with nodes read, every slot
-    written) and, as ``fill_ms``, a fill of an output-sized tensor: the
-    streaming write K4 is to approach."""
+    written, in g's dtype) and, as ``fill_ms``, a fill of an output-sized
+    tensor: the streaming write K4 is to approach."""
     gp, N = data.graph_ptr, data.num_node_slots
     G, d = g.shape
     want = plain(g, gp, N)
     exact(kernel(g, gp, N), want, f"{kernel.__name__} d={d}")
-    g_ext = torch.cat([g, torch.zeros(1, d, device=g.device)])
+    g_ext = torch.cat([g, torch.zeros(1, d, dtype=g.dtype, device=g.device)])
     node_graph = torch.where(data.node_mask, data.batch.long(),
                              torch.full_like(data.batch.long(), G))
     exact(torch.index_select(g_ext, 0, node_graph), want,
           f"library {kernel.__name__} d={d}")
-    t_b, by = bound(4 * (int((gp.diff() > 0).sum()) * d + N * d + G + 1), 0)
+    t_b, by = bound(g.element_size() * (int((gp.diff() > 0).sum()) + N) * d
+                    + 4 * (G + 1), 0)
     return dict(max_abs_err=0.0, bound_ms=t_b, bound_by=by,
                 **timed(lambda: kernel(g, gp, N), lambda: plain(g, gp, N),
                         lambda: torch.index_select(g_ext, 0, node_graph),
@@ -440,27 +479,36 @@ def ptxas_report(source, key):
 
 def k4_ptxas_line():
     """The ``[k4] ptxas`` line: registers, static shared memory and spill
-    bytes of K4's three instantiations (loads of g of 4, 2 or 1 floats),
-    and the resident blocks per SM of each at the widths that take it
-    (its row table in shared memory grows as the width shrinks)."""
+    bytes of K4's instantiations (f32 words with loads of g of 4, 2 or 1
+    floats; bf16 words with loads of 8, 4, 2 or 1), and the resident
+    blocks per SM of each at the widths that take it (its row table in
+    shared memory grows as the width shrinks)."""
     from gsn_tpu_torch.ops.cuda import build
 
     def key(name):
-        m = re.search(r"segment_broadcast_kernelILi(\d)E", name)
-        return int(m.group(1)) if m else None
+        # <element bytes (4: f32, 2: bf16), elements a load>
+        m = re.search(r"segment_broadcast_kernelILi(\d)ELi(\d)E", name)
+        return (int(m.group(1)), int(m.group(2))) if m else None
 
     fns = ptxas_report("segment_broadcast", key)
     if not fns:
         return ("[k4] ptxas: not reported (the library was not built in "
                 "this process)")
-    occ = build.lib("segment_broadcast").gsn_segment_broadcast_occupancy
+    lib = build.lib("segment_broadcast")
     parts = []
-    for load, widths in ((4, (D, MOLHIV_D)), (2, (DGN_D,)), (1, (33, 1))):
-        info = fns.get(load, {})
-        parts.append(
-            f"<{load}-float loads> {info.get('regs')} regs {info.get('smem')}"
-            f" B smem {info.get('spill')} B spilled, blocks/SM "
-            + ", ".join(f"{occ(d, load)} at d={d}" for d in widths))
+    for es, occ, loads in (
+            (4, lib.gsn_segment_broadcast_occupancy,
+             ((4, (D, MOLHIV_D)), (2, (DGN_D,)), (1, (33, 1)))),
+            (2, lib.gsn_segment_broadcast_occupancy_bf16,
+             ((8, (D,)), (4, (MOLHIV_D,)), (2, (DGN_D,)), (1, (33, 1))))):
+        dtype = "f32" if es == 4 else "bf16"
+        for load, widths in loads:
+            info = fns.get((es, load), {})
+            parts.append(
+                f"<{dtype}, {load}-element loads> {info.get('regs')} regs "
+                f"{info.get('smem')} B smem {info.get('spill')} B spilled, "
+                "blocks/SM " + ", ".join(f"{occ(d, load)} at d={d}"
+                                         for d in widths))
     return "[k4] ptxas: " + "; ".join(parts)
 
 
@@ -512,9 +560,9 @@ def dgn_ptxas_line(d, K):
 def train_steps(trainer, state, data, steps, counters):
     """``steps`` Adam steps; the launch counters are zeroed just before
     and read just after.  Returns (state, losses, step seconds,
-    launches by name)."""
+    launches by name, launches by name and mode)."""
     for fn in counters.values():
-        fn.launches = 0
+        fn.launches, fn.modes = 0, {}
     torch.cuda.synchronize()
     losses, step_s = [], []
     for _ in range(steps):
@@ -524,19 +572,28 @@ def train_steps(trainer, state, data, steps, counters):
         step_s.append(time.perf_counter() - t0)
         losses.append(float(loss))
     launches = {name: fn.launches for name, fn in counters.items()}
+    modes = {name: dict(fn.modes) for name, fn in counters.items()}
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
-    return state, losses, step_s, launches
+    return state, losses, step_s, launches, modes
 
 
-def expect_launches(launches, per_step, steps, what):
+def expect_launches(launches, per_step, steps, what, modes=None,
+                    per_step_modes=None):
     """Every counter must show exactly its launches a step (0 for the
-    kernels the path does not run)."""
+    kernels the path does not run) and, where ``per_step_modes`` names a
+    kernel, exactly those launches a step in each mode."""
     for name, n in launches.items():
         want = per_step.get(name, 0) * steps
         if n != want:
             raise AssertionError(f"{what}: {name} launched {n} times in "
                                  f"{steps} steps, expected {want}")
+    for name, by_mode in (per_step_modes or {}).items():
+        want = {m: k * steps for m, k in by_mode.items()}
+        if modes[name] != want:
+            raise AssertionError(f"{what}: {name} launched {modes[name]} "
+                                 f"by mode in {steps} steps, expected "
+                                 f"{want}")
 
 
 def device_events(prof):
@@ -945,8 +1002,8 @@ def dgn_phases(dev, card, timed):
     per_step = {"dgn_fused_fwd": L, "dgn_fused_bwd": L,
                 "segment_sum_sorted": L + 2, "segment_broadcast": 1}
     torch.cuda.reset_peak_memory_stats()
-    state, losses, step_s, launches = train_steps(trainer, state, data,
-                                                  STEPS, counters)
+    state, losses, step_s, launches, _ = train_steps(trainer, state, data,
+                                                     STEPS, counters)
     log(f"[dgn] losses {losses}")
     log(f"[dgn] launches in {STEPS} steps: {launches}")
     expect_launches(launches, per_step, STEPS, "DGN path")
@@ -965,7 +1022,7 @@ def dgn_phases(dev, card, timed):
         cfg_b = dataclasses.replace(cfg, aggregators=DGN_BRANCHES[branch])
         tr = Trainer(cfg_b, tcfg, graphs, model=DGNNet(cfg_b))
         fwd, bwd = branch_kernels[branch]
-        _, b_losses, b_s, b_launches = train_steps(
+        _, b_losses, b_s, b_launches, _ = train_steps(
             tr, tr.init_state(seed=0), data, BRANCH_STEPS, counters)
         expect_launches(b_launches, {fwd: L, bwd: L,
                                      "segment_sum_sorted": L + 2,
@@ -1006,7 +1063,8 @@ def molhiv_setup(dev):
 
 
 def molhiv_phases(dev, card, timed):
-    """Phases 13-17 (see module docstring); returns B4's kernel row."""
+    """Phases 13-17 (see module docstring); returns (B4's kernel rows,
+    the path's (graphs, batch on the card, GSNConfig, TrainerConfig))."""
     from gsn_tpu_torch.graphs.batching import iterate_batches
     from gsn_tpu_torch.nn.models import build_model, edge_segments
     from gsn_tpu_torch.ops.cuda import slab_combine as k3
@@ -1157,8 +1215,8 @@ def molhiv_phases(dev, card, timed):
                 "graph_broadcast": L, "segment_broadcast": 2 * L,
                 "segment_sum_sorted": 3 * L}
     torch.cuda.reset_peak_memory_stats()
-    state, losses, step_s, launches = train_steps(trainer, state, data,
-                                                  STEPS, counters)
+    state, losses, step_s, launches, _ = train_steps(trainer, state, data,
+                                                     STEPS, counters)
     log(f"[molhiv] losses {losses}")
     log(f"[molhiv] launches in {STEPS} steps: {launches}")
     expect_launches(launches, per_step, STEPS, "molhiv path")
@@ -1173,7 +1231,364 @@ def molhiv_phases(dev, card, timed):
 
     # ---- phase 17 ----------------------------------------------------------
     profile_steps(trainer, state, data, med * 1e3, "molhiv")
-    return {"graph_broadcast": row}
+    return {"graph_broadcast": row}, (graphs, data, cfg, tcfg)
+
+def bf16_zinc_kernels(dev, timed, data):
+    """Phase 18 (see module docstring): K1-K4 in bf16 at the zinc path's
+    shapes (d=128); returns their kernel rows."""
+    from gsn_tpu_torch.nn.models import edge_segments
+    from gsn_tpu_torch.ops.cuda import slab_combine as k3
+    from gsn_tpu_torch.ops.cuda import slab_message as k12
+    from gsn_tpu_torch.ops.cuda import slab_pool as k4
+
+    N, E, G = data.num_node_slots, data.num_edge_slots, data.num_graph_slots
+    e_real, gp = data.num_real_edges, data.graph_ptr
+    n_real = int(data.node_mask.sum())
+    seg = edge_segments(data)
+    rp, send = seg.recv_ptr, seg.send
+    n_recv = int((rp.diff() > 0).sum())
+    n_send = int((seg.send_ptr.diff() > 0).sum())
+    n_dst = seg.send_ptr.numel() - 1
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).bfloat16()
+
+    A, B, Pe, g_node, g_graph = (rnd(N, D), rnd(N, D), rnd(E, D),
+                                 rnd(N, D), rnd(G, D))
+    b1 = torch.randn(D, device=dev, generator=gen)
+    src = "gsn_tpu_torch/csrc/"
+    rows = {}
+    # K1: bf16 data, 2-byte rows; b1 and the indices 4 bytes
+    err = max(bf16_check(
+        k12.edge_message_fwd(A, B, Pe, b1, rp, send, act),
+        k12.edge_message_fwd_plain(A, B, Pe, b1, rp, send, act),
+        f"edge_message_fwd[bf16 {act}]") for act in ("relu", "identity"))
+    t_b, by = bound(2 * ((n_recv + n_send + N) * D + e_real * D)
+                    + 4 * (D + N + 1 + e_real), 5 * e_real * D)
+    rows["edge_message_fwd[bf16]"] = dict(
+        source=src + "edge_message.cu",
+        replaces="gsn_tpu/ops/pallas/slab_message.py:214",
+        max_abs_err=err, bound_ms=t_b, bound_by=by,
+        **timed(lambda: k12.edge_message_fwd(A, B, Pe, b1, rp, send),
+                lambda: k12.edge_message_fwd_plain(A, B, Pe, b1, rp, send)))
+    # K2: dH (a masked copy of g) bit for bit, dA one ulp
+    err = 0.0
+    for act in ("relu", "identity"):
+        dH, dA = k12.edge_message_bwd_recv(A, B, Pe, b1, g_node, rp, send,
+                                           act, E)
+        dH_p, dA_p = k12.edge_message_bwd_recv_plain(A, B, Pe, b1, g_node,
+                                                     rp, send, act, E)
+        exact(dH, dH_p, f"edge_message_bwd_recv[bf16 {act}] dH")
+        err = max(err, bf16_check(dA, dA_p,
+                                  f"edge_message_bwd_recv[bf16 {act}] dA"))
+    t_b, by = bound(2 * ((2 * n_recv + n_send + N) * D + e_real * D + E * D)
+                    + 4 * (D + N + 1 + e_real), 5 * e_real * D)
+    rows["edge_message_bwd_recv[bf16]"] = dict(
+        source=src + "edge_message.cu",
+        replaces="gsn_tpu/ops/pallas/slab_message.py:240",
+        max_abs_err=err, bound_ms=t_b, bound_by=by,
+        **timed(lambda: k12.edge_message_bwd_recv(A, B, Pe, b1, g_node, rp,
+                                                  send, "relu", E),
+                lambda: k12.edge_message_bwd_recv_plain(
+                    A, B, Pe, b1, g_node, rp, send, "relu", E)))
+    # K3 bf16 -> bf16: the sender-side dB
+    sp, perm = seg.send_ptr, seg.send_perm
+    bf = torch.bfloat16
+    err = bf16_check(k3.segment_sum_sorted(dH, sp, perm, bf),
+                     k3.segment_sum_sorted_plain(dH, sp, perm, bf),
+                     "segment_sum_sorted[bf16->bf16]")
+    t_b, by = bound(2 * (e_real + n_dst) * D + 4 * (n_dst + 1 + e_real),
+                    e_real * D)
+    rows["segment_sum_sorted[bf16->bf16]"] = dict(
+        source=src + "segment_sum.cu",
+        replaces="gsn_tpu/ops/pallas/slab_combine.py:77",
+        max_abs_err=err, bound_ms=t_b, bound_by=by,
+        **timed(lambda: k3.segment_sum_sorted(dH, sp, perm, bf),
+                lambda: k3.segment_sum_sorted_plain(dH, sp, perm, bf)))
+    # K3 bf16 -> f32: the readout pool (f32 sums of the same bf16 values)
+    err = max_err(k3.segment_sum_sorted(A, gp),
+                  k3.segment_sum_sorted_plain(A, gp), FWD_RTOL, FWD_ATOL,
+                  "segment_sum_sorted[bf16->f32]")
+    t_b, by = bound(2 * n_real * D + 4 * (G * D + G + 1), n_real * D)
+    rows["segment_sum_sorted[bf16->f32]"] = dict(
+        source=src + "segment_sum.cu",
+        replaces="gsn_tpu/ops/pallas/slab_pool.py:84",
+        max_abs_err=err, bound_ms=t_b, bound_by=by,
+        **timed(lambda: k3.segment_sum_sorted(A, gp),
+                lambda: k3.segment_sum_sorted_plain(A, gp)))
+    # K4: the pool backward, bit for bit
+    rows["segment_broadcast[bf16 d=128]"] = dict(
+        source=src + "segment_broadcast.cu",
+        replaces="gsn_tpu/ops/pallas/slab_pool.py:90",
+        **k4_timed(timed, data, g_graph, k4.segment_broadcast,
+                   k4.segment_broadcast_plain))
+    # the autograd Functions: each gradient in its input's dtype
+    leaves = [t.clone().requires_grad_(True) for t in (A, B, Pe, b1)]
+    got = torch.autograd.grad((k12.edge_message_aggregate(
+        *leaves, seg, "relu").float() * g_node.float()).sum(), leaves)
+    dH_p, dA_p = k12.edge_message_bwd_recv_plain(A, B, Pe, b1, g_node, rp,
+                                                 send, "relu", E)
+    fn_err = max(bf16_check(got[0], dA_p, "EdgeMessageAggregate[bf16] dA"),
+                 bf16_check(got[1], k3.segment_sum_sorted_plain(
+                     dH_p, sp, perm, bf), "EdgeMessageAggregate[bf16] dB"))
+    exact(got[2], dH_p, "EdgeMessageAggregate[bf16] dPe")
+    fn_err = max(fn_err, max_err(got[3], dH_p.float().sum(0), GRAD_RTOL,
+                                 1e-4 * float(dH_p.float().abs().max()),
+                                 "EdgeMessageAggregate[bf16] db1"))
+    x = A.clone().requires_grad_(True)
+    (dx,) = torch.autograd.grad((k4.add_pool(x, gp)
+                                 * g_graph.float()).sum(), [x])
+    exact(dx, k4.segment_broadcast_plain(g_graph, gp, N),
+          "AddPool[bf16] backward")
+    log(f"[bf16] zinc shapes (d={D}): K1-K4 agree with their plain "
+        f"versions (K4, dH, dPe and AddPool's backward bit for bit); "
+        f"autograd max abs err {fn_err}")
+    torch.cuda.synchronize()
+    return rows
+
+
+def bf16_molhiv_kernels(dev, timed, data):
+    """Phase 19 (see module docstring): B4, K4 and K1/K2 in the ogb form
+    in bf16 at the molhiv path's shapes (d=300); returns their rows."""
+    from gsn_tpu_torch.nn.models import edge_segments
+    from gsn_tpu_torch.ops.cuda import slab_combine as k3
+    from gsn_tpu_torch.ops.cuda import slab_message as k12
+    from gsn_tpu_torch.ops.cuda import slab_pool as k4
+
+    N, E, G = data.num_node_slots, data.num_edge_slots, data.num_graph_slots
+    e_real, gp, d = data.num_real_edges, data.graph_ptr, MOLHIV_D
+    n_real = int(data.node_mask.sum())
+    seg = edge_segments(data)
+    rp, send = seg.recv_ptr, seg.send
+    n_recv = int((rp.diff() > 0).sum())
+    n_send = int((seg.send_ptr.diff() > 0).sum())
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).bfloat16()
+
+    vn, g_node, B, Pe = rnd(G, d), rnd(N, d), rnd(N, d), rnd(E, d)
+    b1 = torch.zeros(d, device=dev)
+    bf = torch.bfloat16
+    src = "gsn_tpu_torch/csrc/"
+    rows = {}
+    # B4: forward a bit copy (padding rows 0), backward K3 bf16 -> bf16
+    out = k4.graph_broadcast(vn, gp, N)
+    exact(out, k4.graph_broadcast_plain(vn, gp, N), "graph_broadcast[bf16]")
+    if out[~data.node_mask].any():
+        raise AssertionError("graph_broadcast[bf16]: padding rows are not 0")
+    vl = vn.clone().requires_grad_(True)
+    (dv,) = torch.autograd.grad((k4.graph_broadcast(vl, gp, N).float()
+                                 * g_node.float()).sum(), [vl])
+    b4_err = bf16_check(dv, k3.segment_sum_sorted_plain(g_node, gp,
+                                                         out_dtype=bf),
+                        "graph_broadcast[bf16] backward")
+    rows["graph_broadcast[bf16]"] = dict(
+        source=src + "segment_broadcast.cu",
+        replaces="gsn_tpu/ops/pallas/slab_pool.py:201",
+        **k4_timed(timed, data, vn, k4.graph_broadcast,
+                   k4.graph_broadcast_plain))
+    rows["graph_broadcast[bf16]"]["max_abs_err"] = b4_err
+    rows["segment_broadcast[bf16 d=300]"] = dict(
+        source=src + "segment_broadcast.cu",
+        replaces="gsn_tpu/ops/pallas/slab_pool.py:90",
+        **k4_timed(timed, data, rnd(G, d), k4.segment_broadcast,
+                   k4.segment_broadcast_plain))
+    # K1/K2 in the ogb form: no A side, Pe, relu, a constant zero b1
+    err = bf16_check(k12.edge_message_fwd(None, B, Pe, b1, rp, send),
+                     k12.edge_message_fwd_plain(None, B, Pe, b1, rp, send),
+                     "edge_message_fwd[bf16 ogb]")
+    t_b, by = bound(2 * ((n_send + N) * d + e_real * d)
+                    + 4 * (d + N + 1 + e_real), 3 * e_real * d)
+    rows["edge_message_fwd[bf16 ogb]"] = dict(
+        source=src + "edge_message.cu",
+        replaces="gsn_tpu/ops/pallas/slab_message.py:214",
+        max_abs_err=err, bound_ms=t_b, bound_by=by,
+        **timed(lambda: k12.edge_message_fwd(None, B, Pe, b1, rp, send),
+                lambda: k12.edge_message_fwd_plain(None, B, Pe, b1, rp,
+                                                   send)))
+    dH, dA = k12.edge_message_bwd_recv(None, B, Pe, b1, g_node, rp, send,
+                                       "relu", E)
+    dH_p, _ = k12.edge_message_bwd_recv_plain(None, B, Pe, b1, g_node, rp,
+                                              send, "relu", E)
+    if dA is not None:
+        raise AssertionError("edge_message_bwd_recv[bf16 ogb] returned dA")
+    exact(dH, dH_p, "edge_message_bwd_recv[bf16 ogb] dH")
+    leaves = [t.clone().requires_grad_(True) for t in (B, Pe)]
+    got = torch.autograd.grad((k12.edge_message_aggregate(
+        None, *leaves, b1, seg, "relu").float() * g_node.float()).sum(),
+        leaves)
+    err = bf16_check(got[0], k3.segment_sum_sorted_plain(
+        dH_p, seg.send_ptr, seg.send_perm, bf),
+        "EdgeMessageAggregate[bf16 ogb] dB")
+    exact(got[1], dH_p, "EdgeMessageAggregate[bf16 ogb] dPe")
+    t_b, by = bound(2 * ((n_recv + n_send) * d + e_real * d + E * d)
+                    + 4 * (d + N + 1 + e_real), 3 * e_real * d)
+    rows["edge_message_bwd_recv[bf16 ogb]"] = dict(
+        source=src + "edge_message.cu",
+        replaces="gsn_tpu/ops/pallas/slab_message.py:240",
+        max_abs_err=err, bound_ms=t_b, bound_by=by,
+        **timed(lambda: k12.edge_message_bwd_recv(None, B, Pe, b1, g_node,
+                                                  rp, send, "relu", E),
+                lambda: k12.edge_message_bwd_recv_plain(
+                    None, B, Pe, b1, g_node, rp, send, "relu", E)))
+    # B4's backward and the pool at d=300, on log lines of their own
+    extra = {
+        "graph_broadcast[bf16] backward (K3 bf16->bf16)": (
+            (lambda: k3.segment_sum_sorted(g_node, gp, out_dtype=bf)),
+            (lambda: k3.segment_sum_sorted_plain(g_node, gp, out_dtype=bf)),
+            bound(2 * (n_real + G) * d + 4 * (G + 1), n_real * d)),
+        "segment_sum_sorted[bf16->f32, pool d=300]": (
+            (lambda: k3.segment_sum_sorted(g_node, gp)),
+            (lambda: k3.segment_sum_sorted_plain(g_node, gp)),
+            bound(2 * n_real * d + 4 * (G * d + G + 1), n_real * d)),
+    }
+    max_err(k3.segment_sum_sorted(g_node, gp),
+            k3.segment_sum_sorted_plain(g_node, gp), FWD_RTOL, FWD_ATOL,
+            "segment_sum_sorted[bf16->f32, d=300]")
+    for name, (kernel, plain, (t_x, by_x)) in extra.items():
+        log_row("bf16", name, dict(**timed(kernel, plain), bound_ms=t_x,
+                                   bound_by=by_x))
+    log(f"[bf16] molhiv shapes (d={d}): B4, K4 and K1/K2 in the ogb form "
+        f"agree with their plain versions (B4's forward, K4, dH and dPe "
+        f"bit for bit); B4 backward max abs err {b4_err}")
+    torch.cuda.synchronize()
+    return rows
+
+
+def cosine(a, b):
+    a = torch.cat([t.float().reshape(-1) for t in a])
+    b = torch.cat([t.float().reshape(-1) for t in b])
+    return float(a @ b / (a.norm() * b.norm() + 1e-30))
+
+
+def bf16_small_model(cfg, graphs, n_slots, loss_fn, seed, what):
+    """Phase 20: a bf16 model on a small batch, the card (kernels, each
+    of K1 and K4 launched once a layer or more, in bf16) against the CPU
+    (plain versions) from the same weights: loss rel BF16_LOSS_REL and
+    the all-parameter gradient cosine above BF16_COSINE."""
+    from gsn_tpu_torch.graphs.batching import iterate_batches
+    from gsn_tpu_torch.nn.models import build_model
+    counters = kernel_counters()
+    small = next(iterate_batches(graphs, n_slots, y_shape=(),
+                                 y_dtype=np.float32))
+    ref = build_model(cfg, torch.Generator().manual_seed(seed))
+    losses, grads = {}, {}
+    for where in ("cpu", "cuda"):
+        m = copy.deepcopy(ref).to(where).train()
+        b = small.to(where)
+        before = {k: counters[k].modes.get("bf16", 0)
+                  for k in ("edge_message_fwd", "segment_broadcast")}
+        loss = loss_fn(m(b), b.y, b.graph_mask)
+        loss.backward()
+        losses[where] = loss.item()
+        grads[where] = [p.grad.detach().cpu() for p in m.parameters()]
+        ran = {k: counters[k].modes.get("bf16", 0) - n
+               for k, n in before.items()}
+        if where == "cuda" and min(ran.values()) < cfg.num_layers:
+            raise AssertionError(f"{what} bf16 on the card: bf16 launches "
+                                 f"{ran}")
+        if where == "cpu" and any(ran.values()):
+            raise AssertionError(f"{what} bf16 on the CPU launched {ran}")
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    cos = cosine(grads["cuda"], grads["cpu"])
+    if not (rel <= BF16_LOSS_REL and cos > BF16_COSINE):
+        raise AssertionError(f"{what} bf16 card vs CPU: loss rel {rel}, "
+                             f"gradient cosine {cos}")
+    log(f"[bf16] small {what} on the card vs the CPU: losses "
+        f"{losses['cuda']} / {losses['cpu']} (rel {rel:.3e}), gradient "
+        f"cosine {cos:.6f}")
+
+
+def bf16_path(card, setup, per_step, per_step_modes, tag):
+    """Phases 21-22: ``setup``'s configuration in bf16 takes STEPS steps
+    through ``Trainer.train_step``, counters zeroed just before and read
+    just after, each kernel exactly its launches a step in its bf16
+    modes; then the path's profile.  Returns the launches by name and
+    mode."""
+    from gsn_tpu_torch.train.loop import Trainer
+    graphs, data, cfg, tcfg = setup
+    trainer = Trainer(dataclasses.replace(cfg, compute_dtype="bfloat16"),
+                      tcfg, graphs)
+    state = trainer.init_state(seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, step_s, launches, modes = train_steps(
+        trainer, state, data, STEPS, kernel_counters())
+    log(f"[{tag}] losses {losses}")
+    log(f"[{tag}] launches in {STEPS} steps: {launches}; by mode: "
+        f"{ {k: v for k, v in modes.items() if v} }")
+    expect_launches(launches, per_step, STEPS, f"{tag} path", modes,
+                    per_step_modes)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag} loss did not fall: {losses}")
+    if any(p.dtype != torch.float32 for p in state.model.parameters()):
+        raise AssertionError(f"{tag}: a parameter left f32")
+    med = statistics.median(step_s[1:])
+    log(f"[{tag}] train step median {med * 1e3:.3f} ms over {STEPS - 1} "
+        f"steps (first {step_s[0] * 1e3:.1f} ms), "
+        f"{data.num_real_edges / med:.4e} real edges/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    profile_steps(trainer, state, data, med * 1e3, tag)
+    return modes
+
+
+def bf16_phases(dev, card, timed, zinc, molhiv):
+    """Phases 18-22 (see module docstring); ``zinc`` and ``molhiv`` are
+    the paths' (graphs, batch on the card, GSNConfig, TrainerConfig).
+    Returns the bf16 modes' kernel rows, with their launches on the bf16
+    paths."""
+    from gsn_tpu_torch.train.metrics import LOSSES
+    rows = bf16_zinc_kernels(dev, timed, zinc[1])
+    rows.update(bf16_molhiv_kernels(dev, timed, molhiv[1]))
+
+    # ---- phase 20: small bf16 models, card vs CPU ---------------------------
+    zcfg = dataclasses.replace(zinc[2], compute_dtype="bfloat16")
+    bf16_small_model(zcfg, zinc[0][:64], 64, LOSSES["L1Loss"], 7, "zinc")
+    mcfg = dataclasses.replace(
+        molhiv[2], num_layers=2, d_out=32, d_h=64, d_out_id_embedding=32,
+        dropout_features=0.0, compute_dtype="bfloat16")
+    bf16_small_model(mcfg, molhiv[0][:60], 64, LOSSES["BCEWithLogitsLoss"],
+                     8, "GNN_OGB")
+
+    # ---- phase 21: the zinc path in bf16 ------------------------------------
+    L = zinc[2].num_layers
+    modes = bf16_path(card, zinc, {
+        "edge_message_fwd": L, "edge_message_bwd_recv": L,
+        "segment_sum_sorted": 2 * L + 1, "segment_broadcast": L + 1}, {
+        "edge_message_fwd": {"bf16": L}, "edge_message_bwd_recv": {"bf16": L},
+        "segment_sum_sorted": {"bf16->bf16": L, "bf16->f32": L + 1},
+        "segment_broadcast": {"bf16": L + 1}}, "zinc-bf16")
+    for name, kernel, mode in (
+            ("edge_message_fwd[bf16]", "edge_message_fwd", "bf16"),
+            ("edge_message_bwd_recv[bf16]", "edge_message_bwd_recv", "bf16"),
+            ("segment_sum_sorted[bf16->bf16]", "segment_sum_sorted",
+             "bf16->bf16"),
+            ("segment_sum_sorted[bf16->f32]", "segment_sum_sorted",
+             "bf16->f32"),
+            ("segment_broadcast[bf16 d=128]", "segment_broadcast", "bf16")):
+        rows[name].update(launches=modes[kernel][mode], path="zinc-bf16")
+
+    # ---- phase 22: the molhiv path in bf16 ----------------------------------
+    L = molhiv[2].num_layers
+    # K3: each layer's dB and B4 backward (bf16 -> bf16), the L-1 virtual
+    # node pools and the readout (bf16 -> f32); K4: each B4 forward and
+    # each pool's backward
+    modes = bf16_path(card, molhiv, {
+        "edge_message_fwd": L, "edge_message_bwd_recv": L,
+        "graph_broadcast": L, "segment_broadcast": 2 * L,
+        "segment_sum_sorted": 3 * L}, {
+        "edge_message_fwd": {"bf16": L}, "edge_message_bwd_recv": {"bf16": L},
+        "graph_broadcast": {"bf16": L}, "segment_broadcast": {"bf16": 2 * L},
+        "segment_sum_sorted": {"bf16->bf16": 2 * L, "bf16->f32": L}},
+        "molhiv-bf16")
+    for name, kernel in (
+            ("edge_message_fwd[bf16 ogb]", "edge_message_fwd"),
+            ("edge_message_bwd_recv[bf16 ogb]", "edge_message_bwd_recv"),
+            ("graph_broadcast[bf16]", "graph_broadcast"),
+            ("segment_broadcast[bf16 d=300]", "segment_broadcast")):
+        rows[name].update(launches=modes[kernel]["bf16"], path="molhiv-bf16")
+    return rows
 
 
 def main():
@@ -1377,8 +1792,8 @@ def main():
     per_step = {"edge_message_fwd": L, "edge_message_bwd_recv": L,
                 "segment_sum_sorted": L + (L + 1),
                 "segment_broadcast": L + 1}
-    state, losses, step_s, launches = train_steps(trainer, state, data,
-                                                  STEPS, counters)
+    state, losses, step_s, launches, _ = train_steps(trainer, state, data,
+                                                     STEPS, counters)
     log(f"[smoke] losses {losses}")
     log(f"[smoke] launches in {STEPS} steps: {launches}")
     expect_launches(launches, per_step, STEPS, "zinc path")
@@ -1394,7 +1809,10 @@ def main():
     profile_steps(trainer, state, data, med * 1e3, "zinc")
 
     rows.update(dgn_phases(dev, card, timed))
-    rows.update(molhiv_phases(dev, card, timed))
+    molhiv_rows, molhiv = molhiv_phases(dev, card, timed)
+    rows.update(molhiv_rows)
+    rows.update(bf16_phases(dev, card, timed, (graphs, data, cfg, tcfg),
+                            molhiv))
 
     # kernel_ms and bound_us repeat ms and bound_ms in the units the
     # port's kernel table uses

@@ -478,8 +478,8 @@ extern "C" int gsn_dgn_aggregate_fwd(const float* B, const float* W,
                                      void* stream) {
   if ((!weighted && !minmax) || (weighted && (K < 1 || K > gsn::kMaxK)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const void* ptrs[] = {B, out, mm, cnt};
-  const int vec = gsn::vec_width(d, ptrs, 4);
+  const int vec = gsn::vec_width<float>(d, {{B, 4}, {out, 4}, {mm, 4},
+                                           {cnt, 4}});
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc = 0;
   gsn::with_kernel<false>(K, weighted, minmax, 0, vec, [&](auto kernel) {
@@ -500,8 +500,8 @@ extern "C" int gsn_dgn_aggregate_bwd(const float* B, const float* W,
   if ((!weighted && !minmax) || (weighted && (K < 1 || K > gsn::kMaxK))
       || (need_dw && !weighted))
     return static_cast<int>(cudaErrorInvalidValue);
-  const void* ptrs[] = {B, g_w, mm, cnt, g_mm, dh};
-  const int vec = gsn::vec_width(d, ptrs, 6);
+  const int vec = gsn::vec_width<float>(
+      d, {{B, 4}, {g_w, 4}, {mm, 4}, {cnt, 4}, {g_mm, 4}, {dh, 4}});
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc = 0;
   gsn::with_kernel<true>(K, weighted, minmax, need_dw, vec, [&](auto kernel) {

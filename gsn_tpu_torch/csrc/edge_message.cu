@@ -24,30 +24,40 @@
 //             dA[v]  = sum_e dH[e]
 // act is relu or identity; relu's backward recomputes H from the inputs
 // (as the TPU kernel does) instead of storing it.
+//
+// Element type T of A, B, Pe, g, out, dH and dA: f32, or bf16 (the
+// reference's data_dtype="bfloat16", slab_message.py:228-235, 253-277,
+// 579-584).  b1 is f32 in both.  H is computed in f32 from the T values
+// in the reference's order B + A + Pe + b1, so the relu mask is the
+// reference's; in bf16 each message is rounded to bf16 before the f32
+// row sum, the row sum is rounded once on its store, and dH, a masked
+// copy of g, is exact.  The reference also rounds each chunk's partial
+// sum; a row here has no chunks.
 #include "common.cuh"
 
 namespace gsn {
 
-template <int V, bool RELU, bool HAS_A, bool HAS_PE>
+template <typename T, int V, int LANES, bool RELU, bool HAS_A,
+          bool HAS_PE>
 __global__ void __launch_bounds__(kThreads)
-edge_message_fwd_kernel(const float* __restrict__ A,
-                        const float* __restrict__ B,
-                        const float* __restrict__ Pe,
+edge_message_fwd_kernel(const T* __restrict__ A,
+                        const T* __restrict__ B,
+                        const T* __restrict__ Pe,
                         const float* __restrict__ b1,
                         const int32_t* __restrict__ recv_ptr,
                         const int32_t* __restrict__ send,
-                        float* __restrict__ out, int n_rows, int d) {
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & (kWarp - 1);
+                        T* __restrict__ out, int n_rows, int d) {
+  const int row = blockIdx.x * (kThreads / LANES) + threadIdx.x / LANES;
+  const int lane = threadIdx.x % LANES;
   if (row >= n_rows) return;
   const int e0 = recv_ptr[row];
   const int e1 = recv_ptr[row + 1];
   if (e0 == e1) {  // no edges (padding rows too): no A or b1 reads
-    for (int c = lane * V; c < d; c += kWarp * V)
+    for (int c = lane * V; c < d; c += LANES * V)
       Frag<V>::zero().store(out + (size_t)row * d + c);
     return;
   }
-  for (int c = lane * V; c < d; c += kWarp * V) {
+  for (int c = lane * V; c < d; c += LANES * V) {
     const Frag<V> a = HAS_A ? Frag<V>::load(A + (size_t)row * d + c)
                             : Frag<V>::zero();
     const Frag<V> bias = Frag<V>::load(b1 + c);
@@ -65,36 +75,37 @@ edge_message_fwd_kernel(const float* __restrict__ A,
         if (HAS_PE) x += pe.v[i];
         x += bias.v[i];
         if (RELU) x = fmaxf(x, 0.f);
-        acc.v[i] += x;
+        acc.v[i] += round_to<T>(x);  // a bf16 message is rounded
       }
     }
     acc.store(out + (size_t)row * d + c);
   }
 }
 
-template <int V, bool RELU, bool HAS_A, bool HAS_PE>
+template <typename T, int V, int LANES, bool RELU, bool HAS_A,
+          bool HAS_PE>
 __global__ void __launch_bounds__(kThreads)
-edge_message_bwd_recv_kernel(const float* __restrict__ A,
-                             const float* __restrict__ B,
-                             const float* __restrict__ Pe,
+edge_message_bwd_recv_kernel(const T* __restrict__ A,
+                             const T* __restrict__ B,
+                             const T* __restrict__ Pe,
                              const float* __restrict__ b1,
-                             const float* __restrict__ g,
+                             const T* __restrict__ g,
                              const int32_t* __restrict__ recv_ptr,
                              const int32_t* __restrict__ send,
-                             float* __restrict__ dH,
-                             float* __restrict__ dA, int n_rows, int d) {
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & (kWarp - 1);
+                             T* __restrict__ dH,
+                             T* __restrict__ dA, int n_rows, int d) {
+  const int row = blockIdx.x * (kThreads / LANES) + threadIdx.x / LANES;
+  const int lane = threadIdx.x % LANES;
   if (row >= n_rows) return;
   const int e0 = recv_ptr[row];
   const int e1 = recv_ptr[row + 1];
   if (e0 == e1) {  // no edges: no g, A or b1 reads
     if (HAS_A)
-      for (int c = lane * V; c < d; c += kWarp * V)
+      for (int c = lane * V; c < d; c += LANES * V)
         Frag<V>::zero().store(dA + (size_t)row * d + c);
     return;
   }
-  for (int c = lane * V; c < d; c += kWarp * V) {
+  for (int c = lane * V; c < d; c += LANES * V) {
     const Frag<V> gv = Frag<V>::load(g + (size_t)row * d + c);
     const Frag<V> a = (RELU && HAS_A)
                           ? Frag<V>::load(A + (size_t)row * d + c)
@@ -125,6 +136,62 @@ edge_message_bwd_recv_kernel(const float* __restrict__ A,
   }
 }
 
+template <typename T>
+int launch_fwd(const T* A, const T* B, const T* Pe, const float* b1,
+               const int32_t* recv_ptr, const int32_t* send, T* out,
+               int n_rows, int d, int relu, int has_a, int has_pe,
+               void* stream) {
+  const int t = sizeof(T);
+  const int vec = vec_width<T>(d, {{A, t}, {B, t}, {Pe, t}, {b1, 4},
+                                   {out, t}});
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  vec_switch<T>(vec, [&](auto v) {
+    constexpr int V = decltype(v)::value;
+    lanes_switch<V>(d, [&](auto l) {
+      constexpr int LANES = decltype(l)::value;
+      const dim3 grid(row_blocks(n_rows, LANES));
+      GSN_BOOL_SWITCH(relu, R, [&] {
+        GSN_BOOL_SWITCH(has_a, HA, [&] {
+          GSN_BOOL_SWITCH(has_pe, HP, [&] {
+            edge_message_fwd_kernel<T, V, LANES, R, HA, HP>
+                <<<grid, kThreads, 0, st>>>(A, B, Pe, b1, recv_ptr, send,
+                                            out, n_rows, d);
+          });
+        });
+      });
+    });
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_recv(const T* A, const T* B, const T* Pe, const float* b1,
+                    const T* g, const int32_t* recv_ptr,
+                    const int32_t* send, T* dH, T* dA, int n_rows, int d,
+                    int relu, int has_a, int has_pe, void* stream) {
+  const int t = sizeof(T);
+  const int vec = vec_width<T>(d, {{A, t}, {B, t}, {Pe, t}, {b1, 4},
+                                   {g, t}, {dH, t}, {dA, t}});
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  vec_switch<T>(vec, [&](auto v) {
+    constexpr int V = decltype(v)::value;
+    lanes_switch<V>(d, [&](auto l) {
+      constexpr int LANES = decltype(l)::value;
+      const dim3 grid(row_blocks(n_rows, LANES));
+      GSN_BOOL_SWITCH(relu, R, [&] {
+        GSN_BOOL_SWITCH(has_a, HA, [&] {
+          GSN_BOOL_SWITCH(has_pe, HP, [&] {
+            edge_message_bwd_recv_kernel<T, V, LANES, R, HA, HP>
+                <<<grid, kThreads, 0, st>>>(A, B, Pe, b1, g, recv_ptr, send,
+                                            dH, dA, n_rows, d);
+          });
+        });
+      });
+    });
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace gsn
 
 extern "C" int gsn_edge_message_fwd(const float* A, const float* B,
@@ -133,22 +200,8 @@ extern "C" int gsn_edge_message_fwd(const float* A, const float* B,
                                     const int32_t* send, float* out,
                                     int n_rows, int d, int relu, int has_a,
                                     int has_pe, void* stream) {
-  const void* ptrs[] = {A, B, Pe, b1, out};
-  const int vec = gsn::vec_width(d, ptrs, 5);
-  const dim3 grid(gsn::row_blocks(n_rows));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  GSN_VEC_SWITCH(vec, V, [&] {
-    GSN_BOOL_SWITCH(relu, R, [&] {
-      GSN_BOOL_SWITCH(has_a, HA, [&] {
-        GSN_BOOL_SWITCH(has_pe, HP, [&] {
-          gsn::edge_message_fwd_kernel<V, R, HA, HP>
-              <<<grid, gsn::kThreads, 0, st>>>(A, B, Pe, b1, recv_ptr, send,
-                                               out, n_rows, d);
-        });
-      });
-    });
-  });
-  return static_cast<int>(cudaGetLastError());
+  return gsn::launch_fwd(A, B, Pe, b1, recv_ptr, send, out, n_rows, d, relu,
+                         has_a, has_pe, stream);
 }
 
 extern "C" int gsn_edge_message_bwd_recv(const float* A, const float* B,
@@ -159,20 +212,36 @@ extern "C" int gsn_edge_message_bwd_recv(const float* A, const float* B,
                                          float* dA, int n_rows, int d,
                                          int relu, int has_a, int has_pe,
                                          void* stream) {
-  const void* ptrs[] = {A, B, Pe, b1, g, dH, dA};
-  const int vec = gsn::vec_width(d, ptrs, 7);
-  const dim3 grid(gsn::row_blocks(n_rows));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  GSN_VEC_SWITCH(vec, V, [&] {
-    GSN_BOOL_SWITCH(relu, R, [&] {
-      GSN_BOOL_SWITCH(has_a, HA, [&] {
-        GSN_BOOL_SWITCH(has_pe, HP, [&] {
-          gsn::edge_message_bwd_recv_kernel<V, R, HA, HP>
-              <<<grid, gsn::kThreads, 0, st>>>(A, B, Pe, b1, g, recv_ptr,
-                                               send, dH, dA, n_rows, d);
-        });
-      });
-    });
-  });
-  return static_cast<int>(cudaGetLastError());
+  return gsn::launch_bwd_recv(A, B, Pe, b1, g, recv_ptr, send, dH, dA,
+                              n_rows, d, relu, has_a, has_pe, stream);
+}
+
+// bf16 A, B, Pe and out (f32 b1), same arguments otherwise
+extern "C" int gsn_edge_message_fwd_bf16(const void* A, const void* B,
+                                         const void* Pe, const float* b1,
+                                         const int32_t* recv_ptr,
+                                         const int32_t* send, void* out,
+                                         int n_rows, int d, int relu,
+                                         int has_a, int has_pe,
+                                         void* stream) {
+  using gsn::bf16;
+  return gsn::launch_fwd(static_cast<const bf16*>(A),
+                         static_cast<const bf16*>(B),
+                         static_cast<const bf16*>(Pe), b1, recv_ptr, send,
+                         static_cast<bf16*>(out), n_rows, d, relu, has_a,
+                         has_pe, stream);
+}
+
+// bf16 A, B, Pe, g, dH and dA (f32 b1), same arguments otherwise
+extern "C" int gsn_edge_message_bwd_recv_bf16(
+    const void* A, const void* B, const void* Pe, const float* b1,
+    const void* g, const int32_t* recv_ptr, const int32_t* send, void* dH,
+    void* dA, int n_rows, int d, int relu, int has_a, int has_pe,
+    void* stream) {
+  using gsn::bf16;
+  return gsn::launch_bwd_recv(
+      static_cast<const bf16*>(A), static_cast<const bf16*>(B),
+      static_cast<const bf16*>(Pe), b1, static_cast<const bf16*>(g),
+      recv_ptr, send, static_cast<bf16*>(dH), static_cast<bf16*>(dA), n_rows,
+      d, relu, has_a, has_pe, stream);
 }

@@ -8,28 +8,36 @@
 // built a graph one-hot per node chunk and multiplied.  Every output row
 // is written, padding rows with zeros, so the caller needs no zero fill.
 //
+// K4 copies bits, so it is written over elements of ES bytes: 4 for f32
+// rows, 2 for bf16 rows (the reference's bf16 mode, slab_pool.py:163-181
+// and 228-234).  One template serves both; E = 16 / ES elements make a
+// 16-byte vector (4 f32, 8 bf16), held as four 32-bit registers (a bf16
+// piece of 2 bytes goes into its half of one), and any width d works,
+// odd ones included.
+//
 // Bound: bytes (one read of each segment row, one write of each output
 // row; no arithmetic beyond the search).  Each segment's output is one
 // contiguous range that repeats g[k], and the rows outside every segment
 // are contiguous ranges of zeros, so K4 is a streaming write of out from
 // a source that stays in L2.  The design serves that stream:
 //
-// - out is one flat array of float4s, and each block owns a chunk of
-//   kChunk consecutive float4s (8 KB), whatever the row width;
+// - out is one flat array of 16-byte vectors, and each block owns a
+//   chunk of kChunk consecutive vectors (8 KB), whatever the row width;
 // - two warps find, by a 32-ary search over ptr (one probe a lane,
 //   log32(n_seg) dependent loads), how many offsets lie at or below the
 //   chunk's first and last rows; each of the chunk's rows then finds its
 //   segment among the few offsets between those two counts (in L1 after
 //   the search) and writes it to a table in shared memory (-1 outside
 //   every segment), so the block pays for one search, not one per row;
-// - every thread loads kUnroll float4s, then stores them, a warp 512
+// - every thread loads kUnroll vectors, then stores them, a warp 512
 //   contiguous bytes a store, so d=70 and d=300 store as densely as
-//   d=128.  A float4 of out may straddle rows; it takes one float4 of g
-//   when rows are whole float4s (d % 4 == 0, g 16-byte aligned), two
-//   float2s when they are whole float2s (d=70), else four floats, each
-//   from its own (segment, column) through L1.  Only the float4 that
-//   runs past the end of out is stored element by element; out itself
-//   must be 16-byte aligned.
+//   d=128.  A vector of out may straddle rows; it takes one 16-byte load
+//   of g when rows are whole vectors (d % E == 0, g 16-byte aligned),
+//   else loads of L = E/2, E/4, ... words (the widest that d and g's
+//   alignment allow: f32 d=70 takes 2, bf16 d=300 takes 4), each from its
+//   own (segment, column) through L1.  Only the vector that runs past
+//   the end of out is stored word by word; out itself must be 16-byte
+//   aligned.
 // Plain stores: streaming (evict-first) stores were faster only in a
 // loop of isolated calls, not inside a training step.
 #include <climits>
@@ -44,7 +52,7 @@ namespace gsn {
 constexpr int kBlock = 128;
 constexpr int kBlocksPerSm = 16;
 constexpr int kUnroll = 4;
-constexpr int kChunk = kBlock * kUnroll;  // float4s a block writes
+constexpr int kChunk = kBlock * kUnroll;  // 16-byte vectors a block writes
 
 // Entries of the sorted ptr[0, m) that are <= key, by one warp: each
 // round every lane probes one entry of the undecided range, and the
@@ -65,24 +73,26 @@ __device__ __forceinline__ int warp_count_le(const int32_t* __restrict__ ptr,
 }
 
 // Shared-memory bytes of a block at width d: the segment of each row a
-// chunk can touch.
-inline size_t segment_table_bytes(int d) {
-  return static_cast<size_t>((4 * kChunk - 1) / d + 2) * sizeof(int);
+// chunk of E-word vectors can touch.
+inline size_t segment_table_bytes(int d, int E) {
+  return static_cast<size_t>((E * kChunk - 1) / d + 2) * sizeof(int);
 }
 
-template <int L>
+template <int ES, int L>
 __global__ void __launch_bounds__(kBlock, kBlocksPerSm)
-segment_broadcast_kernel(const float* __restrict__ g,
+segment_broadcast_kernel(const unsigned char* __restrict__ g,
                          const int32_t* __restrict__ ptr, int n_seg,
-                         float* __restrict__ out, long long total, int d,
-                         int step_r, int step_c) {
+                         unsigned char* __restrict__ out, long long total,
+                         int d, int step_r, int step_c) {
+  constexpr int E = 16 / ES;  // elements in a 16-byte vector
+  constexpr int LB = L * ES;  // bytes a load of g takes
   extern __shared__ int seg_of[];  // by row, relative to the first row
   // first row, its column at the chunk's start, last row, and the
   // offsets at or below the first and the last row
   __shared__ int info[5];
   const int t = threadIdx.x, lane = t & (kWarp - 1), warp = t >> 5;
-  const long long f0 = static_cast<long long>(blockIdx.x) * (4 * kChunk);
-  const long long f1 = min(f0 + 4 * kChunk, total);  // the chunk's floats
+  const long long f0 = static_cast<long long>(blockIdx.x) * (E * kChunk);
+  const long long f1 = min(f0 + E * kChunk, total);  // the chunk's elements
   if (warp < 2) {
     const long long f = warp == 0 ? f0 : f1 - 1;
     // a 64-bit division only where the flat index needs one
@@ -114,39 +124,44 @@ segment_broadcast_kernel(const float* __restrict__ g,
   }
   __syncthreads();
 
-  // the thread's floats start at f0 + 4t and advance 4 * kBlock a step
-  // (step_r rows and step_c columns); rows relative to r0.  A float4 of
-  // out takes 4 / L loads of L floats, each from its own row's segment
-  // (d % L == 0, so a load never straddles rows).
-  int r = (info[1] + 4 * t) / d;
-  int c = info[1] + 4 * t - r * d;
-  float4 v[kUnroll];
+  // the thread's elements start at f0 + E t and advance E * kBlock a
+  // step (step_r rows and step_c columns); rows relative to r0.  A
+  // vector of out takes E / L loads of L elements, each from its own
+  // row's segment (d % L == 0, so a load never straddles rows); every
+  // index into v is a constant, so v stays in registers.
+  int r = (info[1] + E * t) / d;
+  int c = info[1] + E * t - r * d;
+  uint32_t v[kUnroll][4];
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
-    const long long f = f0 + 4 * t + static_cast<long long>(u) * 4 * kBlock;
-    float e[4];
+    const long long f = f0 + E * t + static_cast<long long>(u) * E * kBlock;
     int re = r, ce = c;
 #pragma unroll
-    for (int i = 0; i < 4; i += L) {
+    for (int w = 0; w < 4; ++w) v[u][w] = 0u;
+#pragma unroll
+    for (int i = 0; i < E; i += L) {
       if (i > 0 && (ce += L) == d) {
         ce = 0;
         ++re;
       }
       const int k = f + i < f1 ? seg_of[re] : -1;
-      const float* src = g + static_cast<size_t>(k) * d + ce;
-      if constexpr (L == 4) {
-        const float4 x = k >= 0 ? __ldg(reinterpret_cast<const float4*>(src))
-                                : make_float4(0.f, 0.f, 0.f, 0.f);
-        e[0] = x.x; e[1] = x.y; e[2] = x.z; e[3] = x.w;
-      } else if constexpr (L == 2) {
-        const float2 x = k >= 0 ? __ldg(reinterpret_cast<const float2*>(src))
-                                : make_float2(0.f, 0.f);
-        e[i] = x.x; e[i + 1] = x.y;
-      } else {
-        e[i] = k >= 0 ? __ldg(src) : 0.f;
+      if (k < 0) continue;
+      const unsigned char* src = g + (static_cast<size_t>(k) * d + ce) * ES;
+      const int w = i * ES / 4;  // the first register the piece fills
+      if constexpr (LB == 16) {
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(src));
+        v[u][0] = x.x; v[u][1] = x.y; v[u][2] = x.z; v[u][3] = x.w;
+      } else if constexpr (LB == 8) {
+        const uint2 x = __ldg(reinterpret_cast<const uint2*>(src));
+        v[u][w] = x.x; v[u][w + 1] = x.y;
+      } else if constexpr (LB == 4) {
+        v[u][w] = __ldg(reinterpret_cast<const unsigned int*>(src));
+      } else {  // a 2-byte element into its half of a register
+        v[u][w] |= static_cast<uint32_t>(
+            __ldg(reinterpret_cast<const unsigned short*>(src)))
+            << (16 * (i & 1));
       }
     }
-    v[u] = make_float4(e[0], e[1], e[2], e[3]);
     c += step_c;
     r += step_r;
     if (c >= d) {
@@ -156,30 +171,77 @@ segment_broadcast_kernel(const float* __restrict__ g,
   }
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
-    const long long f = f0 + 4 * t + static_cast<long long>(u) * 4 * kBlock;
-    if (f + 4 <= f1) {
-      *reinterpret_cast<float4*>(out + f) = v[u];
+    const long long f = f0 + E * t + static_cast<long long>(u) * E * kBlock;
+    if (f + E <= f1) {
+      *reinterpret_cast<uint4*>(out + f * ES) =
+          make_uint4(v[u][0], v[u][1], v[u][2], v[u][3]);
     } else if (f < f1) {
-      const float e[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
-      for (int i = 0; i < f1 - f; ++i) out[f + i] = e[i];
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        if (f + i >= f1) continue;
+        if constexpr (ES == 4) {
+          reinterpret_cast<uint32_t*>(out)[f + i] = v[u][i];
+        } else {
+          reinterpret_cast<uint16_t*>(out)[f + i] =
+              static_cast<uint16_t>(v[u][i / 2] >> (16 * (i & 1)));
+        }
+      }
     }
   }
 }
 
-using SegmentBroadcastKernel = void (*)(const float*, const int32_t*, int,
-                                       float*, long long, int, int, int);
+using SegmentBroadcastKernel = void (*)(const unsigned char*,
+                                        const int32_t*, int,
+                                        unsigned char*, long long, int, int,
+                                        int);
 
-inline SegmentBroadcastKernel segment_broadcast_kernel_for(int load) {
-  return load == 4   ? segment_broadcast_kernel<4>
-         : load == 2 ? segment_broadcast_kernel<2>
-                     : segment_broadcast_kernel<1>;
+template <int ES>
+SegmentBroadcastKernel segment_broadcast_kernel_for(int load) {
+  if constexpr (ES == 2) {
+    if (load == 8) return segment_broadcast_kernel<ES, 8>;
+  }
+  return load == 4   ? segment_broadcast_kernel<ES, 4>
+         : load == 2 ? segment_broadcast_kernel<ES, 2>
+                     : segment_broadcast_kernel<ES, 1>;
 }
 
-// Floats a load of g takes: 4 when rows are whole float4s and g is
-// 16-byte aligned, else 2 when they are whole float2s, else 1.
-inline int segment_broadcast_load(const void* g, int d) {
+// Elements a load of g takes: the widest L dividing 16 / ES for which
+// rows are whole L-element pieces (d % L == 0) and g is aligned to L
+// elements.
+template <int ES>
+int segment_broadcast_load(const void* g, int d) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(g);
-  return d % 4 == 0 && a % 16 == 0 ? 4 : d % 2 == 0 && a % 8 == 0 ? 2 : 1;
+  for (int L = 16 / ES; L > 1; L /= 2)
+    if (d % L == 0 && a % (L * ES) == 0) return L;
+  return 1;
+}
+
+template <int ES>
+int launch_segment_broadcast(const void* g, const int32_t* ptr, int n_seg,
+                             void* out, int n_rows, int d, void* stream) {
+  constexpr int E = 16 / ES;
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const long long total = static_cast<long long>(n_rows) * d;
+  const long long n_vec = (total + E - 1) / E;
+  const dim3 grid(static_cast<unsigned>((n_vec + kChunk - 1) / kChunk));
+  const int step = E * kBlock;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto kernel = segment_broadcast_kernel_for<ES>(
+      segment_broadcast_load<ES>(g, d));
+  kernel<<<grid, kBlock, segment_table_bytes(d, E), st>>>(
+      static_cast<const unsigned char*>(g), ptr, n_seg,
+      static_cast<unsigned char*>(out), total, d, step / d, step % d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int ES>
+int segment_broadcast_occupancy(int d, int load) {
+  int blocks = 0;
+  const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, segment_broadcast_kernel_for<ES>(load), kBlock,
+      segment_table_bytes(d, 16 / ES));
+  return rc == cudaSuccess ? blocks : -1;
 }
 
 }  // namespace gsn
@@ -187,27 +249,25 @@ inline int segment_broadcast_load(const void* g, int d) {
 extern "C" int gsn_segment_broadcast(const float* g, const int32_t* ptr,
                                      int n_seg, float* out, int n_rows,
                                      int d, void* stream) {
-  if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  const long long total = static_cast<long long>(n_rows) * d;
-  const long long n_vec = (total + 3) / 4;
-  const dim3 grid(static_cast<unsigned>((n_vec + gsn::kChunk - 1)
-                                        / gsn::kChunk));
-  const int step = 4 * gsn::kBlock;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto kernel = gsn::segment_broadcast_kernel_for(
-      gsn::segment_broadcast_load(g, d));
-  kernel<<<grid, gsn::kBlock, gsn::segment_table_bytes(d), st>>>(
-      g, ptr, n_seg, out, total, d, step / d, step % d);
-  return static_cast<int>(cudaGetLastError());
+  return gsn::launch_segment_broadcast<4>(g, ptr, n_seg, out, n_rows, d,
+                                          stream);
 }
 
-// Resident blocks per SM of the instantiation with loads of `load`
+// bf16 g and out, same arguments otherwise
+extern "C" int gsn_segment_broadcast_bf16(const void* g, const int32_t* ptr,
+                                          int n_seg, void* out, int n_rows,
+                                          int d, void* stream) {
+  return gsn::launch_segment_broadcast<2>(g, ptr, n_seg, out, n_rows, d,
+                                          stream);
+}
+
+// Resident blocks per SM of the f32 instantiation with loads of `load`
 // floats (4, 2 or 1) at width d.
 extern "C" int gsn_segment_broadcast_occupancy(int d, int load) {
-  int blocks = 0;
-  const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, gsn::segment_broadcast_kernel_for(load), gsn::kBlock,
-      gsn::segment_table_bytes(d));
-  return rc == cudaSuccess ? blocks : -1;
+  return gsn::segment_broadcast_occupancy<4>(d, load);
+}
+
+// The same for bf16 rows, loads of 8, 4, 2 or 1 elements.
+extern "C" int gsn_segment_broadcast_occupancy_bf16(int d, int load) {
+  return gsn::segment_broadcast_occupancy<2>(d, load);
 }

@@ -12,25 +12,33 @@
 // segment is summed in a fixed order by one warp, so the result is
 // deterministic: no float atomics.
 //
+// Rows and output are f32 -> f32, or in the reference's bf16 mode bf16
+// -> f32 (the pools: slab_pool.py:123-142 keeps bf16 rows and pools them
+// in f32) and bf16 -> bf16 (dB, and the virtual node's broadcast
+// backward: an f32 sum rounded once on its store).
+//
 // Bound: bytes (one read of every summed row, one write of every output
 // row; one add per element).
 #include "common.cuh"
 
 namespace gsn {
 
-template <int V, bool HAS_PERM>
+template <typename Tin, typename Tout, int V, int LANES, bool HAS_PERM>
 __global__ void __launch_bounds__(kThreads)
-segment_sum_sorted_kernel(const float* __restrict__ rows,
+segment_sum_sorted_kernel(const Tin* __restrict__ rows,
                           const int32_t* __restrict__ ptr,
                           const int32_t* __restrict__ perm,
-                          float* __restrict__ out, int n_seg, int d) {
-  const int seg = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & (kWarp - 1);
+                          Tout* __restrict__ out, int n_seg, int d) {
+  const int seg = blockIdx.x * (kThreads / LANES) + threadIdx.x / LANES;
+  const int lane = threadIdx.x % LANES;
   if (seg >= n_seg) return;
   const int i0 = ptr[seg];
   const int i1 = ptr[seg + 1];
-  for (int c = lane * V; c < d; c += kWarp * V) {
+  for (int c = lane * V; c < d; c += LANES * V) {
     Frag<V> acc = Frag<V>::zero();
+    // unrolled so that several rows' loads are in flight at once (a
+    // graph readout has few segments); the adds keep their order
+#pragma unroll 4
     for (int i = i0; i < i1; ++i) {
       const int r = HAS_PERM ? perm[i] : i;
       const Frag<V> x = Frag<V>::load(rows + (size_t)r * d + c);
@@ -41,20 +49,46 @@ segment_sum_sorted_kernel(const float* __restrict__ rows,
   }
 }
 
+template <typename Tin, typename Tout>
+int launch_segment_sum(const Tin* rows, const int32_t* ptr,
+                       const int32_t* perm, Tout* out, int n_seg, int d,
+                       void* stream) {
+  const int t_in = sizeof(Tin), t_out = sizeof(Tout);
+  const int vec = vec_width<Tin>(d, {{rows, t_in}, {out, t_out}});
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  vec_switch<Tin>(vec, [&](auto v) {
+    constexpr int V = decltype(v)::value;
+    lanes_switch<V>(d, [&](auto l) {
+      constexpr int LANES = decltype(l)::value;
+      const dim3 grid(row_blocks(n_seg, LANES));
+      GSN_BOOL_SWITCH(perm != nullptr, HP, [&] {
+        segment_sum_sorted_kernel<Tin, Tout, V, LANES, HP>
+            <<<grid, kThreads, 0, st>>>(rows, ptr, perm, out, n_seg, d);
+      });
+    });
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace gsn
 
 extern "C" int gsn_segment_sum_sorted(const float* rows, const int32_t* ptr,
                                       const int32_t* perm, float* out,
                                       int n_seg, int d, void* stream) {
-  const void* ptrs[] = {rows, out};
-  const int vec = gsn::vec_width(d, ptrs, 2);
-  const dim3 grid(gsn::row_blocks(n_seg));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  GSN_VEC_SWITCH(vec, V, [&] {
-    GSN_BOOL_SWITCH(perm != nullptr, HP, [&] {
-      gsn::segment_sum_sorted_kernel<V, HP>
-          <<<grid, gsn::kThreads, 0, st>>>(rows, ptr, perm, out, n_seg, d);
-    });
-  });
-  return static_cast<int>(cudaGetLastError());
+  return gsn::launch_segment_sum(rows, ptr, perm, out, n_seg, d, stream);
+}
+
+// bf16 rows; out is bf16 when out_bf16, else f32
+extern "C" int gsn_segment_sum_sorted_bf16(const void* rows,
+                                           const int32_t* ptr,
+                                           const int32_t* perm, void* out,
+                                           int n_seg, int d, int out_bf16,
+                                           void* stream) {
+  using gsn::bf16;
+  const bf16* r = static_cast<const bf16*>(rows);
+  return out_bf16
+             ? gsn::launch_segment_sum(r, ptr, perm, static_cast<bf16*>(out),
+                                       n_seg, d, stream)
+             : gsn::launch_segment_sum(r, ptr, perm, static_cast<float*>(out),
+                                       n_seg, d, stream);
 }

@@ -6,7 +6,9 @@ Kinds ported so far:
 - ``one_hot_encoder``: per-column one-hot concat (vocab sizes d_in)
 - ``embedding``: per-column tables, summed or concatenated
 - ``atom_encoder`` / ``bond_encoder``: OGB-style summed tables over the
-  9 atom / 3 bond fields
+  9 atom / 3 bond fields, or over the first two of each when
+  ``features_scope`` is not ``"full"`` (reference
+  ``gsn_tpu/nn/embedding.py:184-190, 216-221``)
 - ``None``: passthrough (as float)
 
 The other kinds of the reference package (``zero_encoder``, ``linear``,
@@ -69,7 +71,8 @@ def one_hot_concat(x: torch.Tensor,
 class DiscreteEmbedding(nn.Module):
     """Uniform categorical/dense feature encoder (see module docstring).
     The ``embedding`` and OGB kinds hold their tables in
-    ``MultiEmbedding_0``, the reference package's parameter path."""
+    ``MultiEmbedding_0``, the reference package's parameter path;
+    ``features_scope`` picks the OGB kinds' fields."""
 
     KINDS = ("one_hot_encoder", "embedding", "atom_encoder",
              "bond_encoder", "None")
@@ -77,7 +80,7 @@ class DiscreteEmbedding(nn.Module):
     def __init__(self, kind: str, d_in_features: int,
                  d_in_encoder: Optional[Sequence[int]],
                  d_out_encoder: Optional[int], aggr: str = "concat",
-                 zeros_init: bool = False):
+                 zeros_init: bool = False, features_scope: str = "full"):
         super().__init__()
         if kind not in self.KINDS:
             raise NotImplementedError(f"encoder {kind!r} is not ported yet")
@@ -90,8 +93,11 @@ class DiscreteEmbedding(nn.Module):
             self.MultiEmbedding_0 = MultiEmbedding(
                 self.d_in_encoder, d_out_encoder, aggr, zeros_init)
         elif kind in OGB_TABLES:
-            self.MultiEmbedding_0 = MultiEmbedding(OGB_TABLES[kind],
-                                                   d_out_encoder, "sum")
+            dims = OGB_TABLES[kind]
+            if features_scope != "full":
+                dims = dims[:2]
+            self.MultiEmbedding_0 = MultiEmbedding(dims, d_out_encoder,
+                                                   "sum")
 
     @property
     def d_out(self) -> int:

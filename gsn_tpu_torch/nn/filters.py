@@ -13,6 +13,14 @@ Ported so far:
   edge features, and a constant zero ``b1``.
 
 The ``gin`` kind raises until a later slice ports it.
+
+``compute_dtype=torch.bfloat16`` mirrors the reference's bf16 mode
+(``gsn_tpu/nn/filters.py:95-145, 203-221, 526-574``): every dense layer
+of the message and update MLPs computes in bf16, the kernel path's data
+is bf16 (f32 bias), the aggregate and the layer's output stay bf16, and
+BN statistics are f32.  ``general`` messages with ``bn_mlp`` raise in
+bf16: the reference routes them through the fused-BN ``id_sq`` pass,
+which is not ported.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ from gsn_tpu_torch.ops.cuda.slab_message import (ACTS, EdgeSegments,
                                                  edge_message_aggregate)
 from gsn_tpu_torch.ops.norm import MaskedBatchNorm
 from gsn_tpu_torch.ops.segment import masked_segment_mean, masked_segment_sum
-from .mlp import MLP, choose_activation
+from .mlp import MLP, choose_activation, dense
 
 
 class EdgeMessageMLP(nn.Module):
@@ -39,14 +47,17 @@ class EdgeMessageMLP(nn.Module):
 
     ``node_parts``: ``(width, mode)`` per node-level input, mode ``recv``,
     ``send`` or ``both`` (projected twice, gathered at both endpoints).
-    ``edge_parts``: width per edge-level input.
+    ``edge_parts``: width per edge-level input.  ``dtype``: the compute
+    dtype of the dense layers (each input is cast to it).
     """
 
     def __init__(self, node_parts: Sequence[Tuple[int, str]],
                  edge_parts: Sequence[int], d_out: int,
                  d_hidden: Sequence[int], activation: str = "elu",
-                 batch_norm: bool = False):
+                 batch_norm: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.widths = list(d_hidden) + [d_out]
         self.activation = activation
         self.act = choose_activation(activation)
@@ -94,16 +105,17 @@ class EdgeMessageMLP(nn.Module):
                 in_degree: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``seg`` given: the fused kernel path, returning the aggregated
         [N, d_out]; otherwise per-edge messages [E, d_out]."""
+        dt = self.dtype
         A = B = pe = None   # node-level recv-/send-side sums, edge sum
         for arr, projs in zip(node_parts, self.node_proj):
             for li, side in projs:
-                p = getattr(self, f"dense_0_p{li}")(arr)
+                p = dense(getattr(self, f"dense_0_p{li}"), arr, dt)
                 if side == "recv":
                     A = p if A is None else A + p
                 else:
                     B = p if B is None else B + p
         for arr, li in zip(edge_parts, self.edge_proj):
-            p = getattr(self, f"dense_0_p{li}")(arr)
+            p = dense(getattr(self, f"dense_0_p{li}"), arr, dt)
             pe = p if pe is None else pe + p
         bias = self.dense_0_bias
 
@@ -117,9 +129,11 @@ class EdgeMessageMLP(nn.Module):
             if len(self.widths) == 1:
                 return agg
             # the second dense commutes with the sum; its per-message
-            # bias contributes in_degree * bias at each node
-            out = self.dense_1(agg)
-            return out + in_degree[:, None] * self.dense_1_bias
+            # bias contributes in_degree * bias at each node (computed in
+            # f32, rounded once to the compute dtype)
+            out = dense(self.dense_1, agg, dt)
+            return out + (in_degree[:, None]
+                          * self.dense_1_bias).to(out.dtype)
 
         h = None
         if A is not None:
@@ -128,7 +142,7 @@ class EdgeMessageMLP(nn.Module):
             h = B[send] if h is None else h + B[send]
         if pe is not None:
             h = pe if h is None else h + pe
-        h = h + bias
+        h = h + bias.to(h.dtype)
         if len(self.widths) == 1:
             return h
         if self.batch_norm:
@@ -136,9 +150,9 @@ class EdgeMessageMLP(nn.Module):
         h = self.act(h)
         last = len(self.widths) - 1
         for i in range(1, last + 1):
-            h = getattr(self, f"dense_{i}")(h)
+            h = dense(getattr(self, f"dense_{i}"), h, dt)
             if i == last:
-                h = h + getattr(self, f"dense_{i}_bias")
+                h = h + getattr(self, f"dense_{i}_bias").to(h.dtype)
             else:
                 if self.batch_norm:
                     h = getattr(self, f"bn_{i}")(h, edge_mask)
@@ -152,7 +166,8 @@ class GSNLayer(nn.Module):
     ``d_in``: node feature width; ``d_id`` / ``d_ef`` / ``d_degree``: the
     encoded identifier, edge feature and degree widths (used when the
     layer consumes them); ``train_eps``: the ogb kind's learned ε
-    (parameter ``eps``, initially 0), else ε = 0."""
+    (parameter ``eps``, initially 0), else ε = 0; ``compute_dtype``:
+    None (f32) or ``torch.bfloat16``."""
 
     def __init__(self, d_in: int, d_up: int, d_msg: Optional[int] = None,
                  d_h: Sequence[int] = (), msg_kind: str = "general",
@@ -162,7 +177,8 @@ class GSNLayer(nn.Module):
                  d_degree: int = 0, retain_features: bool = True,
                  aggr: str = "add", flow: str = "target_to_source",
                  activation_mlp: str = "elu", bn_mlp: bool = False,
-                 train_eps: bool = False):
+                 train_eps: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if msg_kind not in ("general", "ogb"):
             raise NotImplementedError(
@@ -175,6 +191,7 @@ class GSNLayer(nn.Module):
         self.degree_as_tag, self.retain_features = (degree_as_tag,
                                                     retain_features)
         self.aggr, self.flow = aggr, flow
+        self.compute_dtype = compute_dtype
         if degree_as_tag:
             d_in = d_in + d_degree if retain_features else d_degree
         if msg_kind == "ogb":
@@ -184,7 +201,7 @@ class GSNLayer(nn.Module):
             if train_eps:
                 self.eps = nn.Parameter(torch.zeros(()))
             self.update_fn = MLP(d_self, d_up, tuple(d_h), activation_mlp,
-                                 bn_mlp)
+                                 bn_mlp, compute_dtype)
             return
         node_parts = [(d_in, "both")]
         edge_parts = []
@@ -197,9 +214,10 @@ class GSNLayer(nn.Module):
             edge_parts.append(d_ef)
         d_msg_out = d_msg if d_msg is not None else d_in
         self.msg_fn = EdgeMessageMLP(node_parts, edge_parts, d_msg_out,
-                                     tuple(d_h), activation_mlp, bn_mlp)
+                                     tuple(d_h), activation_mlp, bn_mlp,
+                                     compute_dtype)
         self.update_fn = MLP(d_in + d_msg_out, d_up, tuple(d_h),
-                             activation_mlp, bn_mlp)
+                             activation_mlp, bn_mlp, compute_dtype)
 
     def forward(self, x, edge_index, identifiers=None, degrees=None,
                 edge_features=None, node_mask=None, edge_mask=None,
@@ -228,13 +246,23 @@ class GSNLayer(nn.Module):
                 node_parts.append(ids)
         if self.use_edge_features:
             edge_parts.append(edge_features)
-        fused = (seg is not None and self.aggr == "add"
-                 and self.msg_fn.fusable)
-        out = self.msg_fn(node_parts, edge_parts, recv, send, edge_mask,
-                          seg if fused else None, in_degree)
-        agg = out if fused else self._aggregate(out, recv, n_nodes,
+        msg_fn = self.msg_fn
+        if (self.compute_dtype is not None and seg is not None
+                and self.aggr == "add" and msg_fn.batch_norm
+                and len(msg_fn.widths) <= 2 and msg_fn.activation in ACTS):
+            raise NotImplementedError(
+                "general messages with bn_mlp in a compute dtype take the "
+                "fused-BN id_sq pass of the message kernels "
+                "(gsn_tpu/nn/filters.py:162-193), which is not ported")
+        fused = seg is not None and self.aggr == "add" and msg_fn.fusable
+        out = msg_fn(node_parts, edge_parts, recv, send, edge_mask,
+                     seg if fused else None, in_degree)
+        # the fused path's aggregate stays in the compute dtype; per-edge
+        # messages are summed in f32 (reference filters.py:385-394)
+        agg = out if fused else self._aggregate(out.float(), recv, n_nodes,
                                                 edge_mask)
-        return self.update_fn(torch.cat([x, agg], -1), node_mask)
+        return self.update_fn(torch.cat([x.to(agg.dtype), agg], -1),
+                              node_mask)
 
     def _aggregate(self, msgs, recv, n_nodes, edge_mask):
         if self.aggr == "add":
@@ -247,14 +275,16 @@ class GSNLayer(nn.Module):
         With ``seg`` and add aggregation the message runs K1/K2 (the
         reference's slab path: ``pe = ids + e`` first, then the sender
         row added inside the kernel); otherwise per edge,
-        ``relu((x_j + ids) + e)`` and a masked segment sum."""
+        ``relu((x_j + ids) + e)`` and a masked segment sum.  In a compute
+        dtype the kernel's data is cast to it (f32 ids are promoted
+        first, as in the reference, filters.py:514-559)."""
         ids = (identifiers.to(torch.float32) if self.use_ids else None)
         ef = edge_features if self.use_edge_features else None
         # self message and the kernel's sender side: x, plus the
         # node-level ids at global scope
         self_msg = x
         if ids is not None and self.id_scope == "global":
-            self_msg = x + ids
+            self_msg = x + identifiers.to(x.dtype)
         if seg is not None and self.aggr == "add":
             pe = None
             for p in (ids if self.id_scope == "local" else None, ef):
@@ -267,15 +297,21 @@ class GSNLayer(nn.Module):
                         f"ogb message: edge-level width {pe.shape[-1]} "
                         f"does not broadcast to the node width {dm}")
                 pe = pe.expand(-1, dm)
+            kdt = self.compute_dtype or torch.float32
             b1 = torch.zeros(dm, dtype=torch.float32, device=x.device)
-            agg = edge_message_aggregate(None, self_msg, pe, b1, seg, "relu")
+            agg = edge_message_aggregate(
+                None, self_msg.to(kdt),
+                pe.to(kdt) if pe is not None else None, b1, seg, "relu")
         else:
-            m = self_msg[send]
-            if ids is not None and self.id_scope == "local":
-                m = m + ids
+            m = x[send]
+            if ids is not None:
+                m = m + (ids if self.id_scope == "local" else ids[send])
             if ef is not None:
                 m = m + ef
             agg = self._aggregate(torch.relu(m), recv, x.shape[0],
                                   edge_mask)
-        fac = 1.0 + self.eps if hasattr(self, "eps") else 1.0
-        return self.update_fn(fac * self_msg + agg, node_mask)
+        # (1+ε) and the self message in the aggregate's dtype
+        update_in = self_msg.to(agg.dtype)
+        if hasattr(self, "eps"):
+            update_in = (1.0 + self.eps).to(agg.dtype) * update_in
+        return self.update_fn(update_in + agg, node_mask)

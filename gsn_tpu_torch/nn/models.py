@@ -1,13 +1,18 @@
 """Model assemblies (counterpart of ``gsn_tpu/nn/models.py``).
 
-Ported so far, in f32: ``GNNSubstructures`` (reference
+Ported so far: ``GNNSubstructures`` (reference
 ``models_graph_classification.py:15-247``) for the sparse GSN/MPNN model
 names, ``GNN_OGB`` (reference
 ``models_graph_classification_ogb_original.py:17-268``, with or without
 the virtual node) for the ``*_edge_sparse_ogb`` names, and
-``NodeDropout``.  ``MLPSubstructures``, random features and the bf16
-compute dtype raise until a later slice ports them.  (The DGN model is
-``nn/dgn.py``.)
+``NodeDropout``; each in f32 or with ``compute_dtype="bfloat16"``.  In
+bf16, as in the reference (``gsn_tpu/nn/models.py:87-114, 154-157,
+194-201, 276-289, 320-328, 385-390``), node rows, ids, edge features
+and the virtual node travel in bf16 from the encoders on, pooled rows
+and the head are f32, BN statistics f32, and the parameters stay f32
+(the master copy the optimizer updates).  ``MLPSubstructures`` and
+random features raise until a later slice ports them.  (The DGN model
+is ``nn/dgn.py``.)
 
 Dropout draws its masks from the ``torch.Generator`` the caller passes
 to ``forward`` (the trainer's seeded generator on the batch's device),
@@ -69,11 +74,26 @@ def _pool_fn(readout: str):
     raise ValueError(f"invalid readout {readout!r}")
 
 
-def _make_pool(readout: str, data: GraphBatch):
+def _make_pool(readout: str, data: GraphBatch,
+               compute_dtype: Optional[torch.dtype] = None):
     """Node-level pooling closure over the batch's graph offsets (the
-    pool kernel path; padding nodes lie outside every graph)."""
+    pool kernel path; padding nodes lie outside every graph).  With a
+    compute dtype the node rows are rounded to it first, as on the
+    reference's slab layout; the pooled rows are f32."""
     fn = _pool_fn(readout)
-    return lambda x: fn(x, data.graph_ptr)
+    if compute_dtype is None:
+        return lambda x: fn(x, data.graph_ptr)
+    return lambda x: fn(x.to(compute_dtype), data.graph_ptr)
+
+
+def compute_dtype_of(cfg: GSNConfig) -> Optional[torch.dtype]:
+    """The config's compute dtype: None (f32) or ``torch.bfloat16``."""
+    if cfg.compute_dtype is None:
+        return None
+    if cfg.compute_dtype == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: the port runs "
+                     f"None (f32) or 'bfloat16'")
 
 
 def edge_segments(data: GraphBatch) -> EdgeSegments:
@@ -99,9 +119,7 @@ class GNNSubstructures(nn.Module):
         c = self.cfg = cfg
         if c.random_features:
             raise NotImplementedError("random_features is not ported yet")
-        if c.compute_dtype:
-            raise NotImplementedError(
-                f"compute_dtype {c.compute_dtype!r}: the port runs f32 only")
+        cdt = self.cdt = compute_dtype_of(c)
         L = len(c.d_out)
         self.act = choose_activation(c.activation)
         self.use_degrees = any(c.degree_as_tag)
@@ -111,7 +129,8 @@ class GNNSubstructures(nn.Module):
                 aggr=c.multi_embedding_aggr)
         self.input_node_encoder = DiscreteEmbedding(
             c.input_node_encoder, c.in_features, c.d_in_node_encoder,
-            c.d_out_node_encoder, aggr=c.multi_embedding_aggr)
+            c.d_out_node_encoder, aggr=c.multi_embedding_aggr,
+            features_scope=c.features_scope)
         num_id_enc = L if c.inject_ids else 1
         num_ef_enc = L if c.inject_edge_features else 1
         d_id = 0
@@ -126,7 +145,8 @@ class GNNSubstructures(nn.Module):
             for j in range(num_ef_enc):
                 enc = DiscreteEmbedding(
                     c.edge_encoder, c.in_edge_features, c.d_in_edge_encoder,
-                    c.d_out_edge_encoder[j], aggr=c.multi_embedding_aggr)
+                    c.d_out_edge_encoder[j], aggr=c.multi_embedding_aggr,
+                    features_scope=c.features_scope)
                 setattr(self, f"edge_encoder_{j}", enc)
                 d_ef.append(enc.d_out)
         d_deg = self.degree_encoder.d_out if self.use_degrees else 0
@@ -145,7 +165,7 @@ class GNNSubstructures(nn.Module):
                 degree_as_tag=c.degree_as_tag[i], d_degree=d_deg,
                 retain_features=c.retain_features[i], aggr=c.aggr,
                 flow=c.flow, activation_mlp=c.activation_mlp,
-                bn_mlp=c.bn_mlp))
+                bn_mlp=c.bn_mlp, compute_dtype=cdt))
             if c.bn[i]:
                 setattr(self, f"bn_{i}", MaskedBatchNorm(c.d_out[i]))
             widths.append(c.d_out[i])
@@ -169,11 +189,15 @@ class GNNSubstructures(nn.Module):
                              f"uses {c.flow!r}")
         nm, em = data.node_mask, data.edge_mask
         num_graphs = data.num_graph_slots
-        pool = _make_pool(c.readout, data)
+        cdt = self.cdt
+        pool = _make_pool(c.readout, data, cdt)
         seg = edge_segments(data)
         degrees = (self.degree_encoder(data.degrees)
                    if self.use_degrees else None)
         x = self.input_node_encoder(data.x)
+        if cdt is not None:
+            # node rows travel in the compute dtype from here on
+            x = x.to(cdt)
         x_interm = [x]
         for i in range(len(c.d_out)):
             conv = getattr(self, f"conv_{i}")
@@ -188,6 +212,10 @@ class GNNSubstructures(nn.Module):
                 ef_i = getattr(self, "edge_encoder_"
                                f"{i if c.inject_edge_features else 0}")(
                                    data.edge_features)
+            if cdt is not None:
+                # encoder outputs travel in the compute dtype
+                ids_i = ids_i.to(cdt) if ids_i is not None else None
+                ef_i = ef_i.to(cdt) if ef_i is not None else None
             x = conv(x, data.edge_index, ids_i, degrees, ef_i, nm, em,
                      seg, data.in_degree)
             if c.bn[i]:
@@ -226,9 +254,7 @@ class GNN_OGB(nn.Module):
     def __init__(self, cfg: GSNConfig):
         super().__init__()
         c = self.cfg = cfg
-        if c.compute_dtype:
-            raise NotImplementedError(
-                f"compute_dtype {c.compute_dtype!r}: the port runs f32 only")
+        cdt = self.cdt = compute_dtype_of(c)
         L = len(c.d_out)
         self.act = choose_activation(c.activation)
         self.use_degrees = any(c.degree_as_tag)
@@ -238,7 +264,8 @@ class GNN_OGB(nn.Module):
                 aggr=c.multi_embedding_aggr)
         self.input_node_encoder = DiscreteEmbedding(
             c.input_node_encoder, c.in_features, c.d_in_node_encoder,
-            c.d_out_node_encoder, aggr=c.multi_embedding_aggr)
+            c.d_out_node_encoder, aggr=c.multi_embedding_aggr,
+            features_scope=c.features_scope)
         with_ids = c.model_name == "GSN_edge_sparse_ogb"
         d_id = 0
         if with_ids:
@@ -250,7 +277,8 @@ class GNN_OGB(nn.Module):
         for j in range(L):
             setattr(self, f"edge_encoder_{j}", DiscreteEmbedding(
                 c.edge_encoder, c.in_edge_features, c.d_in_edge_encoder,
-                c.d_out_edge_encoder[j], aggr=c.multi_embedding_aggr))
+                c.d_out_edge_encoder[j], aggr=c.multi_embedding_aggr,
+                features_scope=c.features_scope))
         d_deg = self.degree_encoder.d_out if self.use_degrees else 0
         if c.vn:
             # zeros-init embedding of a single category (reference :77-86)
@@ -270,13 +298,14 @@ class GNN_OGB(nn.Module):
                 degree_as_tag=c.degree_as_tag[i], d_degree=d_deg,
                 retain_features=c.retain_features[i], aggr=c.aggr,
                 flow=c.flow, activation_mlp=c.activation_mlp,
-                bn_mlp=c.bn_mlp, train_eps=c.train_eps[i]))
+                bn_mlp=c.bn_mlp, train_eps=c.train_eps[i],
+                compute_dtype=cdt))
             if c.bn[i]:
                 setattr(self, f"bn_{i}", MaskedBatchNorm(c.d_out[i]))
             if c.vn and i < L - 1:
                 setattr(self, f"mlp_vn_{i}", MLP(
                     d_x, c.d_out_vn[i], tuple(c.d_h[i]), c.activation_mlp,
-                    c.bn_mlp))
+                    c.bn_mlp, cdt))
                 d_vn = c.d_out_vn[i]
             widths.append(c.d_out[i])
         self.lin_proj = nn.Linear(widths[-1], c.out_features)
@@ -290,16 +319,24 @@ class GNN_OGB(nn.Module):
                              f"uses {c.flow!r}")
         nm, em = data.node_mask, data.edge_mask
         L = len(c.d_out)
-        pool = _make_pool(c.readout, data)
+        cdt = self.cdt
+        pool = _make_pool(c.readout, data, cdt)
+        # the reference's virtual-node pool takes no compute dtype: its
+        # rows are already in it (gsn_tpu/nn/models.py:385-387)
         vn_pool = _make_pool(c.vn_pooling, data)
         seg = edge_segments(data)
         degrees = (self.degree_encoder(data.degrees)
                    if self.use_degrees else None)
         x = self.input_node_encoder(data.x)
         n_nodes = x.shape[0]
+        if cdt is not None:
+            # activations (x, vn) travel in the compute dtype
+            x = x.to(cdt)
         if c.vn:
             vn = self.vn_encoder(torch.zeros(
                 data.num_graph_slots, 1, dtype=torch.long, device=x.device))
+            if cdt is not None:
+                vn = vn.to(cdt)
 
         x_interm = [x]
         for i in range(L):
@@ -312,6 +349,9 @@ class GNN_OGB(nn.Module):
             if data.edge_features is not None:
                 ef_i = getattr(self, f"edge_encoder_{i}")(
                     data.edge_features)
+            if cdt is not None:
+                ids_i = ids_i.to(cdt) if ids_i is not None else None
+                ef_i = ef_i.to(cdt) if ef_i is not None else None
             h = x_interm[i]
             if c.vn:
                 h = h + broadcast_graph_to_nodes(vn, data.graph_ptr,
@@ -330,7 +370,7 @@ class GNN_OGB(nn.Module):
 
             if c.vn and i < L - 1:
                 vn = getattr(self, f"mlp_vn_{i}")(
-                    vn_pool(x_interm[i]) + vn, data.graph_mask)
+                    vn_pool(x_interm[i]).to(vn.dtype) + vn, data.graph_mask)
                 vn_post = dropout(self.act(vn), c.dropout_features[i],
                                   self.training, generator)
                 vn = vn + vn_post if c.residual else vn_post

@@ -9,7 +9,9 @@ cold start pays for the slowest file, not the sum.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a nonzero code into an exception.  ``on_cuda`` and
-``require`` are the wrappers' shared dispatch and argument checks.
+``require`` are the wrappers' shared dispatch and argument checks, and
+``counted``/``count`` their launch counts.  K1–K4 take f32 or bf16 data
+(one dtype for all of a call's data operands); K5/K6 take f32.
 ``build_other`` and ``use`` build another source tree's kernel beside
 this one's and route the wrappers' launches to it, to time two builds
 on one card.
@@ -45,13 +47,20 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "gsn_edge_message_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, P],
         "gsn_edge_message_bwd_recv": [P, P, P, P, P, P, P, P, P,
                                       I, I, I, I, I, P],
+        "gsn_edge_message_fwd_bf16": [P, P, P, P, P, P, P,
+                                      I, I, I, I, I, P],
+        "gsn_edge_message_bwd_recv_bf16": [P, P, P, P, P, P, P, P, P,
+                                           I, I, I, I, I, P],
     },
     "segment_sum": {
         "gsn_segment_sum_sorted": [P, P, P, P, I, I, P],
+        "gsn_segment_sum_sorted_bf16": [P, P, P, P, I, I, I, P],
     },
     "segment_broadcast": {
         "gsn_segment_broadcast": [P, P, I, P, I, I, P],
+        "gsn_segment_broadcast_bf16": [P, P, I, P, I, I, P],
         "gsn_segment_broadcast_occupancy": [I, I],
+        "gsn_segment_broadcast_occupancy_bf16": [I, I],
     },
     "dgn_aggregate": {
         "gsn_dgn_aggregate_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, P],
@@ -202,20 +211,50 @@ def on_cuda(t) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
-def require(what: str, device, *tensors, dtype=None) -> None:
+def dtype_name(dtype) -> str:
+    """``f32`` / ``bf16`` (else the dtype's own name), for messages and
+    launch modes."""
+    return {"torch.float32": "f32", "torch.bfloat16": "bf16"}.get(
+        str(dtype), str(dtype))
+
+
+def require(what, device, *tensors, dtype=None) -> None:
     """Raise unless every given tensor (None entries skipped) lies on
-    ``device``, is contiguous and, when ``dtype`` is set, has it."""
-    for t in tensors:
-        if t is None:
-            continue
+    ``device`` and is contiguous and, when ``dtype`` is set, has it.
+    ``dtype`` may be a tuple of the dtypes a kernel takes: the tensors
+    must then share one of them (there is no cast)."""
+    given = [t for t in tensors if t is not None]
+    for t in given:
         if t.device != device:
             raise ValueError(f"{what}: tensor on {t.device}, expected "
                              f"{device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensor is not contiguous")
-        if dtype is not None and t.dtype != dtype:
-            raise TypeError(f"{what}: dtype {t.dtype}, the kernel takes "
-                            f"{dtype}")
+    if dtype is None:
+        return
+    accepted = dtype if isinstance(dtype, tuple) else (dtype,)
+    found = list(dict.fromkeys(t.dtype for t in given))
+    if len(found) > 1 or any(d not in accepted for d in found):
+        names = " and ".join(dtype_name(d) for d in found)
+        raise TypeError(f"{what}: dtype {names}, the kernel takes "
+                        + " or ".join(dtype_name(d) for d in accepted)
+                        + (", one for all data operands"
+                           if len(accepted) > 1 else ""))
+
+
+def counted(fn):
+    """Give a kernel wrapper its launch counts: ``launches`` in all and
+    ``modes``, launches by mode (the data dtypes, e.g. ``"bf16"`` or
+    ``"bf16->f32"``)."""
+    fn.launches, fn.modes = 0, {}
+    return fn
+
+
+def count(fn, mode: str) -> None:
+    """One launch of ``fn``'s kernel in ``mode``; wrappers call it where
+    they launch, and nowhere else."""
+    fn.launches += 1
+    fn.modes[mode] = fn.modes.get(mode, 0) + 1
 
 
 def ptr(t) -> int:

@@ -6,6 +6,9 @@ Hopper there are no slabs, and what remains of that function is a sum of
 rows into sorted segments: ``out[k] = Σ_{i∈[ptr[k], ptr[k+1])}
 rows[perm[i]]`` (``perm`` optional).  It carries the sender-side dB of
 the edge message backward and the graph readout's forward.
+
+Rows are f32 or bf16; the sum accumulates in f32 and is rounded once to
+``out_dtype``: f32 → f32, bf16 → f32 (the pools) or bf16 → bf16 (dB).
 """
 
 from __future__ import annotations
@@ -16,12 +19,16 @@ import torch
 
 from . import build
 
+# the data dtypes K1–K4 take
+DATA_DTYPES = (torch.float32, torch.bfloat16)
+
 
 def segment_sum_sorted_plain(rows: torch.Tensor, ptr: torch.Tensor,
-                             perm: Optional[torch.Tensor] = None
+                             perm: Optional[torch.Tensor] = None,
+                             out_dtype: torch.dtype = torch.float32
                              ) -> torch.Tensor:
     """Plain PyTorch version of K3 (the CPU path and the kernel's
-    reference)."""
+    reference): an f32 sum, rounded once to ``out_dtype``."""
     n_seg = ptr.numel() - 1
     lengths = ptr.diff()
     seg = torch.repeat_interleave(
@@ -30,33 +37,48 @@ def segment_sum_sorted_plain(rows: torch.Tensor, ptr: torch.Tensor,
     idx = perm[pos] if perm is not None else pos
     out = torch.zeros(n_seg, rows.shape[1], dtype=torch.float32,
                       device=rows.device)
-    return out.index_add_(0, seg, rows[idx].float())
+    return out.index_add_(0, seg, rows[idx].float()).to(out_dtype)
 
 
+@build.counted
 def segment_sum_sorted(rows: torch.Tensor, ptr: torch.Tensor,
-                       perm: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[num_segments, d] f32 sums of ``rows`` [R, d] over the CSR
-    segments ``ptr`` [num_segments+1] (int32), through ``perm`` (int32,
-    positions -> row ids) when given.  CPU tensors take the plain
-    version; CUDA tensors launch K3 (f32 only)."""
+                       perm: Optional[torch.Tensor] = None,
+                       out_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
+    """[num_segments, d] sums of ``rows`` [R, d] over the CSR segments
+    ``ptr`` [num_segments+1] (int32), through ``perm`` (int32, positions
+    -> row ids) when given; accumulated in f32 and rounded once to
+    ``out_dtype``.  CPU tensors take the plain version; CUDA tensors
+    launch K3 (f32 rows to f32, bf16 rows to f32 or bf16)."""
     if not build.on_cuda(rows):
-        return segment_sum_sorted_plain(rows, ptr, perm)
+        return segment_sum_sorted_plain(rows, ptr, perm, out_dtype)
     build.require("segment_sum_sorted", rows.device, rows,
-                  dtype=torch.float32)
+                  dtype=DATA_DTYPES)
     build.require("segment_sum_sorted", rows.device, ptr, perm,
                   dtype=torch.int32)
+    bf16_rows = rows.dtype == torch.bfloat16
+    if out_dtype not in ((torch.float32, torch.bfloat16) if bf16_rows
+                         else (torch.float32,)):
+        raise TypeError(f"segment_sum_sorted: out dtype "
+                        f"{build.dtype_name(out_dtype)} from "
+                        f"{build.dtype_name(rows.dtype)} rows; the kernel "
+                        f"takes f32 -> f32, bf16 -> f32 or bf16 -> bf16")
     if rows.dim() != 2:
         raise ValueError("segment_sum_sorted: rows must be [R, d]")
     n_seg, d = ptr.numel() - 1, rows.shape[1]
-    out = torch.empty(n_seg, d, dtype=torch.float32, device=rows.device)
+    out = torch.empty(n_seg, d, dtype=out_dtype, device=rows.device)
     if n_seg == 0 or d == 0:
         return out
-    rc = build.lib("segment_sum").gsn_segment_sum_sorted(
-        build.ptr(rows), build.ptr(ptr), build.ptr(perm), build.ptr(out),
-        n_seg, d, build.stream_ptr(rows.device))
+    lib = build.lib("segment_sum")
+    args = (build.ptr(rows), build.ptr(ptr), build.ptr(perm),
+            build.ptr(out), n_seg, d)
+    if bf16_rows:
+        rc = lib.gsn_segment_sum_sorted_bf16(
+            *args, int(out_dtype == torch.bfloat16),
+            build.stream_ptr(rows.device))
+    else:
+        rc = lib.gsn_segment_sum_sorted(*args, build.stream_ptr(rows.device))
     build.check(rc, "segment_sum_sorted")
-    segment_sum_sorted.launches += 1
+    build.count(segment_sum_sorted, f"{build.dtype_name(rows.dtype)}->"
+                                    f"{build.dtype_name(out_dtype)}")
     return out
-
-
-segment_sum_sorted.launches = 0

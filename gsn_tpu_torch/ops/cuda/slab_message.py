@@ -14,8 +14,14 @@ gradient).  Edges are the batch's real edges in
 receiver-sorted order (``GraphBatch.recv_ptr``); Pe and dH keep the
 batch's edge-slot rows, padding slots last (dH is zero there).
 
-Only f32 runs on the card here: bf16 inputs and the ``id_sq`` moments
-mode (fused BN inside the message MLP) raise on a CUDA tensor.
+The data (A, B, Pe, g and every output but db1) is f32 or bf16, one
+dtype for all of it; b1 and db1 are f32.  In bf16 (the reference's
+``data_dtype="bfloat16"``) H is computed in f32 from the bf16 values,
+in the order above (so the relu mask is the reference's), each message
+is rounded to bf16, row sums accumulate in f32 and are rounded once, g
+is rounded to bf16, and dH, a masked copy of g, is exact.  The
+``id_sq`` moments mode (fused BN inside the message MLP) is not ported:
+it raises.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import build
-from .slab_combine import segment_sum_sorted
+from .slab_combine import DATA_DTYPES, segment_sum_sorted
 
 ACTS = ("relu", "identity")
 
@@ -46,12 +52,12 @@ def receivers(recv_ptr: torch.Tensor) -> torch.Tensor:
 
 
 def _pre_activation(A, B, Pe, b1, recv, send):
-    # the reference kernel's order: B[send] + A[recv] + Pe + b1
-    h = B[send]
+    # in f32, in the reference kernel's order: B[send] + A[recv] + Pe + b1
+    h = B[send].float()
     if A is not None:
-        h = h + A[recv]
+        h = h + A[recv].float()
     if Pe is not None:
-        h = h + Pe[:send.numel()]
+        h = h + Pe[:send.numel()].float()
     return h + b1
 
 
@@ -62,7 +68,8 @@ def _check_act(act: str) -> None:
 
 
 def edge_message_fwd_plain(A, B, Pe, b1, recv_ptr, send, act="relu"):
-    """Plain PyTorch version of K1."""
+    """Plain PyTorch version of K1, in B's dtype (messages rounded to it,
+    summed in f32, the sum rounded once)."""
     _check_act(act)
     recv = receivers(recv_ptr)
     h = _pre_activation(A, B, Pe, b1, recv, send)
@@ -70,32 +77,35 @@ def edge_message_fwd_plain(A, B, Pe, b1, recv_ptr, send, act="relu"):
         h = torch.relu(h)
     out = torch.zeros(recv_ptr.numel() - 1, B.shape[1],
                       dtype=torch.float32, device=B.device)
-    return out.index_add_(0, recv, h)
+    return out.index_add_(0, recv, h.to(B.dtype).float()).to(B.dtype)
 
 
 def edge_message_bwd_recv_plain(A, B, Pe, b1, g, recv_ptr, send,
                                 act="relu", num_edge_slots=None):
-    """Plain PyTorch version of K2: (dH [slots, d], dA [N, d] or None)."""
+    """Plain PyTorch version of K2: (dH [slots, d], dA [N, d] or None),
+    in B's dtype (g rounded to it; dA summed in f32, rounded once)."""
     _check_act(act)
     recv = receivers(recv_ptr)
-    dh = g[recv]
+    dh = g.to(B.dtype)[recv]
     if act == "relu":
         h = _pre_activation(A, B, Pe, b1, recv, send)
         dh = torch.where(h > 0, dh, torch.zeros_like(dh))
     slots = send.numel() if num_edge_slots is None else num_edge_slots
-    dH = torch.zeros(slots, g.shape[1], dtype=torch.float32,
-                     device=g.device)
+    dH = torch.zeros(slots, g.shape[1], dtype=B.dtype, device=g.device)
     dH[:send.numel()] = dh
     dA = None
     if A is not None:
-        dA = torch.zeros_like(g).index_add_(0, recv, dh)
+        dA = torch.zeros(g.shape, dtype=torch.float32,
+                         device=g.device).index_add_(
+                             0, recv, dh.float()).to(B.dtype)
     return dH, dA
 
 
 def _check_cuda(what, A, B, Pe, b1, g, recv_ptr, send, act):
     _check_act(act)
     dev = B.device
-    build.require(what, dev, A, B, Pe, b1, g, dtype=torch.float32)
+    build.require(what, dev, A, B, Pe, g, dtype=DATA_DTYPES)
+    build.require(what, dev, b1, dtype=torch.float32)
     build.require(what, dev, recv_ptr, send, dtype=torch.int32)
     d = B.shape[1]
     n_rows = recv_ptr.numel() - 1
@@ -110,38 +120,45 @@ def _check_cuda(what, A, B, Pe, b1, g, recv_ptr, send, act):
         raise ValueError(f"{what}: Pe has fewer rows than edges")
 
 
+def _suffix(dtype) -> str:
+    """The C entry point's suffix for the data dtype."""
+    return "_bf16" if dtype == torch.bfloat16 else ""
+
+
+@build.counted
 def edge_message_fwd(A: Optional[torch.Tensor], B: torch.Tensor,
                      Pe: Optional[torch.Tensor], b1: torch.Tensor,
                      recv_ptr: torch.Tensor, send: torch.Tensor,
                      act: str = "relu") -> torch.Tensor:
-    """K1: [N, d] f32 ``agg`` (see module docstring); A (``has_a``) and
-    Pe (``has_pe``) may be None.  CPU tensors take the plain version."""
+    """K1: [N, d] ``agg`` in the data dtype, f32 or bf16 (see module
+    docstring); A (``has_a``) and Pe (``has_pe``) may be None.  CPU
+    tensors take the plain version."""
     if not build.on_cuda(B):
         return edge_message_fwd_plain(A, B, Pe, b1, recv_ptr, send, act)
     _check_cuda("edge_message_fwd", A, B, Pe, b1, None, recv_ptr, send,
                 act)
     n_rows, d = recv_ptr.numel() - 1, B.shape[1]
-    out = torch.empty(n_rows, d, dtype=torch.float32, device=B.device)
+    out = torch.empty(n_rows, d, dtype=B.dtype, device=B.device)
     if n_rows == 0 or d == 0:
         return out
-    rc = build.lib("edge_message").gsn_edge_message_fwd(
-        build.ptr(A), build.ptr(B), build.ptr(Pe), build.ptr(b1),
-        build.ptr(recv_ptr), build.ptr(send), build.ptr(out), n_rows, d,
-        int(act == "relu"), int(A is not None), int(Pe is not None),
-        build.stream_ptr(B.device))
+    fn = getattr(build.lib("edge_message"),
+                 "gsn_edge_message_fwd" + _suffix(B.dtype))
+    rc = fn(build.ptr(A), build.ptr(B), build.ptr(Pe), build.ptr(b1),
+            build.ptr(recv_ptr), build.ptr(send), build.ptr(out), n_rows, d,
+            int(act == "relu"), int(A is not None), int(Pe is not None),
+            build.stream_ptr(B.device))
     build.check(rc, "edge_message_fwd")
-    edge_message_fwd.launches += 1
+    build.count(edge_message_fwd, build.dtype_name(B.dtype))
     return out
 
 
-edge_message_fwd.launches = 0
-
-
+@build.counted
 def edge_message_bwd_recv(A, B, Pe, b1, g, recv_ptr, send, act="relu",
                           num_edge_slots=None):
-    """K2: (dH [num_edge_slots, d], dA [N, d] or None when A is None).
-    ``num_edge_slots`` defaults to the real edge count; slots past the
-    real edges get zero rows."""
+    """K2: (dH [num_edge_slots, d], dA [N, d] or None when A is None), in
+    the data dtype (g must have it on the card).  ``num_edge_slots``
+    defaults to the real edge count; slots past the real edges get zero
+    rows."""
     if not build.on_cuda(g):
         return edge_message_bwd_recv_plain(A, B, Pe, b1, g, recv_ptr,
                                            send, act, num_edge_slots)
@@ -150,26 +167,26 @@ def edge_message_bwd_recv(A, B, Pe, b1, g, recv_ptr, send, act="relu",
     n_rows, d = recv_ptr.numel() - 1, g.shape[1]
     e_real = send.numel()
     slots = e_real if num_edge_slots is None else num_edge_slots
-    dH = torch.empty(slots, d, dtype=torch.float32, device=g.device)
+    dH = torch.empty(slots, d, dtype=g.dtype, device=g.device)
     dH[e_real:].zero_()
     dA = torch.empty_like(g) if A is not None else None
     if n_rows == 0 or d == 0:
         return dH, dA
-    rc = build.lib("edge_message").gsn_edge_message_bwd_recv(
-        build.ptr(A), build.ptr(B), build.ptr(Pe), build.ptr(b1),
-        build.ptr(g), build.ptr(recv_ptr), build.ptr(send), build.ptr(dH),
-        build.ptr(dA), n_rows, d, int(act == "relu"), int(A is not None),
-        int(Pe is not None), build.stream_ptr(g.device))
+    fn = getattr(build.lib("edge_message"),
+                 "gsn_edge_message_bwd_recv" + _suffix(g.dtype))
+    rc = fn(build.ptr(A), build.ptr(B), build.ptr(Pe), build.ptr(b1),
+            build.ptr(g), build.ptr(recv_ptr), build.ptr(send), build.ptr(dH),
+            build.ptr(dA), n_rows, d, int(act == "relu"), int(A is not None),
+            int(Pe is not None), build.stream_ptr(g.device))
     build.check(rc, "edge_message_bwd_recv")
-    edge_message_bwd_recv.launches += 1
+    build.count(edge_message_bwd_recv, build.dtype_name(g.dtype))
     return dH, dA
 
 
-edge_message_bwd_recv.launches = 0
-
-
 class EdgeMessageAggregate(torch.autograd.Function):
-    """Autograd wrapper: K1 forward; K2 (dH, dA) and K3 (dB) backward."""
+    """Autograd wrapper: K1 forward; K2 (dH, dA) and K3 (dB) backward.
+    Each gradient comes back in its input's dtype: dA, dB and dPe in the
+    data dtype, db1 in f32 (an f32 sum of dH)."""
 
     @staticmethod
     def forward(ctx, A, B, Pe, b1, seg: EdgeSegments, act: str):
@@ -185,18 +202,20 @@ class EdgeMessageAggregate(torch.autograd.Function):
         A, B, Pe, b1 = ctx.saved_tensors
         seg = ctx.seg
         slots = Pe.shape[0] if Pe is not None else seg.send.numel()
-        dH, dA = edge_message_bwd_recv(A, B, Pe, b1, g.contiguous(),
+        dH, dA = edge_message_bwd_recv(A, B, Pe, b1,
+                                       g.to(B.dtype).contiguous(),
                                        seg.recv_ptr, seg.send, ctx.act,
                                        slots)
-        dB = (segment_sum_sorted(dH, seg.send_ptr, seg.send_perm)
+        dB = (segment_sum_sorted(dH, seg.send_ptr, seg.send_perm, B.dtype)
               if ctx.needs_input_grad[1] else None)
         dPe = dH if Pe is not None and ctx.needs_input_grad[2] else None
         # a constant b1 (the ogb message's zeros) skips the [E, d] reduction
-        db1 = dH.sum(0) if ctx.needs_input_grad[3] else None
+        db1 = dH.float().sum(0) if ctx.needs_input_grad[3] else None
         return dA, dB, dPe, db1, None, None
 
 
 def edge_message_aggregate(A, B, Pe, b1, seg: EdgeSegments,
                            act: str = "relu") -> torch.Tensor:
-    """Differentiable ``agg`` [N, d] (see module docstring)."""
+    """Differentiable ``agg`` [N, d] in the data dtype (see module
+    docstring)."""
     return EdgeMessageAggregate.apply(A, B, Pe, b1, seg, act)

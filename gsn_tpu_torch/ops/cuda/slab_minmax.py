@@ -63,6 +63,7 @@ def minmax_dh_plain(B, mm, cnt, g_mm, recv_ptr, send) -> torch.Tensor:
     return dhc[:, :d] - dhc[:, d:]
 
 
+@build.counted
 def segment_minmax_fwd(B: torch.Tensor, recv_ptr: torch.Tensor,
                        send: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -72,13 +73,12 @@ def segment_minmax_fwd(B: torch.Tensor, recv_ptr: torch.Tensor,
         return segment_minmax_fwd_plain(B, recv_ptr, send)
     _, mm, cnt = launch_fwd("segment_minmax_fwd", B, None, recv_ptr, send,
                             minmax=True)
-    segment_minmax_fwd.launches += 1
+    build.count(segment_minmax_fwd, "f32")
     return mm, cnt
 
 
-segment_minmax_fwd.launches = 0
 
-
+@build.counted
 def segment_minmax_bwd(B, mm, cnt, g_mm, recv_ptr, send) -> torch.Tensor:
     """dh [E, d]: the cotangent of ``B[send e]`` for every real edge.
     CPU tensors take the plain version; CUDA tensors launch K6."""
@@ -86,11 +86,9 @@ def segment_minmax_bwd(B, mm, cnt, g_mm, recv_ptr, send) -> torch.Tensor:
         return minmax_dh_plain(B, mm, cnt, g_mm, recv_ptr, send)
     dh, _ = launch_bwd("segment_minmax_bwd", B, None, None, mm, cnt, g_mm,
                        recv_ptr, send)
-    segment_minmax_bwd.launches += 1
+    build.count(segment_minmax_bwd, "f32")
     return dh
 
-
-segment_minmax_bwd.launches = 0
 
 
 class SegmentMinmax(torch.autograd.Function):

@@ -54,6 +54,7 @@ def weighted_gather_bwd_plain(B, W, g_w, recv_ptr, send, need_dw=False
     return dh, dW
 
 
+@build.counted
 def weighted_gather_fwd(B: torch.Tensor, W: torch.Tensor,
                         recv_ptr: torch.Tensor, send: torch.Tensor
                         ) -> torch.Tensor:
@@ -63,13 +64,12 @@ def weighted_gather_fwd(B: torch.Tensor, W: torch.Tensor,
         return weighted_gather_fwd_plain(B, W, recv_ptr, send)
     out, _, _ = launch_fwd("weighted_gather_fwd", B, W, recv_ptr, send,
                            minmax=False)
-    weighted_gather_fwd.launches += 1
+    build.count(weighted_gather_fwd, "f32")
     return out
 
 
-weighted_gather_fwd.launches = 0
 
-
+@build.counted
 def weighted_gather_bwd(B, W, g_w, recv_ptr, send, need_dw=False):
     """(dh [E, d], dW [E, K] or None).  CPU tensors take the plain
     version; CUDA tensors launch K6."""
@@ -77,11 +77,9 @@ def weighted_gather_bwd(B, W, g_w, recv_ptr, send, need_dw=False):
         return weighted_gather_bwd_plain(B, W, g_w, recv_ptr, send, need_dw)
     out = launch_bwd("weighted_gather_bwd", B, W, g_w, None, None, None,
                      recv_ptr, send, need_dw)
-    weighted_gather_bwd.launches += 1
+    build.count(weighted_gather_bwd, "f32")
     return out
 
-
-weighted_gather_bwd.launches = 0
 
 
 def dgn_fused_fwd_plain(B, W, recv_ptr, send):
@@ -97,19 +95,19 @@ def dgn_fused_bwd_plain(B, W, g_w, mm, cnt, g_mm, recv_ptr, send,
     return dh + minmax_dh_plain(B, mm, cnt, g_mm, recv_ptr, send), dW
 
 
+@build.counted
 def dgn_fused_fwd(B, W, recv_ptr, send):
     """(out [N, K·d], mm [N, 2d], cnt [N, 2d]) from one walk.  CPU
     tensors take the plain version; CUDA tensors launch K5."""
     if not build.on_cuda(B):
         return dgn_fused_fwd_plain(B, W, recv_ptr, send)
     out = launch_fwd("dgn_fused_fwd", B, W, recv_ptr, send, minmax=True)
-    dgn_fused_fwd.launches += 1
+    build.count(dgn_fused_fwd, "f32")
     return out
 
 
-dgn_fused_fwd.launches = 0
 
-
+@build.counted
 def dgn_fused_bwd(B, W, g_w, mm, cnt, g_mm, recv_ptr, send, need_dw=False):
     """(dh [E, d], dW [E, K] or None) of both outputs.  CPU tensors take
     the plain version; CUDA tensors launch K6."""
@@ -118,11 +116,9 @@ def dgn_fused_bwd(B, W, g_w, mm, cnt, g_mm, recv_ptr, send, need_dw=False):
                                    need_dw)
     out = launch_bwd("dgn_fused_bwd", B, W, g_w, mm, cnt, g_mm, recv_ptr,
                      send, need_dw)
-    dgn_fused_bwd.launches += 1
+    build.count(dgn_fused_bwd, "f32")
     return out
 
-
-dgn_fused_bwd.launches = 0
 
 
 def _dB(ctx, dh, seg):

@@ -6,7 +6,9 @@ unpadded BatchNorm1d semantics:
 - masked statistics with the row count clamped to at least 1;
 - normalization uses the biased variance, the running-var update the
   *unbiased* batch variance (torch BatchNorm semantics);
-- running statistics update only in training mode.
+- running statistics update only in training mode;
+- a bf16 input (the bf16 compute dtype) gets f32 statistics and f32
+  arithmetic, and the output is rounded back to bf16.
 """
 
 from __future__ import annotations
@@ -66,5 +68,10 @@ class MaskedBatchNorm(nn.Module):
                     self.momentum * unbiased)
         if x is None:
             return mean, var, self.weight, self.bias
+        if x.dtype != torch.float32:
+            # the reference's folded per-channel affine in f32, rounded
+            # once to the input dtype
+            s = self.weight * torch.reciprocal(torch.sqrt(var + self.eps))
+            return (x.float() * s + (self.bias - mean * s)).to(x.dtype)
         y = (x - mean) * torch.reciprocal(torch.sqrt(var + self.eps))
         return y * self.weight + self.bias

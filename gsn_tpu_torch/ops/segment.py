@@ -63,9 +63,9 @@ def broadcast_graph_to_nodes(vn: torch.Tensor, graph_ptr: torch.Tensor,
                              num_nodes: int) -> torch.Tensor:
     """``vn[batch]`` (the GNN_OGB virtual-node broadcast, reference
     ``models_graph_classification_ogb_original.py:236``) through B4 over
-    the batch's ``graph_ptr``; its gradient is the add-pool.  Padding
-    nodes get 0, as on the reference's kernel path (they are masked
-    everywhere downstream)."""
+    the batch's ``graph_ptr``, in ``vn``'s dtype (f32 or bf16); its
+    gradient is the add-pool.  Padding nodes get 0, as on the
+    reference's kernel path (they are masked everywhere downstream)."""
     return graph_broadcast(vn, graph_ptr, num_nodes)
 
 
@@ -74,14 +74,15 @@ def global_add_pool(x: torch.Tensor, graph_ptr: torch.Tensor
     """Per-graph sum readout (reference global_add_pool_sparse) through
     the pool kernel over the batch's ``graph_ptr`` [num_graphs+1]
     (padding nodes lie outside every graph's range, so no mask is
-    needed)."""
+    needed): f32 rows, or bf16 rows summed in f32; f32 out."""
     return add_pool(x, graph_ptr)
 
 
 def global_mean_pool(x: torch.Tensor, graph_ptr: torch.Tensor
                      ) -> torch.Tensor:
     """Per-graph mean readout with empty-graph zero-guard (reference
-    global_mean_pool_sparse, ``utils_graph_learning.py:32-41``)."""
+    global_mean_pool_sparse, ``utils_graph_learning.py:32-41``); f32 out
+    from f32 or bf16 rows, as ``global_add_pool``."""
     counts = graph_ptr.diff().to(torch.float32)
     denom = torch.where(counts == 0, torch.ones_like(counts), counts)
     return add_pool(x, graph_ptr) / denom[:, None]

@@ -43,10 +43,13 @@ def resolve_device(device=None) -> torch.device:
 
 
 def full_f32_matmuls() -> None:
-    """f32 products in full f32 on the card (no TF32): the port's
-    tolerances against the reference assume it."""
+    """f32 products in full f32 on the card (no TF32), and bf16 products
+    (the bf16 compute dtype) accumulated in f32 rather than reduced in
+    bf16, as the TPU's matrix unit does: the port's tolerances against
+    the reference assume both."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 @dataclasses.dataclass

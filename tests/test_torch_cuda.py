@@ -16,6 +16,13 @@ padding, one graph, none) at widths 1 to 300 with aligned and unaligned
 g.  Tolerances:
 forward rtol 2e-4 / atol 2e-5, gradients rtol 2e-3 / atol 1e-4 * max|g|;
 tie counts are exact, and so is K4, which copies rows.
+
+K1–K4 also run in bf16 at the paths' widths (128, 300) and at odd ones
+(33, and 1 to 300 for K4), against their plain versions: K4 and dH bit
+for bit (copies and masked copies of bf16 values); K1, dA, dB and every
+sum rounded to bf16 at rtol 8e-3 / atol 1e-4 * max|want| (one bf16 ulp:
+the plain versions sum in another order, and a rounding may fall on the
+other side); K3 into f32 at the f32 tolerances.
 """
 
 import numpy as np
@@ -59,6 +66,13 @@ def grad_close(got, want):
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=2e-3,
                                    atol=1e-4 * float(w.abs().max()))
+
+
+def bf16_close(got, want):
+    """One bf16 ulp, in the working type (see module docstring)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                               atol=1e-4 * float(want.float().abs().max()))
 
 
 @pytest.mark.parametrize("d", [128, 30])
@@ -192,6 +206,74 @@ def test_graph_broadcast(dev, d):
                torch.autograd.grad((out_p * g).sum(), [vp]))
 
 
+@pytest.mark.parametrize("d", [128, 300, 33])
+@pytest.mark.parametrize("act", ["relu", "identity"])
+@pytest.mark.parametrize("has_a,has_pe", [(True, True), (False, True),
+                                          (False, False)])
+def test_edge_message_kernels_bf16(dev, d, act, has_a, has_pe):
+    """K1/K2 on bf16 data (f32 b1) at the zinc width (8-element loads),
+    the molhiv width (4-element loads: a 600-byte row is 8-byte aligned)
+    and an odd one, against the plain versions; the autograd Function's
+    gradients against the plain backward (dA, dB, dPe in bf16, db1 f32)."""
+    rng = np.random.RandomState(d + 2)
+    n, e, slots = 300, 900, 1000
+    seg = k12.EdgeSegments(*(t.to(dev)
+                             for t in ragged_segments(rng, n, e)))
+    gen = torch.Generator(device=dev).manual_seed(d)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).bfloat16()
+
+    A = rnd(n, d) if has_a else None
+    B = rnd(n, d)
+    Pe = rnd(slots, d) if has_pe else None
+    b1 = torch.randn(d, device=dev, generator=gen)
+    g = rnd(n, d)
+    rp, send = seg.recv_ptr, seg.send
+    out = k12.edge_message_fwd(A, B, Pe, b1, rp, send, act)
+    bf16_close(out, k12.edge_message_fwd_plain(A, B, Pe, b1, rp, send, act))
+    dH, dA = k12.edge_message_bwd_recv(A, B, Pe, b1, g, rp, send, act,
+                                       slots)
+    dH_p, dA_p = k12.edge_message_bwd_recv_plain(A, B, Pe, b1, g, rp, send,
+                                                 act, slots)
+    assert torch.equal(dH, dH_p)
+    if has_a:
+        bf16_close(dA, dA_p)
+    leaves = [t.clone().requires_grad_(True) for t in (A, B, Pe, b1)
+              if t is not None]
+    it = iter(leaves)
+    args = [next(it) if t is not None else None for t in (A, B, Pe, b1)]
+    got = torch.autograd.grad(
+        (k12.edge_message_aggregate(*args, seg, act).float() * g.float())
+        .sum(), leaves)
+    want = ([dA_p] if has_a else []) + [k3.segment_sum_sorted_plain(
+        dH_p, seg.send_ptr, seg.send_perm, torch.bfloat16)] + (
+            [dH_p] if has_pe else [])
+    for a, b in zip(got[:-1], want):
+        bf16_close(a, b)
+    assert got[-1].dtype == torch.float32
+    torch.testing.assert_close(got[-1], dH_p.float().sum(0), rtol=2e-3,
+                               atol=1e-4 * float(dH_p.float().abs().max()))
+
+
+@pytest.mark.parametrize("d", [128, 300, 33])
+def test_segment_sum_kernel_bf16(dev, d):
+    """K3 on bf16 rows, into f32 (the pools) and into bf16 (dB, B4's
+    backward), through a permutation and without."""
+    rng = np.random.RandomState(d + 3)
+    recv_ptr, send, send_ptr, perm = (t.to(dev) for t in
+                                      ragged_segments(rng, 200, 700))
+    rows = torch.randn(700, d, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(d)
+                       ).bfloat16()
+    for ptr, p in ((send_ptr, perm), (recv_ptr, None)):
+        torch.testing.assert_close(
+            k3.segment_sum_sorted(rows, ptr, p),
+            k3.segment_sum_sorted_plain(rows, ptr, p), **FWD)
+        bf16_close(k3.segment_sum_sorted(rows, ptr, p, torch.bfloat16),
+                   k3.segment_sum_sorted_plain(rows, ptr, p, torch.bfloat16))
+
+
 def k4_layout(name):
     """(graph_ptr [G+1] int32, rows) of a K4 stress layout."""
     sizes = np.random.RandomState(5).randint(1, 40, 300)
@@ -206,6 +288,40 @@ def k4_layout(name):
     return torch.from_numpy(ptr.astype(np.int32)), int(n_rows)
 
 
+def k4_stress_case(dev, layout, d, aligned, dtype):
+    """K4 on a stress layout: K4, AddPool's backward (K4 of the cotangent
+    rounded to x's dtype) and GraphBroadcast (K4 forward, K3 backward)
+    against their plain versions, the copies bit for bit."""
+    ptr, n_rows = k4_layout(layout)
+    ptr = ptr.to(dev)
+    G = ptr.numel() - 1
+    gen = torch.Generator(device=dev).manual_seed(d)
+    base = torch.randn(G * d + 1, device=dev, generator=gen).to(dtype)
+    x = torch.randn(n_rows, d, device=dev, generator=gen).to(dtype)
+    sl = slice(0, G * d) if aligned else slice(1, G * d + 1)
+    g = base[sl].view(G, d)
+    want = k4.segment_broadcast_plain(g, ptr, n_rows)
+    before = k4.segment_broadcast.launches
+    assert torch.equal(k4.segment_broadcast(g, ptr, n_rows), want)
+    assert k4.segment_broadcast.launches == before + 1
+    if G == 0:  # every row is 0; there is nothing to pool or broadcast
+        return
+    assert (g.data_ptr() % 16 == 0) == aligned
+    xl = x.clone().requires_grad_(True)
+    (dx,) = torch.autograd.grad(k4.add_pool(xl, ptr), [xl],
+                                grad_outputs=g.float())
+    assert torch.equal(dx, want)
+    bl = base.clone().requires_grad_(True)
+    out = k4.graph_broadcast(bl[sl].view(G, d), ptr, n_rows)
+    assert torch.equal(out, k4.graph_broadcast_plain(g, ptr, n_rows))
+    (dv,) = torch.autograd.grad((out.float() * x.float()).sum(), [bl])
+    want_dv = k3.segment_sum_sorted_plain(x, ptr, out_dtype=dtype)
+    if dtype == torch.bfloat16:
+        bf16_close(dv[sl].view(G, d), want_dv)
+    else:
+        grad_close([dv[sl].view(G, d)], [want_dv])
+
+
 @pytest.mark.parametrize("layout", ["empty graphs, trailing padding",
                                     "leading padding", "one graph",
                                     "no graphs"])
@@ -218,39 +334,42 @@ def test_segment_broadcast_stress(dev, layout, d, aligned):
     view one float off 16-byte alignment; through K4, AddPool's backward
     (K4 of the cotangent as given) and GraphBroadcast (K4 forward, K3
     backward)."""
-    ptr, n_rows = k4_layout(layout)
-    ptr = ptr.to(dev)
-    G = ptr.numel() - 1
-    gen = torch.Generator(device=dev).manual_seed(d)
-    base = torch.randn(G * d + 1, device=dev, generator=gen)
-    x = torch.randn(n_rows, d, device=dev, generator=gen)
-    sl = slice(0, G * d) if aligned else slice(1, G * d + 1)
-    g = base[sl].view(G, d)
-    want = k4.segment_broadcast_plain(g, ptr, n_rows)
-    before = k4.segment_broadcast.launches
-    assert torch.equal(k4.segment_broadcast(g, ptr, n_rows), want)
-    assert k4.segment_broadcast.launches == before + 1
-    if G == 0:  # every row is 0; there is nothing to pool or broadcast
-        return
-    assert (g.data_ptr() % 16 == 0) == aligned
-    xl = x.clone().requires_grad_(True)
-    (dx,) = torch.autograd.grad(k4.add_pool(xl, ptr), [xl], grad_outputs=g)
-    assert torch.equal(dx, want)
-    bl = base.clone().requires_grad_(True)
-    out = k4.graph_broadcast(bl[sl].view(G, d), ptr, n_rows)
-    assert torch.equal(out, k4.graph_broadcast_plain(g, ptr, n_rows))
-    (dv,) = torch.autograd.grad((out * x).sum(), [bl])
-    grad_close([dv[sl].view(G, d)], [k3.segment_sum_sorted_plain(x, ptr)])
+    k4_stress_case(dev, layout, d, aligned, torch.float32)
+
+
+@pytest.mark.parametrize("layout", ["empty graphs, trailing padding",
+                                    "leading padding", "one graph",
+                                    "no graphs"])
+@pytest.mark.parametrize("d", [1, 3, 33, 70, 128, 130, 300])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_segment_broadcast_stress_bf16(dev, layout, d, aligned):
+    """The same on bf16 rows (16-byte vectors of 8 elements; loads of 8,
+    4, 2 or 1 by width and alignment; the unaligned view one element
+    off)."""
+    k4_stress_case(dev, layout, d, aligned, torch.bfloat16)
 
 
 def test_kernels_count_launches_and_reject_bf16(dev):
+    """Launches count in all and by mode; bf16 is taken (K1–K4 take f32
+    or bf16), other dtypes and mixed data dtypes are refused, and so is
+    an activation the kernels lack."""
     before = k3.segment_sum_sorted.launches
+    modes = dict(k3.segment_sum_sorted.modes)
     ptr = torch.tensor([0, 2, 3], dtype=torch.int32, device=dev)
     rows = torch.randn(3, 8, device=dev)
     k3.segment_sum_sorted(rows, ptr)
-    assert k3.segment_sum_sorted.launches == before + 1
+    k3.segment_sum_sorted(rows.bfloat16(), ptr)
+    k3.segment_sum_sorted(rows.bfloat16(), ptr, out_dtype=torch.bfloat16)
+    assert k3.segment_sum_sorted.launches == before + 3
+    for mode in ("f32->f32", "bf16->f32", "bf16->bf16"):
+        assert k3.segment_sum_sorted.modes[mode] == modes.get(mode, 0) + 1
     with pytest.raises(TypeError, match="dtype"):
-        k3.segment_sum_sorted(rows.bfloat16(), ptr)
+        k3.segment_sum_sorted(rows.half(), ptr)
+    with pytest.raises(TypeError, match="dtype"):
+        k3.segment_sum_sorted(rows, ptr, out_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="dtype"):
+        k12.edge_message_fwd(rows, rows.bfloat16(), None, rows[0], ptr,
+                             ptr[:2].contiguous())
     with pytest.raises(ValueError, match="activation"):
         k12.edge_message_fwd(rows, rows, None, rows[0], ptr,
                              ptr[:2].contiguous(), "id_sq")

@@ -1,8 +1,9 @@
 """The port's molhiv slice against the reference package on the CPU: B4
 (``graph_broadcast``), the ``ogb`` message kind of ``GSNLayer``, the bond
-encoder, ``GNN_OGB`` with the virtual node through the weight bridge on
-both of the reference's layouts, the trainer with the ``rocauc``
-evaluator, and the OGB evaluator metrics.
+and atom encoders (with ``features_scope``), ``GNN_OGB`` with the
+virtual node through the weight bridge on both of the reference's
+layouts, the trainer with the ``rocauc`` evaluator, and the OGB
+evaluator metrics.
 
 The reference runs its Pallas kernels in interpret mode on the slab
 layout (node_cap >= 512 and graph_cap >= 256, so its slab message, pool
@@ -288,6 +289,68 @@ def test_bond_encoder_matches():
     np.testing.assert_allclose(enc(t(x)).detach().numpy(),
                                np.asarray(jenc.apply(v, jnp.asarray(x))),
                                **PLAIN_FWD)
+
+
+@pytest.mark.parametrize("scope", ["simple", "full"])
+@pytest.mark.parametrize("kind,fields", [("atom_encoder", 9),
+                                         ("bond_encoder", 3)])
+def test_ogb_encoders_follow_features_scope(kind, fields, scope):
+    """``features_scope`` other than "full" builds the atom and bond
+    encoders over the first two fields' tables (reference
+    gsn_tpu/nn/embedding.py:184-190, 216-221), on 2-column input; "full"
+    keeps every field."""
+    rng = np.random.RandomState(fields)
+    vocab = (9 * [2])[:fields] if scope == "full" else [2, 2]
+    x = np.stack([rng.randint(0, v, 50) for v in vocab], 1)
+    jenc = JaxEmbedding(kind, len(vocab), None, 16, features_scope=scope)
+    v = jenc.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    enc = DiscreteEmbedding(kind, len(vocab), None, 16, features_scope=scope)
+    load_flax_variables(enc, numpy_tree(v["params"]))
+    assert enc.MultiEmbedding_0.num_columns == len(vocab)
+    np.testing.assert_allclose(enc(t(x)).detach().numpy(),
+                               np.asarray(jenc.apply(v, jnp.asarray(x))),
+                               **PLAIN_FWD)
+
+
+@pytest.mark.parametrize("scope", ["simple", "full"])
+def test_gnn_ogb_features_scope_matches(scope):
+    """GNN_OGB with ``features_scope="simple"`` on make_molhiv_like graphs
+    cut to their first 2 atom and 2 bond fields, and with "full" on all
+    9 and 3: the eval prediction and every parameter gradient of the BCE
+    loss on the plain layout."""
+    graphs, d_id = make_molhiv_like(NUM_GRAPHS, seed=5)
+    n_atom, n_bond = (2, 2) if scope == "simple" else (9, 3)
+    for g in graphs:
+        g["x"] = g["x"][:, :n_atom]
+        g["edge_features"] = g["edge_features"][:, :n_bond]
+    kw = molhiv_kwargs(d_id, features_scope=scope, in_features=n_atom,
+                       in_edge_features=n_bond)
+    jb = next(jax_batches(copy.deepcopy(graphs), NUM_GRAPHS, caps=CAPS,
+                          y_shape=(), y_dtype=np.float32))
+    tb = next(iterate_batches(graphs, NUM_GRAPHS, caps=CAPS, y_shape=(),
+                              y_dtype=np.float32)).to("cpu")
+    jm = jax_build_model(JaxConfig(**kw))
+    v = jm.init(jax.random.PRNGKey(0), jb, train=False)
+    model = build_model(GSNConfig(**kw))
+    assert model.input_node_encoder.MultiEmbedding_0.num_columns == n_atom
+    assert model.edge_encoder_0.MultiEmbedding_0.num_columns == n_bond
+    load_flax_variables(model, numpy_tree(v["params"]),
+                        numpy_tree(v["batch_stats"]))
+    model.eval()
+    with torch.no_grad():
+        np.testing.assert_allclose(model(tb).numpy(),
+                                   np.asarray(jm.apply(v, jb)), **PLAIN_FWD)
+
+    def loss(params):
+        out = jm.apply({"params": params, "batch_stats": v["batch_stats"]},
+                       jb, train=True, mutable=["batch_stats"])[0]
+        return jax_metrics.bce_with_logits_loss(out, jb.y, jb.graph_mask)
+
+    jgrads = jax.grad(loss)(v["params"])
+    model.train()
+    metrics.bce_with_logits_loss(model(tb), tb.y, tb.graph_mask).backward()
+    grads_close({n: p.grad.numpy() for n, p in model.named_parameters()},
+                flax_to_state_dict(numpy_tree(jgrads)))
 
 
 # ---------------------------------------------------------------------------
