@@ -110,10 +110,45 @@ Phases (any failure is an uncaught exception and a nonzero exit):
     ``compute_dtype="bfloat16"``, d=300, 5 layers): per step K1 5, K2
     5, B4 5, K4 10, K3 15 (10 into bf16, 5 into f32).
 
+23. K5/K6 on bf16 rows (``DGNConfig.compute_dtype="bfloat16"``) in
+    each instantiation at the DGN shapes (d=70, K=5) against their plain
+    versions: maxima and tie counts exact, dW at the f32 tolerances, the
+    f32 weighted sums and the bf16 dh and dB at BF16_RTOL; forward, raw
+    backward with and without dW, autograd; then phase 8's stress shapes
+    on bf16 rows, a ``[dgn] ptxas bf16`` line, and each function timed
+    with its bound from its bytes (B, g_w and dh in 2 bytes).  The
+    autograd Functions' bf16 dB is held to K3's plain version of the
+    kernel's own dh (checked itself at BF16_RTOL).
+24. A small DGN model in bf16 for each dispatch branch, the card against
+    the CPU at the bf16 gates; each branch's K5 must launch in bf16.
+25. Drive the DGN path in bf16 (``bench_dgn``'s configuration +
+    ``compute_dtype="bfloat16"``) for STEPS steps: per step K5 4 and K6
+    4 in bf16, K3 6 (the f32 node sums and readout, 4 bf16 dB), K4 1
+    (f32); the median step, real edges/s, peak memory and a profile;
+    then BRANCH_STEPS steps each of the weighted-only and minmax-only
+    paths in bf16.
+26. K1/K2 in the fused-BN moments mode (``id_sq``) at d=128 on f32 and
+    bf16 data, with A and Pe and without, and K3 from f32 rows into
+    bf16, against their plain versions: the f32 moments and dH at the
+    f32 tolerances, dA, dB and dPe in the data dtype (BF16_RTOL in
+    bf16); timed with their bounds (the f32 mode, which no path runs,
+    on ``[id_sq]`` log lines).
+27. A small zinc model with ``bn_mlp=True`` in bf16, the card against
+    the CPU: loss rel 2e-2, and a gradient cosine above the smaller of
+    0.99 and the CPU's own bf16-against-f32 cosine on the same weights
+    (training through the fused BN's batch statistics turns this
+    model's gradient by more than 0.99 in bf16 itself); K1 and K2 must
+    launch in id_sq mode.
+28. Drive ``zinc_cfg`` + ``compute_dtype="bfloat16"`` + ``bn_mlp=True``
+    for STEPS steps: per step K1 8 and K2 8 (4 relu and 4 id_sq, bf16),
+    K3 13 (4 bf16 -> bf16, 4 f32 -> bf16, 5 bf16 -> f32), K4 5; the
+    same numbers as phase 25.
+
 Then it prints three lines: ``{"kernels": [...]}`` (each kernel's
 checks, times, bound and its launches on the path named in its
-``path``; a bf16 mode's row is named ``kernel[bf16 ...]``), the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``.
+``path``; a bf16 mode's row is named ``kernel[bf16 ...]``, a fused-BN
+moments mode's ``kernel[id_sq ...]``), the card's name and power limit,
+and last ``{"ok": true, "device": {...}}``.
 Without a CUDA card, or outside the repository, it exits nonzero before
 printing any of them.
 """
@@ -368,14 +403,10 @@ def log_row(tag, name, row):
     log(f"[{tag}] {name} " + " ".join(f"{k} {v}" for k, v in row.items()))
 
 
-def dgn_stress(dev):
-    """Phase 8's stress shapes (see module docstring); returns the number
-    of (width, K) cases checked."""
-    from gsn_tpu_torch.ops.cuda import slab_combine as k3
+def dgn_stress_segments(dev):
+    """The DGN stress shapes' edge set: 1200 edges over 400 receivers,
+    some rows empty and one a hub of 100 edges; (segments, rows)."""
     from gsn_tpu_torch.ops.cuda import slab_message as k12
-    from gsn_tpu_torch.ops.cuda import slab_minmax as b6
-    from gsn_tpu_torch.ops.cuda import slab_weighted as b58
-
     rng = np.random.RandomState(4)
     n, e, hub = 400, 1200, 100
     recv = rng.randint(0, n, e)
@@ -388,10 +419,22 @@ def dgn_stress(dev):
     perm = np.argsort(send, kind="stable").astype(np.int32)
     seg = k12.EdgeSegments(*(torch.from_numpy(a).to(dev)
                              for a in (ptrs[0], send, ptrs[1], perm)))
-    rp, send = seg.recv_ptr, seg.send
-    deg = rp.diff()
+    deg = seg.recv_ptr.diff()
     if not (deg == 0).any() or int(deg.max()) < hub:
         raise AssertionError("stress edge set lacks empty or hub rows")
+    return seg, n
+
+
+def dgn_stress(dev):
+    """Phase 8's stress shapes (see module docstring); returns the number
+    of (width, K) cases checked."""
+    from gsn_tpu_torch.ops.cuda import slab_combine as k3
+    from gsn_tpu_torch.ops.cuda import slab_minmax as b6
+    from gsn_tpu_torch.ops.cuda import slab_weighted as b58
+
+    seg, n = dgn_stress_segments(dev)
+    e = seg.send.numel()
+    rp, send = seg.recv_ptr, seg.send
 
     def dB_plain(dh):
         return k3.segment_sum_sorted_plain(dh, seg.send_ptr, seg.send_perm)
@@ -512,49 +555,57 @@ def k4_ptxas_line():
     return "[k4] ptxas: " + "; ".join(parts)
 
 
-def dgn_ptxas_line(d, K):
+def dgn_ptxas_line(d, K, dtype="f32"):
     """The ``[dgn] ptxas`` line: registers, shared memory and spill bytes
-    that ``nvcc -Xptxas -v`` reported for the K5/K6 instantiations the
-    DGN paths launch at width d with K weight columns (and for the dW
-    form of K6), with each one's resident blocks per SM, and the most
-    registers and spill bytes over every instantiation of the source."""
+    that ``nvcc -Xptxas -v`` reported for the K5/K6 instantiations over
+    rows of ``dtype`` (f32 or bf16) that the DGN paths launch at width d
+    with K weight columns (and for the dW form of K6), with each one's
+    resident blocks per SM, and the most registers and spill bytes over
+    every instantiation of that element type."""
     from gsn_tpu_torch.ops.cuda import build
 
     def key(name):
-        # <V, NG, KT, WEIGHTED, MINMAX[, DW]> from the mangled template args
-        a = re.search(r"dgn_aggregate_(fwd|bwd)_kernelI((?:L[ib]\d+E)+)",
-                      name)
+        # <V, NG, KT, WEIGHTED, MINMAX[, DW], T> from the mangled name
+        a = re.search(r"dgn_aggregate_(fwd|bwd)_kernelI((?:L[ib]\d+E)+)"
+                      r"(\w)", name)
         return ((a.group(1),) + tuple(
             int(x) for x in re.findall(r"L[ib](\d+)E", a.group(2)))
+                + ("f32" if a.group(3) == "f" else "bf16",)
                 if a else None)
 
-    fns = ptxas_report("dgn_aggregate", key)
+    fns = {k: v for k, v in ptxas_report("dgn_aggregate", key).items()
+           if k[-1] == dtype}
     if not fns:
-        return ("[dgn] ptxas: not reported (the library was not built in "
-                "this process)")
-    vec = 4 if d % 4 == 0 else 1
-    v, ng = (4, 1) if vec == 4 else (1, 3)
-    kt = 5 if K == 5 else 0
+        return (f"[dgn] ptxas {dtype}: not reported (the library was not "
+                "built in this process)")
     lib = build.lib("dgn_aggregate")
+    if dtype == "f32":
+        vec = 4 if d % 4 == 0 else 1
+        v, ng = (4, 1) if vec == 4 else (1, 3)
+        occupancy = lib.gsn_dgn_aggregate_occupancy
+    else:   # one layout
+        vec, (v, ng) = None, (1, 3)
+        occupancy = lib.gsn_dgn_aggregate_occupancy_bf16
+    kt = 5 if K == 5 else 0
     parts = []
     for name, w, mmx, dw in (("fused", 1, 1, 0), ("fused+dW", 1, 1, 1),
                              ("weighted", 1, 0, 0), ("minmax", 0, 1, 0)):
         for bwd, kname in ((0, "K5"), (1, "K6")):
             if dw and not bwd:
                 continue
-            key = (("bwd", v, ng, kt if w else 0, w, mmx, dw) if bwd
-                   else ("fwd", v, ng, kt if w else 0, w, mmx))
+            key = (("bwd", v, ng, kt if w else 0, w, mmx, dw, dtype) if bwd
+                   else ("fwd", v, ng, kt if w else 0, w, mmx, dtype))
             info = fns.get(key, {})
-            blocks = lib.gsn_dgn_aggregate_occupancy(bwd, d, K, w, mmx, dw,
-                                                     vec)
+            blocks = occupancy(bwd, d, K, w, mmx, dw,
+                               *(() if vec is None else (vec,)))
             parts.append(f"{kname}<{name}> {info.get('regs')} regs "
                          f"{info.get('smem')} B smem {info.get('spill')} B "
                          f"spilled {blocks} blocks/SM")
     most = max(f.get("regs", 0) for f in fns.values())
     spill = sum(f.get("spill", 0) for f in fns.values())
-    return (f"[dgn] ptxas at d={d} K={K} (layout V={v} NG={ng}): "
-            + "; ".join(parts) + f"; all {len(fns)} instantiations: at most "
-            f"{most} regs, {spill} B spilled in all")
+    return (f"[dgn] ptxas {dtype} at d={d} K={K} (layout V={v} NG={ng}): "
+            + "; ".join(parts) + f"; all {len(fns)} {dtype} "
+            f"instantiations: at most {most} regs, {spill} B spilled in all")
 
 
 def train_steps(trainer, state, data, steps, counters):
@@ -780,8 +831,9 @@ def dgn_main_config(graphs):
 
 
 def dgn_phases(dev, card, timed):
-    """Phases 7-12 (see module docstring); returns the kernel rows of
-    K5/K6 in their three instantiations."""
+    """Phases 7-12 (see module docstring); returns (the kernel rows of
+    K5/K6 in their three instantiations, the path's (graphs, batch on
+    the card))."""
     from gsn_tpu_torch.graphs.batching import iterate_batches
     from gsn_tpu_torch.nn.dgn import (DGNConfig, DGNNet, build_dgn_model,
                                       compute_avg_d)
@@ -1037,7 +1089,7 @@ def dgn_phases(dev, card, timed):
 
     # ---- phase 12 ----------------------------------------------------------
     profile_steps(trainer, state, data, med * 1e3, "dgn")
-    return rows
+    return rows, (graphs, data)
 
 
 def molhiv_setup(dev):
@@ -1463,54 +1515,89 @@ def cosine(a, b):
     return float(a @ b / (a.norm() * b.norm() + 1e-30))
 
 
-def bf16_small_model(cfg, graphs, n_slots, loss_fn, seed, what):
-    """Phase 20: a bf16 model on a small batch, the card (kernels, each
-    of K1 and K4 launched once a layer or more, in bf16) against the CPU
-    (plain versions) from the same weights: loss rel BF16_LOSS_REL and
-    the all-parameter gradient cosine above BF16_COSINE."""
-    from gsn_tpu_torch.graphs.batching import iterate_batches
-    from gsn_tpu_torch.nn.models import build_model
+def bf16_card_vs_cpu(ref, small, loss_fn, what, modes, min_launches,
+                     ref_f32=None):
+    """A bf16 model ``ref`` on the batch ``small``, the card (kernels)
+    against the CPU (plain versions) from the same weights: loss rel
+    BF16_LOSS_REL and the all-parameter gradient cosine above
+    BF16_COSINE; each kernel named in ``modes`` must launch at least
+    ``min_launches`` times in its mode there, and never on the CPU.
+
+    With ``ref_f32``, the same model in f32, the cosine gate is the
+    smaller of BF16_COSINE and the cosine of the CPU's bf16 gradient with
+    the f32 one: where bf16 itself turns the gradient further than 0.99
+    from f32 (training through the BN statistics of a fused-BN message),
+    the card must not turn it further from the CPU than that."""
     counters = kernel_counters()
-    small = next(iterate_batches(graphs, n_slots, y_shape=(),
-                                 y_dtype=np.float32))
-    ref = build_model(cfg, torch.Generator().manual_seed(seed))
     losses, grads = {}, {}
     for where in ("cpu", "cuda"):
         m = copy.deepcopy(ref).to(where).train()
         b = small.to(where)
-        before = {k: counters[k].modes.get("bf16", 0)
-                  for k in ("edge_message_fwd", "segment_broadcast")}
+        before = {k: counters[k].modes.get(mode, 0)
+                  for k, mode in modes.items()}
         loss = loss_fn(m(b), b.y, b.graph_mask)
         loss.backward()
         losses[where] = loss.item()
         grads[where] = [p.grad.detach().cpu() for p in m.parameters()]
-        ran = {k: counters[k].modes.get("bf16", 0) - n
-               for k, n in before.items()}
-        if where == "cuda" and min(ran.values()) < cfg.num_layers:
-            raise AssertionError(f"{what} bf16 on the card: bf16 launches "
-                                 f"{ran}")
+        ran = {k: counters[k].modes.get(mode, 0) - before[k]
+               for k, mode in modes.items()}
+        if where == "cuda" and min(ran.values()) < min_launches:
+            raise AssertionError(f"{what} bf16 on the card: launches {ran} "
+                                 f"in modes {modes}")
         if where == "cpu" and any(ran.values()):
             raise AssertionError(f"{what} bf16 on the CPU launched {ran}")
     rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
     cos = cosine(grads["cuda"], grads["cpu"])
-    if not (rel <= BF16_LOSS_REL and cos > BF16_COSINE):
+    gate, against_f32 = BF16_COSINE, ""
+    if ref_f32 is not None:
+        m, b = copy.deepcopy(ref_f32).train(), small.to("cpu")
+        loss_fn(m(b), b.y, b.graph_mask).backward()
+        cos_f32 = cosine(grads["cpu"], [p.grad for p in m.parameters()])
+        gate = min(BF16_COSINE, cos_f32)
+        against_f32 = (f"; the CPU's bf16 gradient against its f32 one "
+                       f"cosine {cos_f32:.6f}, so the gate is {gate:.6f}")
+    if not (rel <= BF16_LOSS_REL and cos > gate):
         raise AssertionError(f"{what} bf16 card vs CPU: loss rel {rel}, "
-                             f"gradient cosine {cos}")
+                             f"gradient cosine {cos} (gate {gate})")
     log(f"[bf16] small {what} on the card vs the CPU: losses "
         f"{losses['cuda']} / {losses['cpu']} (rel {rel:.3e}), gradient "
-        f"cosine {cos:.6f}")
+        f"cosine {cos:.6f}{against_f32}")
 
 
-def bf16_path(card, setup, per_step, per_step_modes, tag):
-    """Phases 21-22: ``setup``'s configuration in bf16 takes STEPS steps
-    through ``Trainer.train_step``, counters zeroed just before and read
-    just after, each kernel exactly its launches a step in its bf16
-    modes; then the path's profile.  Returns the launches by name and
-    mode."""
+def bf16_small_model(cfg, graphs, n_slots, loss_fn, seed, what,
+                     modes=None, f32_gate=False):
+    """Phases 20 and 27: a bf16 GSN model on a small batch through
+    ``bf16_card_vs_cpu`` (with its f32 twin when ``f32_gate``); by
+    default K1 and K4 must launch in bf16 once a layer or more on the
+    card."""
+    from gsn_tpu_torch.graphs.batching import iterate_batches
+    from gsn_tpu_torch.nn.models import build_model
+    small = next(iterate_batches(graphs, n_slots, y_shape=(),
+                                 y_dtype=np.float32))
+    ref = build_model(cfg, torch.Generator().manual_seed(seed))
+    ref_f32 = None
+    if f32_gate:
+        ref_f32 = build_model(dataclasses.replace(cfg, compute_dtype=None))
+        ref_f32.load_state_dict(ref.state_dict())
+    bf16_card_vs_cpu(ref, small, loss_fn, what,
+                     modes or {"edge_message_fwd": "bf16",
+                               "segment_broadcast": "bf16"}, cfg.num_layers,
+                     ref_f32)
+
+
+def bf16_path(card, setup, per_step, per_step_modes, tag, over=None,
+              model=None):
+    """Phases 21-22, 25 and 28: ``setup``'s configuration in bf16 (with
+    the fields ``over``, and trained as ``model(cfg)`` when a model class
+    is given) takes STEPS steps through ``Trainer.train_step``, counters
+    zeroed just before and read just after, each kernel exactly its
+    launches a step in its modes; then the path's profile.  Returns the
+    launches by name and mode."""
     from gsn_tpu_torch.train.loop import Trainer
     graphs, data, cfg, tcfg = setup
-    trainer = Trainer(dataclasses.replace(cfg, compute_dtype="bfloat16"),
-                      tcfg, graphs)
+    cfg = dataclasses.replace(cfg, compute_dtype="bfloat16", **(over or {}))
+    trainer = Trainer(cfg, tcfg, graphs,
+                      model=model(cfg) if model is not None else None)
     state = trainer.init_state(seed=0)
     torch.cuda.reset_peak_memory_stats()
     state, losses, step_s, launches, modes = train_steps(
@@ -1531,6 +1618,242 @@ def bf16_path(card, setup, per_step, per_step_modes, tag):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
     profile_steps(trainer, state, data, med * 1e3, tag)
     return modes
+
+
+def f32_ulp(got, want, what):
+    """An f32 output summed from bf16 values against its plain version's,
+    within one bf16 ulp (BF16_RTOL / atol 1e-4 * max|want|)."""
+    if got.dtype != torch.float32:
+        raise AssertionError(f"{what}: dtype {got.dtype}")
+    return max_err(got, want, BF16_RTOL,
+                   1e-4 * float(want.abs().max()), what)
+
+
+def dgn_bf16_check(B, W, g_w, g_mm, seg, tag):
+    """Phase 23's checks of K5/K6 on bf16 rows B (f32 W and g_mm; the
+    wrappers round g_w) against their plain versions, in each
+    instantiation: forward, raw backward with and without dW, autograd.
+    Maxima and tie counts exact, dW at the f32 tolerances, the f32
+    weighted sums and the bf16 dh within one bf16 ulp.  The autograd
+    Functions' dB is held to K3's plain version of the kernel's own dh:
+    a dh that rounds one ulp away from the plain version's may move a
+    sum of several of them by more than one ulp of the sum.  Returns the
+    largest error of each function, by name."""
+    from gsn_tpu_torch.ops.cuda import slab_combine as k3
+    from gsn_tpu_torch.ops.cuda import slab_minmax as b6
+    from gsn_tpu_torch.ops.cuda import slab_weighted as b58
+    rp, send = seg.recv_ptr, seg.send
+
+    def dB_plain(dh):
+        return k3.segment_sum_sorted_plain(dh, seg.send_ptr, seg.send_perm,
+                                           torch.bfloat16)
+
+    def bwd_err(got, want, what):
+        err = bf16_check(got[0], want[0], f"{what} dh")
+        if want[1] is not None:
+            err = max(err, grad_check([got[1]], [want[1]], f"{what} dW"))
+        return err
+
+    errs = {}
+    out_p = b58.weighted_gather_fwd_plain(B, W, rp, send)
+    errs["weighted_gather_fwd"] = f32_ulp(
+        b58.weighted_gather_fwd(B, W, rp, send), out_p,
+        f"{tag} weighted_gather_fwd")
+    errs["weighted_gather_bwd"] = max(bwd_err(
+        b58.weighted_gather_bwd(B, W, g_w, rp, send, dw),
+        b58.weighted_gather_bwd_plain(B, W, g_w, rp, send, dw),
+        f"{tag} weighted_gather_bwd[dW={dw}]") for dw in (False, True))
+    dh_w, _ = b58.weighted_gather_bwd(B, W, g_w, rp, send)
+    _, dW_p = b58.weighted_gather_bwd_plain(B, W, g_w, rp, send, True)
+    got = fn_grads(lambda b, w: (b58.weighted_gather(b, w, seg),), [B, W],
+                   [g_w])
+    errs["weighted_gather_bwd"] = max(
+        errs["weighted_gather_bwd"],
+        bwd_err(got, (dB_plain(dh_w), dW_p), f"{tag} WeightedGather"))
+
+    mm, cnt = b6.segment_minmax_fwd(B, rp, send)
+    mm_p, cnt_p = b6.segment_minmax_fwd_plain(B, rp, send)
+    exact(mm, mm_p, f"{tag} segment_minmax_fwd")
+    exact(cnt, cnt_p, f"{tag} segment_minmax_fwd tie counts")
+    errs["segment_minmax_fwd"] = 0.0
+    dh_mm = b6.segment_minmax_bwd(B, mm, cnt, g_mm, rp, send)
+    got = fn_grads(lambda b: (b6.segment_minmax(b, seg),), [B], [g_mm])
+    errs["segment_minmax_bwd"] = max(
+        bf16_check(dh_mm, b6.minmax_dh_plain(B, mm_p, cnt_p, g_mm, rp, send),
+                   f"{tag} segment_minmax_bwd"),
+        bf16_check(got[0], dB_plain(dh_mm), f"{tag} SegmentMinmax dB"))
+
+    out, mm2, cnt2 = b58.dgn_fused_fwd(B, W, rp, send)
+    exact(mm2, mm_p, f"{tag} dgn_fused_fwd mm")
+    exact(cnt2, cnt_p, f"{tag} dgn_fused_fwd tie counts")
+    errs["dgn_fused_fwd"] = f32_ulp(out, out_p, f"{tag} dgn_fused_fwd")
+    errs["dgn_fused_bwd"] = max(bwd_err(
+        b58.dgn_fused_bwd(B, W, g_w, mm, cnt, g_mm, rp, send, dw),
+        b58.dgn_fused_bwd_plain(B, W, g_w, mm_p, cnt_p, g_mm, rp, send, dw),
+        f"{tag} dgn_fused_bwd[dW={dw}]") for dw in (False, True))
+    dh_f, _ = b58.dgn_fused_bwd(B, W, g_w, mm, cnt, g_mm, rp, send)
+    got = fn_grads(lambda b, w: b58.dgn_fused(b, w, seg), [B, W],
+                   [g_w, g_mm])
+    errs["dgn_fused_bwd"] = max(
+        errs["dgn_fused_bwd"],
+        bwd_err(got, (dB_plain(dh_f), dW_p), f"{tag} DGNFused"))
+    return errs
+
+
+def dgn_stress_bf16(dev):
+    """Phase 23's stress shapes: phase 8's edge set (empty rows, a
+    100-edge hub row) at d in {33, 64, 70, 130} and K in {1, 5, 16}, on
+    bf16 rows of a few halves (maxima tie); returns the cases checked."""
+    seg, n = dgn_stress_segments(dev)
+    e = seg.send.numel()
+    cases = 0
+    for d in (33, 64, 70, 130):
+        gen = torch.Generator(device=dev).manual_seed(d + 1)
+        B = (torch.relu(torch.randint(-3, 4, (n, d), device=dev,
+                                      generator=gen).float()) * 0.5
+             ).bfloat16()
+        g_mm = torch.randn(n, 2 * d, device=dev, generator=gen)
+        for K in (1, 5, 16):
+            W = torch.rand(e, K, device=dev, generator=gen)
+            g_w = torch.randn(n, K * d, device=dev, generator=gen)
+            dgn_bf16_check(B, W, g_w, g_mm, seg, f"bf16 stress d={d} K={K}")
+            cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+def dgn_bf16_phases(dev, card, timed, dgn):
+    """Phases 23-25 (see module docstring); ``dgn`` is the DGN path's
+    (graphs, batch on the card).  Returns K5/K6's bf16 rows."""
+    from gsn_tpu_torch.graphs.batching import iterate_batches
+    from gsn_tpu_torch.nn.dgn import (DGNConfig, DGNNet, build_dgn_model,
+                                      compute_avg_d)
+    from gsn_tpu_torch.train.loop import Trainer
+    from gsn_tpu_torch.train.metrics import LOSSES
+
+    # ---- phase 23: K5/K6 on bf16 rows against the plain versions ----------
+    graphs, data = dgn
+    N, e_real = data.num_node_slots, data.num_real_edges
+    d, K = DGN_D, DGN_K
+    seg, W, B, g_w, g_mm = dgn_operands(dev, data)
+    rp, send = seg.recv_ptr, seg.send
+    n_recv = int((rp.diff() > 0).sum())
+    n_send = int((seg.send_ptr.diff() > 0).sum())
+    B, g_w_b = B.bfloat16(), g_w.bfloat16()
+    errs = dgn_bf16_check(B, W, g_w, g_mm, seg, "bf16")
+    log(f"[dgn-bf16] K5/K6 on bf16 rows agree with their plain versions "
+        f"(maxima and tie counts exact): {errs}")
+    log(f"[dgn-bf16] stress shapes (empty rows, a 100-edge hub row): "
+        f"{dgn_stress_bf16(dev)} width/K cases agree with the plain "
+        f"versions, maxima and tie counts exact")
+    log(dgn_ptxas_line(d, K, "bf16"))
+
+    # bounds as phase 8's, with B, g_w and dh in 2 bytes; W, out, mm,
+    # cnt and g_mm stay 4
+    walk = 2 * n_send * d + 4 * (N + 1 + e_real)
+    kd, mm_w = K * d, 2 * d
+    costs = {
+        "weighted_gather_fwd": (walk + 4 * (e_real * K + N * kd),
+                                2 * K * d * e_real),
+        "weighted_gather_bwd": (4 * (e_real * K + N + 1)
+                                + 2 * (n_recv * kd + e_real * d),
+                                2 * K * d * e_real),
+        "segment_minmax_fwd": (walk + 4 * 2 * N * mm_w, 2 * d * e_real),
+        "segment_minmax_bwd": (walk + 4 * 3 * n_recv * mm_w
+                               + 2 * e_real * d, 4 * d * e_real),
+        "dgn_fused_fwd": (walk + 4 * (e_real * K + N * kd + 2 * N * mm_w),
+                          (2 * K + 2) * d * e_real),
+        "dgn_fused_bwd": (walk + 4 * (e_real * K + 3 * n_recv * mm_w)
+                          + 2 * (n_recv * kd + e_real * d),
+                          (2 * K + 4) * d * e_real),
+    }
+    from gsn_tpu_torch.ops.cuda import slab_minmax as b6
+    mm, cnt = b6.segment_minmax_fwd_plain(B, rp, send)
+    # g_w already in bf16, so the timed backward calls do not round it
+    calls = dgn_kernel_calls(B, W, g_w_b, mm, cnt, g_mm, seg)
+    hc = torch.cat([B[send.long()], -B[send.long()]], dim=1)
+    recv = torch.repeat_interleave(torch.arange(N, device=dev), rp.diff())
+    idx = recv[:, None].expand_as(hc)
+    zeros_2d = torch.zeros(N, 2 * d, dtype=torch.bfloat16, device=dev)
+
+    def scatter_max():
+        return zeros_2d.scatter_reduce(0, idx, hc, "amax",
+                                       include_self=False)
+
+    # the maxima are exact in bf16: the library call gives the same
+    # values (without the tie counts)
+    exact(scatter_max().float(), mm, "library scatter max[bf16]")
+    library = {"segment_minmax_fwd": scatter_max}
+    replaces = {
+        "weighted_gather_fwd": "gsn_tpu/ops/pallas/slab_weighted.py:76",
+        "weighted_gather_bwd": "gsn_tpu/ops/pallas/slab_weighted.py:102",
+        "segment_minmax_fwd": "gsn_tpu/ops/pallas/slab_minmax.py:119",
+        "segment_minmax_bwd": "gsn_tpu/ops/pallas/slab_minmax.py:140",
+        "dgn_fused_fwd": "gsn_tpu/ops/pallas/slab_weighted.py:294",
+        "dgn_fused_bwd": "gsn_tpu/ops/pallas/slab_weighted.py:315",
+    }
+    rows = {}
+    for name, (kernel, plain) in calls.items():
+        t_b, by = bound(*costs[name])
+        rows[f"{name}[bf16]"] = dict(
+            source="gsn_tpu_torch/csrc/dgn_aggregate.cu",
+            replaces=replaces[name], max_abs_err=errs[name], bound_ms=t_b,
+            bound_by=by, **timed(kernel, plain, library.get(name)))
+    torch.cuda.synchronize()
+
+    # ---- phase 24: small bf16 DGN models, card vs CPU, each branch --------
+    avg_d = compute_avg_d(graphs)
+    small = next(iterate_batches(graphs[:64], 64, y_shape=(),
+                                 y_dtype=np.float32))
+    branch_fwd = {"fused": "dgn_fused_fwd", "weighted": "weighted_gather_fwd",
+                  "minmax": "segment_minmax_fwd"}
+    for branch, aggs in DGN_BRANCHES.items():
+        cfg = DGNConfig(hidden_dim=d, out_dim=d, num_layers=2,
+                        aggregators=aggs, avg_d=avg_d, dropout=0.0,
+                        compute_dtype="bfloat16")
+        bf16_card_vs_cpu(build_dgn_model(cfg,
+                                         torch.Generator().manual_seed(2)),
+                         small, LOSSES["BCEWithLogitsLoss"],
+                         f"DGN {branch}", {branch_fwd[branch]: "bf16"},
+                         cfg.num_layers)
+
+    # ---- phase 25: the dgn-bf16 path (bench_dgn in bf16) ------------------
+    cfg, tcfg = dgn_main_config(graphs)
+    L = cfg.num_layers
+    # K3: the node sums (f32) and the readout (f32 rows), and each layer's
+    # dB (bf16 -> bf16); K4: the readout's backward (f32)
+    modes = bf16_path(card, (graphs, data, cfg, tcfg), {
+        "dgn_fused_fwd": L, "dgn_fused_bwd": L, "segment_sum_sorted": L + 2,
+        "segment_broadcast": 1}, {
+        "dgn_fused_fwd": {"bf16": L}, "dgn_fused_bwd": {"bf16": L},
+        "segment_sum_sorted": {"f32->f32": 2, "bf16->bf16": L},
+        "segment_broadcast": {"f32": 1}}, "dgn-bf16", model=DGNNet)
+    for name in ("dgn_fused_fwd", "dgn_fused_bwd"):
+        rows[f"{name}[bf16]"].update(launches=modes[name]["bf16"],
+                                     path="dgn-bf16")
+    # the weighted-only and minmax-only branches in bf16
+    counters = kernel_counters()
+    for branch in ("weighted", "minmax"):
+        cfg_b = dataclasses.replace(cfg, aggregators=DGN_BRANCHES[branch],
+                                    compute_dtype="bfloat16")
+        tr = Trainer(cfg_b, tcfg, graphs, model=DGNNet(cfg_b))
+        fwd = branch_fwd[branch]
+        bwd = fwd.replace("_fwd", "_bwd")
+        _, b_losses, b_s, b_launches, b_modes = train_steps(
+            tr, tr.init_state(seed=0), data, BRANCH_STEPS, counters)
+        expect_launches(b_launches, {fwd: L, bwd: L,
+                                     "segment_sum_sorted": L + 2,
+                                     "segment_broadcast": 1},
+                        BRANCH_STEPS, f"DGN-bf16 {branch} path", b_modes,
+                        {fwd: {"bf16": L}, bwd: {"bf16": L}})
+        for name in (fwd, bwd):
+            rows[f"{name}[bf16]"].update(launches=b_launches[name],
+                                         path=f"dgn-bf16-{branch}")
+        log(f"[dgn-bf16] {branch} path: losses {b_losses}, launches "
+            f"{b_launches}, median step "
+            f"{statistics.median(b_s[1:]) * 1e3:.3f} ms")
+    return rows
+
 
 
 def bf16_phases(dev, card, timed, zinc, molhiv):
@@ -1588,6 +1911,158 @@ def bf16_phases(dev, card, timed, zinc, molhiv):
             ("graph_broadcast[bf16]", "graph_broadcast"),
             ("segment_broadcast[bf16 d=300]", "segment_broadcast")):
         rows[name].update(launches=modes[kernel]["bf16"], path="molhiv-bf16")
+    return rows
+
+
+def fused_bn_phases(dev, card, timed, zinc):
+    """Phases 26-28 (see module docstring); ``zinc`` is the zinc path's
+    (graphs, batch on the card, GSNConfig, TrainerConfig).  Returns the
+    rows of K1/K2's bf16 id_sq mode and K3 f32 -> bf16."""
+    from gsn_tpu_torch.nn.models import edge_segments
+    from gsn_tpu_torch.ops.cuda import slab_combine as k3
+    from gsn_tpu_torch.ops.cuda import slab_message as k12
+    from gsn_tpu_torch.train.metrics import LOSSES
+
+    # ---- phase 26: K1/K2 id_sq and K3 f32 -> bf16 at d=128 ----------------
+    graphs, data, cfg, tcfg = zinc
+    N, E = data.num_node_slots, data.num_edge_slots
+    e_real = data.num_real_edges
+    seg = edge_segments(data)
+    rp, send, sp, perm = seg.recv_ptr, seg.send, seg.send_ptr, seg.send_perm
+    n_recv = int((rp.diff() > 0).sum())
+    n_send = int((seg.send_ptr.diff() > 0).sum())
+    n_dst = sp.numel() - 1
+    gen = torch.Generator(device=dev).manual_seed(9)
+    src = "gsn_tpu_torch/csrc/"
+    bf = torch.bfloat16
+    rows, errs, extra = {}, {}, {}
+    for dtype in (torch.float32, bf):
+        dn = "f32" if dtype == torch.float32 else "bf16"
+        t = 4 if dtype == torch.float32 else 2
+
+        def rnd(*shape):
+            return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+        A, B, Pe = rnd(N, D), rnd(N, D), rnd(E, D)
+        b1 = torch.randn(D, device=dev, generator=gen)
+        g = torch.randn(N, 2 * D, device=dev, generator=gen)
+        err_f = err_b = 0.0
+        for a, pe in ((A, Pe), (None, None)):
+            hs = k12.edge_message_fwd(a, B, pe, b1, rp, send, "id_sq")
+            err_f = max(err_f, max_err(
+                hs, k12.edge_message_fwd_plain(a, B, pe, b1, rp, send,
+                                               "id_sq"),
+                FWD_RTOL, FWD_ATOL, f"edge_message_fwd[id_sq {dn}]"))
+            dH, dA = k12.edge_message_bwd_recv(a, B, pe, b1, g, rp, send,
+                                               "id_sq", E)
+            dH_p, dA_p = k12.edge_message_bwd_recv_plain(
+                a, B, pe, b1, g, rp, send, "id_sq", E)
+            err_b = max(err_b, max_err(dH, dH_p, FWD_RTOL, FWD_ATOL,
+                                       f"edge_message_bwd_recv[id_sq {dn}] "
+                                       f"dH"))
+            if a is not None:
+                err_b = max(err_b, bf16_check(dA, dA_p, "id_sq dA")
+                            if dtype == bf else grad_check(
+                                [dA], [dA_p], "id_sq dA"))
+            # the autograd Function: dA, dB (K3 f32 -> data dtype), dPe,
+            # db1 against the plain backward
+            ins = [x for x in (a, B, pe, b1) if x is not None]
+            leaves = [x.clone().requires_grad_(True) for x in ins]
+            it = iter(leaves)
+            args = [next(it) if x is not None else None
+                    for x in (a, B, pe, b1)]
+            got = torch.autograd.grad((k12.edge_message_aggregate(
+                *args, seg, "id_sq") * g).sum(), leaves)
+            want = ([dA_p] if a is not None else []) + [
+                k3.segment_sum_sorted_plain(dH_p, sp, perm, dtype)] + (
+                [dH_p.to(dtype)] if pe is not None else [])
+            for x, w in zip(got[:-1], want):
+                err_b = max(err_b, bf16_check(x, w, f"EdgeMessageAggregate"
+                                                    f"[id_sq {dn}]")
+                            if dtype == bf else grad_check(
+                                [x], [w], f"EdgeMessageAggregate[id_sq]"))
+            err_b = max(err_b, grad_check([got[-1]], [dH_p.sum(0)],
+                                          f"EdgeMessageAggregate[id_sq {dn}]"
+                                          f" db1"))
+        errs[dn] = (err_f, err_b)
+        # read A, B, Pe, b1, recv_ptr, send; write the f32 [N, 2d] moments
+        fwd_b = bound(t * ((n_recv + n_send) * D + e_real * D)
+                      + 4 * (D + N + 1 + e_real + N * 2 * D),
+                      7 * e_real * D)
+        # read A, B, Pe, b1, g (f32, 2d), recv_ptr, send; write dH (f32,
+        # every slot) and dA (data dtype)
+        bwd_b = bound(t * ((n_recv + n_send + N) * D + e_real * D)
+                      + 4 * (2 * n_recv * D + E * D + D + N + 1 + e_real),
+                      8 * e_real * D)
+        fwd = timed(lambda: k12.edge_message_fwd(A, B, Pe, b1, rp, send,
+                                                 "id_sq"),
+                    lambda: k12.edge_message_fwd_plain(A, B, Pe, b1, rp,
+                                                       send, "id_sq"))
+        bwd = timed(lambda: k12.edge_message_bwd_recv(A, B, Pe, b1, g, rp,
+                                                      send, "id_sq", E),
+                    lambda: k12.edge_message_bwd_recv_plain(
+                        A, B, Pe, b1, g, rp, send, "id_sq", E))
+        for name, row, (t_b, by), err in (
+                (f"edge_message_fwd[id_sq {dn}]", fwd, fwd_b, err_f),
+                (f"edge_message_bwd_recv[id_sq {dn}]", bwd, bwd_b, err_b)):
+            row.update(max_abs_err=err, bound_ms=t_b, bound_by=by)
+            if dtype == bf:
+                rows[name] = dict(
+                    source=src + "edge_message.cu",
+                    replaces="gsn_tpu/ops/pallas/slab_message.py:"
+                             + ("214" if "fwd" in name else "240"), **row)
+            else:
+                extra[name] = row
+    # K3 f32 -> bf16: the id_sq pass's dB (an f32 dH into bf16 B rows)
+    dH = torch.randn(E, D, device=dev, generator=gen)
+    err = bf16_check(k3.segment_sum_sorted(dH, sp, perm, bf),
+                     k3.segment_sum_sorted_plain(dH, sp, perm, bf),
+                     "segment_sum_sorted[f32->bf16]")
+    t_b, by = bound(4 * e_real * D + 2 * n_dst * D
+                    + 4 * (n_dst + 1 + e_real), e_real * D)
+    rows["segment_sum_sorted[f32->bf16]"] = dict(
+        source=src + "segment_sum.cu",
+        replaces="gsn_tpu/ops/pallas/slab_combine.py:77",
+        max_abs_err=err, bound_ms=t_b, bound_by=by,
+        **timed(lambda: k3.segment_sum_sorted(dH, sp, perm, bf),
+                lambda: k3.segment_sum_sorted_plain(dH, sp, perm, bf)))
+    for name, row in extra.items():   # f32 id_sq: no path launches it
+        log_row("id_sq", name, row)
+    log(f"[id_sq] at d={D}: K1/K2 id_sq agree with their plain versions "
+        f"(moments and dH at the f32 tolerances; dA, dB, dPe in the data "
+        f"dtype), max abs err (fwd, bwd) by data dtype {errs}; K3 "
+        f"f32->bf16 within one bf16 ulp")
+    torch.cuda.synchronize()
+
+    # ---- phase 27: a small zinc model, bf16 + bn_mlp, card vs CPU ---------
+    L = cfg.num_layers
+    bf16_small_model(dataclasses.replace(cfg, compute_dtype="bfloat16",
+                                         bn_mlp=True),
+                     graphs[:64], 64, LOSSES["L1Loss"], 10, "zinc bn_mlp",
+                     {"edge_message_fwd": "bf16 id_sq",
+                      "edge_message_bwd_recv": "bf16 id_sq"}, f32_gate=True)
+
+    # ---- phase 28: the zinc-bf16-bnmlp path -------------------------------
+    # K1/K2: each layer's id_sq pass and its relu pass; K3: each pass's
+    # dB (id_sq: f32 -> bf16, relu: bf16 -> bf16) and the L + 1 pools
+    modes = bf16_path(card, zinc, {
+        "edge_message_fwd": 2 * L, "edge_message_bwd_recv": 2 * L,
+        "segment_sum_sorted": 3 * L + 1, "segment_broadcast": L + 1}, {
+        "edge_message_fwd": {"bf16": L, "bf16 id_sq": L},
+        "edge_message_bwd_recv": {"bf16": L, "bf16 id_sq": L},
+        "segment_sum_sorted": {"bf16->bf16": L, "f32->bf16": L,
+                               "bf16->f32": L + 1},
+        "segment_broadcast": {"bf16": L + 1}}, "zinc-bf16-bnmlp",
+        over={"bn_mlp": True})
+    for name, kernel, mode in (
+            ("edge_message_fwd[id_sq bf16]", "edge_message_fwd",
+             "bf16 id_sq"),
+            ("edge_message_bwd_recv[id_sq bf16]", "edge_message_bwd_recv",
+             "bf16 id_sq"),
+            ("segment_sum_sorted[f32->bf16]", "segment_sum_sorted",
+             "f32->bf16")):
+        rows[name].update(launches=modes[kernel][mode],
+                          path="zinc-bf16-bnmlp")
     return rows
 
 
@@ -1808,11 +2283,14 @@ def main():
 
     profile_steps(trainer, state, data, med * 1e3, "zinc")
 
-    rows.update(dgn_phases(dev, card, timed))
+    dgn_rows, dgn = dgn_phases(dev, card, timed)
+    rows.update(dgn_rows)
     molhiv_rows, molhiv = molhiv_phases(dev, card, timed)
     rows.update(molhiv_rows)
-    rows.update(bf16_phases(dev, card, timed, (graphs, data, cfg, tcfg),
-                            molhiv))
+    zinc = (graphs, data, cfg, tcfg)
+    rows.update(bf16_phases(dev, card, timed, zinc, molhiv))
+    rows.update(dgn_bf16_phases(dev, card, timed, dgn))
+    rows.update(fused_bn_phases(dev, card, timed, zinc))
 
     # kernel_ms and bound_us repeat ms and bound_ms in the units the
     # port's kernel table uses

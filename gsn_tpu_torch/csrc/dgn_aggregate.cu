@@ -63,9 +63,21 @@
 //   then walks the edges, writing one dh row each.  dW stays a per-edge
 //   warp sum.
 // - The number of weight columns is a template parameter for the value
-//   the DGN paths launch (kPathK) and generic up to kMaxK otherwise; the
-//   element type of the loads and stores is a template parameter,
-//   instantiated for f32 (sums, maxima and counts are f32 throughout).
+//   the DGN paths launch (kPathK) and generic up to kMaxK otherwise.
+//
+// Element types.  The row type T of B, the weighted cotangent g_w and
+// dh is f32, or bf16 in the reference's data_dtype="bfloat16"
+// (slab_weighted.py:89-94, 117-128, 300-303, 327-344; slab_minmax.py:
+// 71-76).  W, out, mm, cnt, g_mm and dW are f32 in both: sums, maxima
+// and counts are f32 throughout.  In bf16 each W[e, k] is rounded to bf16
+// inside the forward's weighted product (and not in the backward's dh),
+// the maxima compare bf16 values exactly (mm holds them in f32), dW is an
+// f32 sum of the bf16 values, and dh is summed in f32 from f32 W, the
+// bf16 g_w and g_mm / max(cnt, 1) in f32, then rounded once.  bf16
+// rows take f32's layout of three single columns a lane at every width
+// (a d=70 bf16 row is 140 bytes, only 4-byte aligned).  A layout of two
+// pairs a lane (4-byte loads) was measured slower in five of the six
+// functions at d=70: its extra registers spilled in the fused forward.
 #include <algorithm>
 #include <climits>
 #include <type_traits>
@@ -110,8 +122,7 @@ __device__ __forceinline__ void load_cols(const T* __restrict__ p, int tc,
         x[g * 4 + 2] = t.z; x[g * 4 + 3] = t.w;
       } else {
 #pragma unroll
-        for (int i = 0; i < V; ++i)
-          x[g * V + i] = static_cast<float>(p[c + i]);
+        for (int i = 0; i < V; ++i) x[g * V + i] = to_f32(p[c + i]);
       }
     } else {
 #pragma unroll
@@ -120,7 +131,7 @@ __device__ __forceinline__ void load_cols(const T* __restrict__ p, int tc,
   }
 }
 
-// Store the lane's columns (those before tc) of one row.
+// Store the lane's columns (those before tc) of one row, rounded to T.
 template <int V, int NG, typename T>
 __device__ __forceinline__ void store_cols(T* __restrict__ p, int tc,
                                            int lane,
@@ -134,7 +145,7 @@ __device__ __forceinline__ void store_cols(T* __restrict__ p, int tc,
             make_float4(x[g * 4], x[g * 4 + 1], x[g * 4 + 2], x[g * 4 + 3]);
       } else {
 #pragma unroll
-        for (int i = 0; i < V; ++i) p[c + i] = static_cast<T>(x[g * V + i]);
+        for (int i = 0; i < V; ++i) p[c + i] = from_f32<T>(x[g * V + i]);
       }
     }
   }
@@ -168,11 +179,12 @@ struct Walk {
   }
 
   // Make edge e one the lanes hold: load the chunk of 32 edges from e
-  // when e is past the held one.
-  template <bool SEND, bool WEIGHTED, typename T>
+  // when e is past the held one; each weight is held as a TW would hold
+  // it (the bf16 forward rounds W, f32 keeps it).
+  template <bool SEND, bool WEIGHTED, typename TW>
   __device__ __forceinline__ void hold(int e,
                                        const int32_t* __restrict__ send,
-                                       const T* __restrict__ W, int K,
+                                       const float* __restrict__ W, int K,
                                        int lane) {
     if (e < cb + kWarp) return;
     cb = e;
@@ -182,7 +194,7 @@ struct Walk {
 #pragma unroll
       for (int k = 0; k < KM; ++k)
         w[k] = i < e_end && k < K
-                   ? static_cast<float>(W[static_cast<size_t>(i) * K + k])
+                   ? round_to<TW>(W[static_cast<size_t>(i) * K + k])
                    : 0.f;
     }
   }
@@ -205,11 +217,13 @@ __device__ __forceinline__ void gather(const Walk<KM>& walk, int e, int nu,
 
 template <int V, int NG, int KT, bool WEIGHTED, bool MINMAX, typename T>
 __global__ void __launch_bounds__(kThreads, (min_blocks<KT, WEIGHTED>()))
-dgn_aggregate_fwd_kernel(const T* __restrict__ B, const T* __restrict__ W,
+dgn_aggregate_fwd_kernel(const T* __restrict__ B,
+                         const float* __restrict__ W,
                          const int32_t* __restrict__ recv_ptr,
                          const int32_t* __restrict__ send,
-                         T* __restrict__ out, T* __restrict__ mm,
-                         T* __restrict__ cnt, int n_rows, int d, int k_arg) {
+                         float* __restrict__ out, float* __restrict__ mm,
+                         float* __restrict__ cnt, int n_rows, int d,
+                         int k_arg) {
   constexpr int P = NG * V;            // columns a lane holds
   constexpr int TW = kWarp * P;        // columns a tile spans
   constexpr int KM = WEIGHTED ? (KT > 0 ? KT : kMaxK) : 1;
@@ -237,7 +251,7 @@ dgn_aggregate_fwd_kernel(const T* __restrict__ B, const T* __restrict__ W,
         cmx[i] = 0.f; cmn[i] = 0.f;
       }
       for (int e = e0; e < e1;) {
-        walk.template hold<true, WEIGHTED>(e, send, W, K, lane);
+        walk.template hold<true, WEIGHTED, T>(e, send, W, K, lane);
         const int nu = min(kInFlight, min(e1 - e, walk.cb + kWarp - e));
         float h[kInFlight][P];
         gather<V, NG>(walk, e, nu, B, d, t0, tc, lane, h);
@@ -272,7 +286,7 @@ dgn_aggregate_fwd_kernel(const T* __restrict__ B, const T* __restrict__ W,
       }
 
       if constexpr (WEIGHTED) {
-        T* o = out + static_cast<size_t>(row) * K * d + t0;
+        float* o = out + static_cast<size_t>(row) * K * d + t0;
 #pragma unroll
         for (int k = 0; k < KM; ++k)
           if (k < K) store_cols<V, NG>(o + k * d, tc, lane, acc[k]);
@@ -295,14 +309,15 @@ dgn_aggregate_fwd_kernel(const T* __restrict__ B, const T* __restrict__ W,
 template <int V, int NG, int KT, bool WEIGHTED, bool MINMAX, bool DW,
           typename T>
 __global__ void __launch_bounds__(kThreads, (min_blocks<KT, WEIGHTED>()))
-dgn_aggregate_bwd_kernel(const T* __restrict__ B, const T* __restrict__ W,
+dgn_aggregate_bwd_kernel(const T* __restrict__ B,
+                         const float* __restrict__ W,
                          const T* __restrict__ g_w,
-                         const T* __restrict__ mm,
-                         const T* __restrict__ cnt,
-                         const T* __restrict__ g_mm,
+                         const float* __restrict__ mm,
+                         const float* __restrict__ cnt,
+                         const float* __restrict__ g_mm,
                          const int32_t* __restrict__ recv_ptr,
                          const int32_t* __restrict__ send,
-                         T* __restrict__ dh, T* __restrict__ dW,
+                         T* __restrict__ dh, float* __restrict__ dW,
                          int n_rows, int d, int k_arg) {
   constexpr int P = NG * V;
   constexpr int TW = kWarp * P;
@@ -354,7 +369,7 @@ dgn_aggregate_bwd_kernel(const T* __restrict__ B, const T* __restrict__ W,
       }
 
       for (int e = e0; e < e1;) {
-        walk.template hold<GATHER, WEIGHTED>(e, send, W, K, lane);
+        walk.template hold<GATHER, WEIGHTED, float>(e, send, W, K, lane);
         const int nu = min(kInFlight, min(e1 - e, walk.cb + kWarp - e));
         float h[kInFlight][P];
         if constexpr (GATHER)
@@ -395,10 +410,9 @@ dgn_aggregate_bwd_kernel(const T* __restrict__ B, const T* __restrict__ W,
                   for (int i = 0; i < P; ++i) part += h[u][i] * gw[k][i];
                   const float s = warp_sum(part);
                   if (lane == 0) {
-                    T* p = dW + static_cast<size_t>(e + u) * K + k;
+                    float* p = dW + static_cast<size_t>(e + u) * K + k;
                     // later tiles add to the first tile's partial sum
-                    *p = static_cast<T>(t0 == 0 ? s
-                                                : static_cast<float>(*p) + s);
+                    *p = t0 == 0 ? s : *p + s;
                   }
                 }
               }
@@ -411,13 +425,16 @@ dgn_aggregate_bwd_kernel(const T* __restrict__ B, const T* __restrict__ W,
   }
 }
 
-// Run f with the column layout <V, NG> of a launch: one float4 group when
-// the width and pointers allow it, else kGroups single columns a lane
-// (other widths loop over or leave part of the 96-column tile).
-template <typename F>
+// Run f with the column layout <V, NG> of a launch: for f32 one float4
+// group when the width and pointers allow it, else kGroups single columns
+// a lane; for bf16 always kGroups single columns (other widths loop over
+// or leave part of the column tile).
+template <typename T, typename F>
 void with_layout(int vec, F&& f) {
-  if (vec == 4) f(IntC<4>{}, IntC<1>{});
-  else f(IntC<1>{}, IntC<kGroups>{});
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec == 4) return f(IntC<4>{}, IntC<1>{});
+  }
+  f(IntC<1>{}, IntC<kGroups>{});
 }
 
 // Run f with the <WEIGHTED, MINMAX> flags of one of the three
@@ -438,13 +455,12 @@ void with_flags(int weighted, int minmax, int K, F&& f) {
   }
 }
 
-// The instantiation of K5 (BACKWARD false) or K6 (true) for these
-// arguments, passed to f.
-template <bool BACKWARD, typename F>
+// The instantiation of K5 (BACKWARD false) or K6 (true) over rows of T
+// for these arguments, passed to f.
+template <bool BACKWARD, typename T, typename F>
 void with_kernel(int K, int weighted, int minmax, int need_dw, int vec,
                  F&& f) {
-  using T = float;
-  with_layout(vec, [&](auto v, auto ng) {
+  with_layout<T>(vec, [&](auto v, auto ng) {
     constexpr int V = decltype(v)::value, NG = decltype(ng)::value;
     with_flags(weighted, minmax, K, [&](auto wt, auto mmx, auto kt) {
       constexpr bool WT = decltype(wt)::value, MM = decltype(mmx)::value;
@@ -468,25 +484,74 @@ int launch_rows(void (*kernel)(KArgs...), int n_rows, cudaStream_t st,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Arguments no instantiation takes.
+inline bool bad_args(int K, int weighted, int minmax, int need_dw) {
+  return (!weighted && !minmax) || (weighted && (K < 1 || K > kMaxK))
+         || (need_dw && !weighted);
+}
+
+template <typename T>
+int launch_fwd(const T* B, const float* W, const int32_t* recv_ptr,
+               const int32_t* send, float* out, float* mm, float* cnt,
+               int n_rows, int d, int K, int weighted, int minmax, int vec,
+               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = 0;
+  with_kernel<false, T>(K, weighted, minmax, 0, vec, [&](auto kernel) {
+    rc = launch_rows(kernel, n_rows, st, B, W, recv_ptr, send, out, mm, cnt,
+                     n_rows, d, K);
+  });
+  return rc;
+}
+
+template <typename T>
+int launch_bwd(const T* B, const float* W, const T* g_w, const float* mm,
+               const float* cnt, const float* g_mm, const int32_t* recv_ptr,
+               const int32_t* send, T* dh, float* dW, int n_rows, int d,
+               int K, int weighted, int minmax, int need_dw, int vec,
+               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = 0;
+  with_kernel<true, T>(K, weighted, minmax, need_dw, vec, [&](auto kernel) {
+    rc = launch_rows(kernel, n_rows, st, B, W, g_w, mm, cnt, g_mm, recv_ptr,
+                     send, dh, dW, n_rows, d, K);
+  });
+  return rc;
+}
+
+// Resident blocks per SM of the instantiation over rows of T that a
+// launch with these arguments takes, or a negative error.
+template <typename T>
+int occupancy(int backward, int d, int K, int weighted, int minmax,
+              int need_dw, int vec) {
+  int blocks = -1;
+  auto query = [&](auto kernel) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, kernel, kThreads, 0) != cudaSuccess)
+      blocks = -1;
+  };
+  if (backward)
+    with_kernel<true, T>(K, weighted, minmax, need_dw, vec, query);
+  else
+    with_kernel<false, T>(K, weighted, minmax, 0, vec, query);
+  return blocks;
+}
+
 }  // namespace gsn
 
+// f32 rows: B, g_w and dh f32 (as every other operand)
 extern "C" int gsn_dgn_aggregate_fwd(const float* B, const float* W,
                                      const int32_t* recv_ptr,
                                      const int32_t* send, float* out,
                                      float* mm, float* cnt, int n_rows,
                                      int d, int K, int weighted, int minmax,
                                      void* stream) {
-  if ((!weighted && !minmax) || (weighted && (K < 1 || K > gsn::kMaxK)))
+  if (gsn::bad_args(K, weighted, minmax, 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const int vec = gsn::vec_width<float>(d, {{B, 4}, {out, 4}, {mm, 4},
                                            {cnt, 4}});
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int rc = 0;
-  gsn::with_kernel<false>(K, weighted, minmax, 0, vec, [&](auto kernel) {
-    rc = gsn::launch_rows(kernel, n_rows, st, B, W, recv_ptr, send, out, mm,
-                          cnt, n_rows, d, K);
-  });
-  return rc;
+  return gsn::launch_fwd(B, W, recv_ptr, send, out, mm, cnt, n_rows, d, K,
+                         weighted, minmax, vec, stream);
 }
 
 extern "C" int gsn_dgn_aggregate_bwd(const float* B, const float* W,
@@ -497,18 +562,47 @@ extern "C" int gsn_dgn_aggregate_bwd(const float* B, const float* W,
                                      float* dW, int n_rows, int d, int K,
                                      int weighted, int minmax, int need_dw,
                                      void* stream) {
-  if ((!weighted && !minmax) || (weighted && (K < 1 || K > gsn::kMaxK))
-      || (need_dw && !weighted))
+  if (gsn::bad_args(K, weighted, minmax, need_dw))
     return static_cast<int>(cudaErrorInvalidValue);
   const int vec = gsn::vec_width<float>(
       d, {{B, 4}, {g_w, 4}, {mm, 4}, {cnt, 4}, {g_mm, 4}, {dh, 4}});
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int rc = 0;
-  gsn::with_kernel<true>(K, weighted, minmax, need_dw, vec, [&](auto kernel) {
-    rc = gsn::launch_rows(kernel, n_rows, st, B, W, g_w, mm, cnt, g_mm,
-                          recv_ptr, send, dh, dW, n_rows, d, K);
-  });
-  return rc;
+  return gsn::launch_bwd(B, W, g_w, mm, cnt, g_mm, recv_ptr, send, dh, dW,
+                         n_rows, d, K, weighted, minmax, need_dw, vec,
+                         stream);
+}
+
+// bf16 rows B (W, out, mm and cnt f32), same arguments otherwise
+extern "C" int gsn_dgn_aggregate_fwd_bf16(const void* B, const float* W,
+                                          const int32_t* recv_ptr,
+                                          const int32_t* send, float* out,
+                                          float* mm, float* cnt, int n_rows,
+                                          int d, int K, int weighted,
+                                          int minmax, void* stream) {
+  if (gsn::bad_args(K, weighted, minmax, 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return gsn::launch_fwd(static_cast<const gsn::bf16*>(B), W, recv_ptr, send,
+                         out, mm, cnt, n_rows, d, K, weighted, minmax, 1,
+                         stream);
+}
+
+// bf16 B, g_w and dh (W, mm, cnt, g_mm and dW f32), same arguments
+// otherwise
+extern "C" int gsn_dgn_aggregate_bwd_bf16(const void* B, const float* W,
+                                          const void* g_w, const float* mm,
+                                          const float* cnt,
+                                          const float* g_mm,
+                                          const int32_t* recv_ptr,
+                                          const int32_t* send, void* dh,
+                                          float* dW, int n_rows, int d,
+                                          int K, int weighted, int minmax,
+                                          int need_dw, void* stream) {
+  if (gsn::bad_args(K, weighted, minmax, need_dw))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using gsn::bf16;
+  return gsn::launch_bwd(static_cast<const bf16*>(B), W,
+                         static_cast<const bf16*>(g_w), mm, cnt, g_mm,
+                         recv_ptr, send, static_cast<bf16*>(dh), dW, n_rows,
+                         d, K, weighted, minmax, need_dw, 1, stream);
 }
 
 // Resident blocks per SM of the instantiation a launch with these
@@ -516,18 +610,19 @@ extern "C" int gsn_dgn_aggregate_bwd(const float* B, const float* W,
 extern "C" int gsn_dgn_aggregate_occupancy(int backward, int d, int K,
                                            int weighted, int minmax,
                                            int need_dw, int vec) {
-  if ((!weighted && !minmax) || (weighted && (K < 1 || K > gsn::kMaxK))
-      || (need_dw && !weighted) || d < 1 || (vec == 4 && d % 4 != 0))
+  if (gsn::bad_args(K, weighted, minmax, need_dw) || d < 1
+      || (vec == 4 && d % 4 != 0))
     return -static_cast<int>(cudaErrorInvalidValue);
-  int blocks = -1;
-  auto occupancy = [&](auto kernel) {
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, kernel, gsn::kThreads, 0) != cudaSuccess)
-      blocks = -1;
-  };
-  if (backward)
-    gsn::with_kernel<true>(K, weighted, minmax, need_dw, vec, occupancy);
-  else
-    gsn::with_kernel<false>(K, weighted, minmax, 0, vec, occupancy);
-  return blocks;
+  return gsn::occupancy<float>(backward, d, K, weighted, minmax, need_dw,
+                               vec);
+}
+
+// The same for bf16 rows (one layout).
+extern "C" int gsn_dgn_aggregate_occupancy_bf16(int backward, int d, int K,
+                                                int weighted, int minmax,
+                                                int need_dw) {
+  if (gsn::bad_args(K, weighted, minmax, need_dw) || d < 1)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return gsn::occupancy<gsn::bf16>(backward, d, K, weighted, minmax,
+                                   need_dw, 1);
 }

@@ -25,20 +25,34 @@
 // act is relu or identity; relu's backward recomputes H from the inputs
 // (as the TPU kernel does) instead of storing it.
 //
+// The third activation code, id_sq, is the fused-BN moments pass of the
+// message MLP (slab_message.py:224-227, 260-262, 529-537, 604-618):
+//   forward   out[v] = [sum_e H[e], sum_e H[e]^2]          (width 2d)
+//   backward  dH[e]  = g[v, :d] + 2 H[e] g[v, d:]
+// Its output, cotangent and dH are f32 for either data type: bf16-rounded
+// moments would lose the digits of var = E[H^2] - E[H]^2.
+//
 // Element type T of A, B, Pe, g, out, dH and dA: f32, or bf16 (the
 // reference's data_dtype="bfloat16", slab_message.py:228-235, 253-277,
-// 579-584).  b1 is f32 in both.  H is computed in f32 from the T values
-// in the reference's order B + A + Pe + b1, so the relu mask is the
-// reference's; in bf16 each message is rounded to bf16 before the f32
-// row sum, the row sum is rounded once on its store, and dH, a masked
-// copy of g, is exact.  The reference also rounds each chunk's partial
-// sum; a row here has no chunks.
+// 579-584); in id_sq mode out, g and dH are f32 and dA is T.  b1 is f32
+// in both.  H is computed in f32 from the T values in the reference's
+// order B + A + Pe + b1, so the relu mask is the reference's; in bf16
+// each relu or identity message is rounded to bf16 before the f32 row
+// sum, the row sum is rounded once on its store, and dH, a masked copy of
+// g, is exact.  The reference also rounds each chunk's partial sum; a row
+// here has no chunks.
 #include "common.cuh"
 
 namespace gsn {
 
-template <typename T, int V, int LANES, bool RELU, bool HAS_A,
-          bool HAS_PE>
+// activation codes of the entry points
+constexpr int kIdentity = 0, kRelu = 1, kIdSq = 2;
+
+// the type of what id_sq keeps in f32 (out, g, dH), else T
+template <typename T, int ACT>
+using SqT = std::conditional_t<ACT == kIdSq, float, T>;
+
+template <typename T, int V, int LANES, int ACT, bool HAS_A, bool HAS_PE>
 __global__ void __launch_bounds__(kThreads)
 edge_message_fwd_kernel(const T* __restrict__ A,
                         const T* __restrict__ B,
@@ -46,22 +60,26 @@ edge_message_fwd_kernel(const T* __restrict__ A,
                         const float* __restrict__ b1,
                         const int32_t* __restrict__ recv_ptr,
                         const int32_t* __restrict__ send,
-                        T* __restrict__ out, int n_rows, int d) {
+                        SqT<T, ACT>* __restrict__ out, int n_rows, int d) {
+  constexpr bool SQ = ACT == kIdSq;
   const int row = blockIdx.x * (kThreads / LANES) + threadIdx.x / LANES;
   const int lane = threadIdx.x % LANES;
   if (row >= n_rows) return;
+  SqT<T, ACT>* o = out + (size_t)row * (SQ ? 2 * d : d);
   const int e0 = recv_ptr[row];
   const int e1 = recv_ptr[row + 1];
   if (e0 == e1) {  // no edges (padding rows too): no A or b1 reads
-    for (int c = lane * V; c < d; c += LANES * V)
-      Frag<V>::zero().store(out + (size_t)row * d + c);
+    for (int c = lane * V; c < d; c += LANES * V) {
+      Frag<V>::zero().store(o + c);
+      if (SQ) Frag<V>::zero().store(o + d + c);
+    }
     return;
   }
   for (int c = lane * V; c < d; c += LANES * V) {
     const Frag<V> a = HAS_A ? Frag<V>::load(A + (size_t)row * d + c)
                             : Frag<V>::zero();
     const Frag<V> bias = Frag<V>::load(b1 + c);
-    Frag<V> acc = Frag<V>::zero();
+    Frag<V> acc = Frag<V>::zero(), acc2 = Frag<V>::zero();
     for (int e = e0; e < e1; ++e) {
       const int s = send[e];
       const Frag<V> h = Frag<V>::load(B + (size_t)s * d + c);
@@ -74,26 +92,33 @@ edge_message_fwd_kernel(const T* __restrict__ A,
         if (HAS_A) x += a.v[i];
         if (HAS_PE) x += pe.v[i];
         x += bias.v[i];
-        if (RELU) x = fmaxf(x, 0.f);
-        acc.v[i] += round_to<T>(x);  // a bf16 message is rounded
+        if (ACT == kRelu) x = fmaxf(x, 0.f);
+        if (SQ) {
+          acc.v[i] += x;
+          acc2.v[i] += x * x;
+        } else {
+          acc.v[i] += round_to<T>(x);  // a bf16 message is rounded
+        }
       }
     }
-    acc.store(out + (size_t)row * d + c);
+    acc.store(o + c);
+    if (SQ) acc2.store(o + d + c);
   }
 }
 
-template <typename T, int V, int LANES, bool RELU, bool HAS_A,
-          bool HAS_PE>
+template <typename T, int V, int LANES, int ACT, bool HAS_A, bool HAS_PE>
 __global__ void __launch_bounds__(kThreads)
 edge_message_bwd_recv_kernel(const T* __restrict__ A,
                              const T* __restrict__ B,
                              const T* __restrict__ Pe,
                              const float* __restrict__ b1,
-                             const T* __restrict__ g,
+                             const SqT<T, ACT>* __restrict__ g,
                              const int32_t* __restrict__ recv_ptr,
                              const int32_t* __restrict__ send,
-                             T* __restrict__ dH,
+                             SqT<T, ACT>* __restrict__ dH,
                              T* __restrict__ dA, int n_rows, int d) {
+  constexpr bool SQ = ACT == kIdSq;
+  constexpr bool RECOMPUTE = ACT != kIdentity;  // does dH need H
   const int row = blockIdx.x * (kThreads / LANES) + threadIdx.x / LANES;
   const int lane = threadIdx.x % LANES;
   if (row >= n_rows) return;
@@ -105,16 +130,19 @@ edge_message_bwd_recv_kernel(const T* __restrict__ A,
         Frag<V>::zero().store(dA + (size_t)row * d + c);
     return;
   }
+  const SqT<T, ACT>* gr = g + (size_t)row * (SQ ? 2 * d : d);
   for (int c = lane * V; c < d; c += LANES * V) {
-    const Frag<V> gv = Frag<V>::load(g + (size_t)row * d + c);
-    const Frag<V> a = (RELU && HAS_A)
+    const Frag<V> gv = Frag<V>::load(gr + c);
+    const Frag<V> g2 = SQ ? Frag<V>::load(gr + d + c) : Frag<V>::zero();
+    const Frag<V> a = (RECOMPUTE && HAS_A)
                           ? Frag<V>::load(A + (size_t)row * d + c)
                           : Frag<V>::zero();
-    const Frag<V> bias = RELU ? Frag<V>::load(b1 + c) : Frag<V>::zero();
+    const Frag<V> bias = RECOMPUTE ? Frag<V>::load(b1 + c)
+                                   : Frag<V>::zero();
     Frag<V> acc = Frag<V>::zero();
     for (int e = e0; e < e1; ++e) {
       Frag<V> dh = gv;
-      if (RELU) {
+      if (RECOMPUTE) {
         const int s = send[e];
         const Frag<V> h = Frag<V>::load(B + (size_t)s * d + c);
         const Frag<V> pe = HAS_PE ? Frag<V>::load(Pe + (size_t)e * d + c)
@@ -125,7 +153,8 @@ edge_message_bwd_recv_kernel(const T* __restrict__ A,
           if (HAS_A) x += a.v[i];
           if (HAS_PE) x += pe.v[i];
           x += bias.v[i];
-          dh.v[i] = x > 0.f ? gv.v[i] : 0.f;
+          dh.v[i] = SQ ? gv.v[i] + 2.f * x * g2.v[i]
+                       : (x > 0.f ? gv.v[i] : 0.f);
         }
       }
       dh.store(dH + (size_t)e * d + c);
@@ -136,26 +165,38 @@ edge_message_bwd_recv_kernel(const T* __restrict__ A,
   }
 }
 
+// Run f with the activation code as a compile-time constant.
+template <typename F>
+void act_switch(int act, F&& f) {
+  if (act == kRelu) f(std::integral_constant<int, kRelu>());
+  else if (act == kIdSq) f(std::integral_constant<int, kIdSq>());
+  else f(std::integral_constant<int, kIdentity>());
+}
+
 template <typename T>
 int launch_fwd(const T* A, const T* B, const T* Pe, const float* b1,
-               const int32_t* recv_ptr, const int32_t* send, T* out,
-               int n_rows, int d, int relu, int has_a, int has_pe,
+               const int32_t* recv_ptr, const int32_t* send, void* out,
+               int n_rows, int d, int act, int has_a, int has_pe,
                void* stream) {
+  if (act < kIdentity || act > kIdSq)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int t = sizeof(T);
   const int vec = vec_width<T>(d, {{A, t}, {B, t}, {Pe, t}, {b1, 4},
-                                   {out, t}});
+                                   {out, act == kIdSq ? 4 : t}});
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   vec_switch<T>(vec, [&](auto v) {
     constexpr int V = decltype(v)::value;
     lanes_switch<V>(d, [&](auto l) {
       constexpr int LANES = decltype(l)::value;
       const dim3 grid(row_blocks(n_rows, LANES));
-      GSN_BOOL_SWITCH(relu, R, [&] {
+      act_switch(act, [&](auto ac) {
+        constexpr int ACT = decltype(ac)::value;
         GSN_BOOL_SWITCH(has_a, HA, [&] {
           GSN_BOOL_SWITCH(has_pe, HP, [&] {
-            edge_message_fwd_kernel<T, V, LANES, R, HA, HP>
-                <<<grid, kThreads, 0, st>>>(A, B, Pe, b1, recv_ptr, send,
-                                            out, n_rows, d);
+            edge_message_fwd_kernel<T, V, LANES, ACT, HA, HP>
+                <<<grid, kThreads, 0, st>>>(
+                    A, B, Pe, b1, recv_ptr, send,
+                    static_cast<SqT<T, ACT>*>(out), n_rows, d);
           });
         });
       });
@@ -166,24 +207,30 @@ int launch_fwd(const T* A, const T* B, const T* Pe, const float* b1,
 
 template <typename T>
 int launch_bwd_recv(const T* A, const T* B, const T* Pe, const float* b1,
-                    const T* g, const int32_t* recv_ptr,
-                    const int32_t* send, T* dH, T* dA, int n_rows, int d,
-                    int relu, int has_a, int has_pe, void* stream) {
+                    const void* g, const int32_t* recv_ptr,
+                    const int32_t* send, void* dH, T* dA, int n_rows, int d,
+                    int act, int has_a, int has_pe, void* stream) {
+  if (act < kIdentity || act > kIdSq)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int t = sizeof(T);
+  const int tg = act == kIdSq ? 4 : t;
   const int vec = vec_width<T>(d, {{A, t}, {B, t}, {Pe, t}, {b1, 4},
-                                   {g, t}, {dH, t}, {dA, t}});
+                                   {g, tg}, {dH, tg}, {dA, t}});
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   vec_switch<T>(vec, [&](auto v) {
     constexpr int V = decltype(v)::value;
     lanes_switch<V>(d, [&](auto l) {
       constexpr int LANES = decltype(l)::value;
       const dim3 grid(row_blocks(n_rows, LANES));
-      GSN_BOOL_SWITCH(relu, R, [&] {
+      act_switch(act, [&](auto ac) {
+        constexpr int ACT = decltype(ac)::value;
         GSN_BOOL_SWITCH(has_a, HA, [&] {
           GSN_BOOL_SWITCH(has_pe, HP, [&] {
-            edge_message_bwd_recv_kernel<T, V, LANES, R, HA, HP>
-                <<<grid, kThreads, 0, st>>>(A, B, Pe, b1, g, recv_ptr, send,
-                                            dH, dA, n_rows, d);
+            edge_message_bwd_recv_kernel<T, V, LANES, ACT, HA, HP>
+                <<<grid, kThreads, 0, st>>>(
+                    A, B, Pe, b1, static_cast<const SqT<T, ACT>*>(g),
+                    recv_ptr, send, static_cast<SqT<T, ACT>*>(dH), dA,
+                    n_rows, d);
           });
         });
       });
@@ -194,13 +241,15 @@ int launch_bwd_recv(const T* A, const T* B, const T* Pe, const float* b1,
 
 }  // namespace gsn
 
+// act: 0 identity, 1 relu, 2 id_sq (out [n_rows, 2d], g [n_rows, 2d] and
+// dH f32 in every data type)
 extern "C" int gsn_edge_message_fwd(const float* A, const float* B,
                                     const float* Pe, const float* b1,
                                     const int32_t* recv_ptr,
                                     const int32_t* send, float* out,
-                                    int n_rows, int d, int relu, int has_a,
+                                    int n_rows, int d, int act, int has_a,
                                     int has_pe, void* stream) {
-  return gsn::launch_fwd(A, B, Pe, b1, recv_ptr, send, out, n_rows, d, relu,
+  return gsn::launch_fwd(A, B, Pe, b1, recv_ptr, send, out, n_rows, d, act,
                          has_a, has_pe, stream);
 }
 
@@ -210,38 +259,38 @@ extern "C" int gsn_edge_message_bwd_recv(const float* A, const float* B,
                                          const int32_t* recv_ptr,
                                          const int32_t* send, float* dH,
                                          float* dA, int n_rows, int d,
-                                         int relu, int has_a, int has_pe,
+                                         int act, int has_a, int has_pe,
                                          void* stream) {
   return gsn::launch_bwd_recv(A, B, Pe, b1, g, recv_ptr, send, dH, dA,
-                              n_rows, d, relu, has_a, has_pe, stream);
+                              n_rows, d, act, has_a, has_pe, stream);
 }
 
-// bf16 A, B, Pe and out (f32 b1), same arguments otherwise
+// bf16 A, B, Pe and out (f32 b1; f32 out in id_sq), same arguments
+// otherwise
 extern "C" int gsn_edge_message_fwd_bf16(const void* A, const void* B,
                                          const void* Pe, const float* b1,
                                          const int32_t* recv_ptr,
                                          const int32_t* send, void* out,
-                                         int n_rows, int d, int relu,
+                                         int n_rows, int d, int act,
                                          int has_a, int has_pe,
                                          void* stream) {
   using gsn::bf16;
   return gsn::launch_fwd(static_cast<const bf16*>(A),
                          static_cast<const bf16*>(B),
                          static_cast<const bf16*>(Pe), b1, recv_ptr, send,
-                         static_cast<bf16*>(out), n_rows, d, relu, has_a,
-                         has_pe, stream);
+                         out, n_rows, d, act, has_a, has_pe, stream);
 }
 
-// bf16 A, B, Pe, g, dH and dA (f32 b1), same arguments otherwise
+// bf16 A, B, Pe, g, dH and dA (f32 b1; f32 g and dH in id_sq), same
+// arguments otherwise
 extern "C" int gsn_edge_message_bwd_recv_bf16(
     const void* A, const void* B, const void* Pe, const float* b1,
     const void* g, const int32_t* recv_ptr, const int32_t* send, void* dH,
-    void* dA, int n_rows, int d, int relu, int has_a, int has_pe,
+    void* dA, int n_rows, int d, int act, int has_a, int has_pe,
     void* stream) {
   using gsn::bf16;
   return gsn::launch_bwd_recv(
       static_cast<const bf16*>(A), static_cast<const bf16*>(B),
-      static_cast<const bf16*>(Pe), b1, static_cast<const bf16*>(g),
-      recv_ptr, send, static_cast<bf16*>(dH), static_cast<bf16*>(dA), n_rows,
-      d, relu, has_a, has_pe, stream);
+      static_cast<const bf16*>(Pe), b1, g, recv_ptr, send, dH,
+      static_cast<bf16*>(dA), n_rows, d, act, has_a, has_pe, stream);
 }

@@ -14,8 +14,9 @@
 //
 // Rows and output are f32 -> f32, or in the reference's bf16 mode bf16
 // -> f32 (the pools: slab_pool.py:123-142 keeps bf16 rows and pools them
-// in f32) and bf16 -> bf16 (dB, and the virtual node's broadcast
-// backward: an f32 sum rounded once on its store).
+// in f32), bf16 -> bf16 (dB, and the virtual node's broadcast backward:
+// an f32 sum rounded once on its store) and f32 -> bf16 (dB of the
+// fused-BN moments pass, whose dH is f32: slab_message.py:682-684).
 //
 // Bound: bytes (one read of every summed row, one write of every output
 // row; one add per element).
@@ -91,4 +92,15 @@ extern "C" int gsn_segment_sum_sorted_bf16(const void* rows,
                                        n_seg, d, stream)
              : gsn::launch_segment_sum(r, ptr, perm, static_cast<float*>(out),
                                        n_seg, d, stream);
+}
+
+// f32 rows summed into bf16 out
+extern "C" int gsn_segment_sum_sorted_f32_bf16(const float* rows,
+                                               const int32_t* ptr,
+                                               const int32_t* perm,
+                                               void* out, int n_seg, int d,
+                                               void* stream) {
+  return gsn::launch_segment_sum(rows, ptr, perm,
+                                 static_cast<gsn::bf16*>(out), n_seg, d,
+                                 stream);
 }

@@ -21,7 +21,17 @@ max/min only ``segment_minmax`` (B6).  The per-edge weights are
 layer-invariant: ``build_agg_ctx`` computes them once per forward, and
 their node-sum denominators in one K3 pass (``node_sums``).  var/std and
 the softmax weights' segment max stay plain PyTorch segment ops, as they
-are XLA in the reference.  f32 only.
+are XLA in the reference.
+
+``DGNConfig.compute_dtype="bfloat16"`` follows the reference's cast
+points (``gsn_tpu/nn/dgn.py:374-427, 485-488, 511-512``): node rows
+travel in bf16 from after the embedding and the positional encoding on,
+the kernels take them as bf16 data, the fallback aggregators gather f32
+rows, the aggregators' parts are f32 and the posttrans layers compute in
+bf16; BN keeps f32 statistics and returns bf16, the residual adds in
+bf16, and the readout and its head are f32.  The vector field, the
+aggregator weights W and their node sums stay f32, and so do the
+parameters.
 
 Scalers (``scalers.py``) are PNA log-degree scalings using train-set
 averages avg_d; D is the per-node in-degree.
@@ -49,7 +59,8 @@ from gsn_tpu_torch.ops.segment import (global_add_pool, global_mean_pool,
                                        masked_segment_sum)
 from .embedding import ATOM_FEATURE_DIMS, DiscreteEmbedding
 from .init import init_parameters
-from .models import NodeDropout, dropout, edge_segments
+from .mlp import dense
+from .models import NodeDropout, compute_dtype_of, dropout, edge_segments
 
 EPS = 1e-8
 
@@ -276,31 +287,35 @@ def dgn_scale(name: str, h: torch.Tensor, deg: torch.Tensor,
 
 class DGNMlp(nn.Module):
     """FC stack ``fc_0 .. fc_{layers-1}``: linear -> relu between layers,
-    none after the last (reference layers.py MLP)."""
+    none after the last (reference layers.py MLP); ``dtype`` is the
+    compute dtype of every layer (flax ``Dense(dtype=)``)."""
 
-    def __init__(self, d_in: int, hidden: int, out: int, layers: int = 1):
+    def __init__(self, d_in: int, hidden: int, out: int, layers: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.layers = layers
+        self.layers, self.dtype = layers, dtype
         widths = [d_in] + [hidden] * (layers - 1) + [out]
         for i in range(layers):
             setattr(self, f"fc_{i}", nn.Linear(widths[i], widths[i + 1]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.layers - 1):
-            x = torch.relu(getattr(self, f"fc_{i}")(x))
-        return getattr(self, f"fc_{self.layers - 1}")(x)
+            x = torch.relu(dense(getattr(self, f"fc_{i}"), x, self.dtype))
+        return dense(getattr(self, f"fc_{self.layers - 1}"), x, self.dtype)
 
 
 class DGNLayerSimple(nn.Module):
     """reference dgn_layer.py:11-82 ('simple' type, the only runnable
     variant).  Submodules ``posttrans`` and ``bn`` follow the reference
-    package's parameter paths."""
+    package's parameter paths.  ``dtype``: the compute dtype (None or
+    ``torch.bfloat16``; the input rows are in it)."""
 
     def __init__(self, in_dim: int, out_dim: int,
                  aggregators: Sequence[str], scalers: Sequence[str],
                  avg_d: Dict[str, float], dropout: float = 0.0,
                  graph_norm: bool = False, batch_norm: bool = True,
-                 residual: bool = True, posttrans_layers: int = 1):
+                 residual: bool = True, posttrans_layers: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.aggregators = tuple(aggregators)
         self.scalers = tuple(scalers)
@@ -309,7 +324,7 @@ class DGNLayerSimple(nn.Module):
         self.residual = residual and in_dim == out_dim
         self.posttrans = DGNMlp(
             len(self.aggregators) * len(self.scalers) * in_dim, out_dim,
-            out_dim, posttrans_layers)
+            out_dim, posttrans_layers, dtype)
         if batch_norm:
             self.bn = MaskedBatchNorm(out_dim)
         self.dropout = NodeDropout(dropout)
@@ -339,31 +354,33 @@ class DGNLayerSimple(nn.Module):
         for i, a in enumerate(self.aggregators):
             if parts[i] is None:
                 if h_src is None:
-                    h_src = h[ctx.src]
+                    # f32 rows: the segment sums (var/std's E[h^2]-E[h]^2
+                    # most of all) must not accumulate in bf16
+                    h_src = h.float()[ctx.src]
                 parts[i] = dgn_aggregate(a, h_src, ctx.vf, h_in, ctx.dst, n)
-        agg = torch.cat(parts, dim=1)
+        agg = torch.cat(parts, dim=1)   # f32 parts in either dtype
         if len(self.scalers) > 1:
             agg = torch.cat([dgn_scale(s, agg, ctx.deg, self.avg_d)
                              for s in self.scalers], dim=1)
 
         h = self.posttrans(agg)
         if self.graph_norm:
-            h = h * snorm
+            h = h * snorm.to(h.dtype)
         if self.batch_norm:
             h = self.bn(h, data.node_mask)
         h = torch.relu(h)
         if self.residual:
-            h = h_in + h
+            h = h_in.to(h.dtype) + h
         return self.dropout(h, generator)
 
 
 @dataclasses.dataclass
 class DGNConfig:
     """The reference package's ``DGNConfig`` fields, less those of
-    paths not ported yet (``compute_dtype`` for bf16, ``bn_axis_name``
-    for data-parallel BN), ``dropout_rng`` (the masks come from the
-    trainer's ``torch.Generator``) and the unused ``edge_feat`` /
-    ``edge_dim``."""
+    paths not ported yet (``bn_axis_name`` for data-parallel BN),
+    ``dropout_rng`` (the masks come from the trainer's
+    ``torch.Generator``) and the unused ``edge_feat`` / ``edge_dim``.
+    ``compute_dtype``: None (f32) or ``"bfloat16"``."""
     hidden_dim: int = 70
     out_dim: int = 70
     num_layers: int = 4
@@ -381,6 +398,7 @@ class DGNConfig:
     pos_enc_dim: int = 0
     posttrans_layers: int = 1
     out_features: int = 1
+    compute_dtype: Optional[str] = None
 
 
 class DGNNet(nn.Module):
@@ -394,6 +412,7 @@ class DGNNet(nn.Module):
         c = self.cfg = cfg
         if c.readout not in ("sum", "mean", "max"):
             raise ValueError(f"invalid readout {c.readout!r}")
+        cdt = self.cdt = compute_dtype_of(c)
         self.embedding_h = DiscreteEmbedding(
             "atom_encoder", len(ATOM_FEATURE_DIMS), None, c.hidden_dim)
         if c.pos_enc_dim > 0:
@@ -404,7 +423,7 @@ class DGNNet(nn.Module):
             setattr(self, f"layer_{i}", DGNLayerSimple(
                 c.hidden_dim, out_dim, c.aggregators, c.scalers, avg_d,
                 c.dropout, c.graph_norm, c.batch_norm, c.residual,
-                c.posttrans_layers))
+                c.posttrans_layers, cdt))
         widths = [c.out_dim, c.out_dim // 2, c.out_dim // 4, c.out_features]
         for l in range(3):
             setattr(self, f"readout_fc_{l}",
@@ -422,6 +441,9 @@ class DGNNet(nn.Module):
                 raise ValueError("pos_enc_dim > 0 needs node_eig")
             h = h + self.embedding_pos_enc(
                 data.node_eig[:, 1:c.pos_enc_dim + 1])
+        if self.cdt is not None:
+            # node rows travel in the compute dtype between layers
+            h = h.to(self.cdt)
 
         snorm = None
         if c.graph_norm:
@@ -433,6 +455,7 @@ class DGNNet(nn.Module):
         for i in range(c.num_layers):
             h = getattr(self, f"layer_{i}")(h, data, ctx, snorm, generator)
 
+        h = h.float()   # f32 readout reductions and head
         if c.readout == "sum":
             hg = global_add_pool(h, data.graph_ptr)
         elif c.readout == "max":

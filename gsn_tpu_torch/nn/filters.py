@@ -18,9 +18,17 @@ The ``gin`` kind raises until a later slice ports it.
 (``gsn_tpu/nn/filters.py:95-145, 203-221, 526-574``): every dense layer
 of the message and update MLPs computes in bf16, the kernel path's data
 is bf16 (f32 bias), the aggregate and the layer's output stay bf16, and
-BN statistics are f32.  ``general`` messages with ``bn_mlp`` raise in
-bf16: the reference routes them through the fused-BN ``id_sq`` pass,
-which is not ported.
+BN statistics are f32.
+
+``general`` messages with ``bn_mlp`` take the kernels only in bf16, as
+in the reference (``gsn_tpu/nn/filters.py:162-193, 355-371``): the
+message MLP's BN is folded into the first layer.  In training one
+``id_sq`` pass gives the masked moments of the pre-activation H, the BN
+turns them into (mean, var) and its running statistics, and
+``s = weight·rsqrt(var + eps)`` scales A, B and Pe (an f32 product
+rounded once to bf16) while the bias becomes ``(b1 − mean)·s + bias``;
+the relu pass then runs on those.  In eval the running statistics fold
+in.  In f32, ``bn_mlp`` messages stay on the per-edge path.
 """
 
 from __future__ import annotations
@@ -95,10 +103,31 @@ class EdgeMessageMLP(nn.Module):
 
     @property
     def fusable(self) -> bool:
-        """The fused kernel path takes at most one hidden layer, a
-        relu/identity activation and no batch norm inside the MLP."""
+        """The fused kernel path takes at most one hidden layer and a
+        relu/identity activation; batch norm inside the MLP only in bf16
+        (the reference's routing: its f32 fused-BN pass lost to the
+        per-edge path)."""
         return (len(self.widths) <= 2 and self.activation in ACTS
-                and not self.batch_norm)
+                and (not self.batch_norm or self.dtype == torch.bfloat16))
+
+    def _fold_bn(self, A, B, pe, bias, seg, in_degree):
+        """BN of the pre-activation H = A[recv] + B[send] + Pe + bias
+        folded into its affine inputs (reference filters.py:162-193): the
+        masked moments of H over the real edges come from one id_sq pass
+        in training, the running statistics in eval."""
+        bn = self.bn_0
+        moments = None
+        if bn.training:
+            hs = edge_message_aggregate(A, B, pe, bias, seg, "id_sq")
+            d = hs.shape[1] // 2
+            moments = (in_degree.sum(), hs[:, :d].sum(0), hs[:, d:].sum(0))
+        mean, var, weight, beta = bn(None, moments=moments)
+        s = weight * torch.rsqrt(var + bn.eps)
+
+        def scale(x):   # an f32 product, rounded once to the data dtype
+            return None if x is None else (x.float() * s).to(self.dtype)
+
+        return scale(A), scale(B), scale(pe), (bias - mean) * s + beta
 
     def forward(self, node_parts, edge_parts, recv, send, edge_mask=None,
                 seg: Optional[EdgeSegments] = None,
@@ -125,6 +154,9 @@ class EdgeMessageMLP(nn.Module):
             # a single-dense MLP has no hidden activation (reference
             # models_misc.mlp applies act between layers only)
             act_k = self.activation if len(self.widths) > 1 else "identity"
+            if self.batch_norm and len(self.widths) > 1:
+                A, B, pe, bias = self._fold_bn(A, B, pe, bias, seg,
+                                               in_degree)
             agg = edge_message_aggregate(A, B, pe, bias, seg, act_k)
             if len(self.widths) == 1:
                 return agg
@@ -247,13 +279,6 @@ class GSNLayer(nn.Module):
         if self.use_edge_features:
             edge_parts.append(edge_features)
         msg_fn = self.msg_fn
-        if (self.compute_dtype is not None and seg is not None
-                and self.aggr == "add" and msg_fn.batch_norm
-                and len(msg_fn.widths) <= 2 and msg_fn.activation in ACTS):
-            raise NotImplementedError(
-                "general messages with bn_mlp in a compute dtype take the "
-                "fused-BN id_sq pass of the message kernels "
-                "(gsn_tpu/nn/filters.py:162-193), which is not ported")
         fused = seg is not None and self.aggr == "add" and msg_fn.fusable
         out = msg_fn(node_parts, edge_parts, recv, send, edge_mask,
                      seg if fused else None, in_degree)

@@ -86,7 +86,7 @@ def _make_pool(readout: str, data: GraphBatch,
     return lambda x: fn(x.to(compute_dtype), data.graph_ptr)
 
 
-def compute_dtype_of(cfg: GSNConfig) -> Optional[torch.dtype]:
+def compute_dtype_of(cfg) -> Optional[torch.dtype]:
     """The config's compute dtype: None (f32) or ``torch.bfloat16``."""
     if cfg.compute_dtype is None:
         return None

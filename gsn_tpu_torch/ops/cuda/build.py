@@ -11,7 +11,8 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a nonzero code into an exception.  ``on_cuda`` and
 ``require`` are the wrappers' shared dispatch and argument checks, and
 ``counted``/``count`` their launch counts.  K1–K4 take f32 or bf16 data
-(one dtype for all of a call's data operands); K5/K6 take f32.
+(one dtype for all of a call's data operands); K5/K6 take f32 or bf16
+rows with f32 weights, maxima and counts.
 ``build_other`` and ``use`` build another source tree's kernel beside
 this one's and route the wrappers' launches to it, to time two builds
 on one card.
@@ -55,6 +56,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "segment_sum": {
         "gsn_segment_sum_sorted": [P, P, P, P, I, I, P],
         "gsn_segment_sum_sorted_bf16": [P, P, P, P, I, I, I, P],
+        "gsn_segment_sum_sorted_f32_bf16": [P, P, P, P, I, I, P],
     },
     "segment_broadcast": {
         "gsn_segment_broadcast": [P, P, I, P, I, I, P],
@@ -66,7 +68,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "gsn_dgn_aggregate_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, P],
         "gsn_dgn_aggregate_bwd": [P, P, P, P, P, P, P, P, P, P,
                                   I, I, I, I, I, I, P],
+        "gsn_dgn_aggregate_fwd_bf16": [P, P, P, P, P, P, P,
+                                       I, I, I, I, I, P],
+        "gsn_dgn_aggregate_bwd_bf16": [P, P, P, P, P, P, P, P, P, P,
+                                       I, I, I, I, I, I, P],
         "gsn_dgn_aggregate_occupancy": [I, I, I, I, I, I, I],
+        "gsn_dgn_aggregate_occupancy_bf16": [I, I, I, I, I, I],
     },
 }
 

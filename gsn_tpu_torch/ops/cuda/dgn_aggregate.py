@@ -7,7 +7,14 @@ Each op picks the kernel's instantiation by two flags: ``weighted``
 (the K weighted sums ``Σ_e W[e,k]·B[send e]``) and ``minmax`` (the
 per-column ``[max, −min]`` of ``B[send e]`` with its tie counts).  The
 edges are the batch's real edges in receiver-sorted order; W has one
-row per real edge.  Only f32 runs on the card.
+row per real edge.
+
+The rows B are f32 or bf16 (the reference's ``data_dtype="bfloat16"``);
+the weighted cotangent g_w and the per-edge dh have B's dtype, and W,
+out, mm, cnt, g_mm and dW are f32 in both.  In bf16 the forward rounds
+each weight to bf16 inside the weighted product and sums in f32, mm
+holds the bf16 maxima exactly, and dh is summed in f32 (from f32 W and
+g_mm) and rounded once.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import build
+from .slab_combine import DATA_DTYPES
 
 # most weight columns one launch takes (csrc/dgn_aggregate.cu: kMaxK)
 MAX_K = 16
@@ -24,7 +32,8 @@ MAX_K = 16
 
 def _check(what, B, W, recv_ptr, send, weighted):
     dev = B.device
-    build.require(what, dev, B, W, dtype=torch.float32)
+    build.require(what, dev, B, dtype=DATA_DTYPES)
+    build.require(what, dev, W, dtype=torch.float32)
     build.require(what, dev, recv_ptr, send, dtype=torch.int32)
     if B.dim() != 2:
         raise ValueError(f"{what}: B must be [N, d]")
@@ -35,6 +44,11 @@ def _check(what, B, W, recv_ptr, send, weighted):
         if not 1 <= W.shape[1] <= MAX_K:
             raise ValueError(f"{what}: {W.shape[1]} weight columns, the "
                              f"kernel takes 1..{MAX_K}")
+
+
+def _suffix(dtype) -> str:
+    """The C entry point's suffix for B's dtype."""
+    return "_bf16" if dtype == torch.bfloat16 else ""
 
 
 def launch_fwd(what: str, B: torch.Tensor, W: Optional[torch.Tensor],
@@ -52,7 +66,8 @@ def launch_fwd(what: str, B: torch.Tensor, W: Optional[torch.Tensor],
     mm, cnt = (new(2 * d), new(2 * d)) if minmax else (None, None)
     if n == 0 or d == 0:
         return out, mm, cnt
-    rc = build.lib("dgn_aggregate").gsn_dgn_aggregate_fwd(
+    rc = getattr(build.lib("dgn_aggregate"),
+                 "gsn_dgn_aggregate_fwd" + _suffix(B.dtype))(
         build.ptr(B), build.ptr(W), build.ptr(recv_ptr), build.ptr(send),
         build.ptr(out), build.ptr(mm), build.ptr(cnt), n, d, K,
         int(weighted), int(minmax), build.stream_ptr(B.device))
@@ -66,12 +81,13 @@ def launch_bwd(what: str, B: torch.Tensor, W: Optional[torch.Tensor],
                recv_ptr: torch.Tensor, send: torch.Tensor,
                need_dw: bool = False
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """K6 on the card: (dh [E, d], dW [E, K] or None) for the E real
-    edges; the weighted part runs when W is given, the minmax part when
-    ``mm`` is."""
+    """K6 on the card: (dh [E, d] in B's dtype, dW [E, K] f32 or None)
+    for the E real edges; the weighted part runs when W is given (g_w in
+    B's dtype), the minmax part when ``mm`` is."""
     weighted, minmax = W is not None, mm is not None
     _check(what, B, W, recv_ptr, send, weighted)
-    build.require(what, B.device, g_w, mm, cnt, g_mm, dtype=torch.float32)
+    build.require(what, B.device, B, g_w, dtype=DATA_DTYPES)
+    build.require(what, B.device, mm, cnt, g_mm, dtype=torch.float32)
     n, d = recv_ptr.numel() - 1, B.shape[1]
     K = W.shape[1] if weighted else 0
     for name, t, width in (("g_w", g_w, K * d), ("mm", mm, 2 * d),
@@ -82,12 +98,13 @@ def launch_bwd(what: str, B: torch.Tensor, W: Optional[torch.Tensor],
     if weighted and g_w is None or minmax and (cnt is None or g_mm is None):
         raise ValueError(f"{what}: missing cotangent or tie counts")
     e = send.numel()
-    dh = torch.empty(e, d, dtype=torch.float32, device=B.device)
+    dh = torch.empty(e, d, dtype=B.dtype, device=B.device)
     dW = (torch.empty(e, K, dtype=torch.float32, device=B.device)
           if need_dw else None)
     if n == 0 or d == 0 or e == 0:
         return dh.zero_(), dW.zero_() if need_dw else None
-    rc = build.lib("dgn_aggregate").gsn_dgn_aggregate_bwd(
+    rc = getattr(build.lib("dgn_aggregate"),
+                 "gsn_dgn_aggregate_bwd" + _suffix(B.dtype))(
         build.ptr(B), build.ptr(W), build.ptr(g_w), build.ptr(mm),
         build.ptr(cnt), build.ptr(g_mm), build.ptr(recv_ptr),
         build.ptr(send), build.ptr(dh), build.ptr(dW), n, d, K,

@@ -8,7 +8,8 @@ rows[perm[i]]`` (``perm`` optional).  It carries the sender-side dB of
 the edge message backward and the graph readout's forward.
 
 Rows are f32 or bf16; the sum accumulates in f32 and is rounded once to
-``out_dtype``: f32 → f32, bf16 → f32 (the pools) or bf16 → bf16 (dB).
+``out_dtype``: f32 → f32, bf16 → f32 (the pools), bf16 → bf16 (dB) or
+f32 → bf16 (dB of the fused-BN moments pass, whose dH is f32).
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ def segment_sum_sorted(rows: torch.Tensor, ptr: torch.Tensor,
     ``ptr`` [num_segments+1] (int32), through ``perm`` (int32, positions
     -> row ids) when given; accumulated in f32 and rounded once to
     ``out_dtype``.  CPU tensors take the plain version; CUDA tensors
-    launch K3 (f32 rows to f32, bf16 rows to f32 or bf16)."""
+    launch K3 (f32 or bf16 rows, f32 or bf16 out)."""
     if not build.on_cuda(rows):
         return segment_sum_sorted_plain(rows, ptr, perm, out_dtype)
     build.require("segment_sum_sorted", rows.device, rows,
@@ -57,12 +58,11 @@ def segment_sum_sorted(rows: torch.Tensor, ptr: torch.Tensor,
     build.require("segment_sum_sorted", rows.device, ptr, perm,
                   dtype=torch.int32)
     bf16_rows = rows.dtype == torch.bfloat16
-    if out_dtype not in ((torch.float32, torch.bfloat16) if bf16_rows
-                         else (torch.float32,)):
+    if out_dtype not in DATA_DTYPES:
         raise TypeError(f"segment_sum_sorted: out dtype "
                         f"{build.dtype_name(out_dtype)} from "
                         f"{build.dtype_name(rows.dtype)} rows; the kernel "
-                        f"takes f32 -> f32, bf16 -> f32 or bf16 -> bf16")
+                        f"sums f32 or bf16 rows into f32 or bf16")
     if rows.dim() != 2:
         raise ValueError("segment_sum_sorted: rows must be [R, d]")
     n_seg, d = ptr.numel() - 1, rows.shape[1]
@@ -72,12 +72,14 @@ def segment_sum_sorted(rows: torch.Tensor, ptr: torch.Tensor,
     lib = build.lib("segment_sum")
     args = (build.ptr(rows), build.ptr(ptr), build.ptr(perm),
             build.ptr(out), n_seg, d)
+    stream = build.stream_ptr(rows.device)
     if bf16_rows:
         rc = lib.gsn_segment_sum_sorted_bf16(
-            *args, int(out_dtype == torch.bfloat16),
-            build.stream_ptr(rows.device))
+            *args, int(out_dtype == torch.bfloat16), stream)
+    elif out_dtype == torch.bfloat16:
+        rc = lib.gsn_segment_sum_sorted_f32_bf16(*args, stream)
     else:
-        rc = lib.gsn_segment_sum_sorted(*args, build.stream_ptr(rows.device))
+        rc = lib.gsn_segment_sum_sorted(*args, stream)
     build.check(rc, "segment_sum_sorted")
     build.count(segment_sum_sorted, f"{build.dtype_name(rows.dtype)}->"
                                     f"{build.dtype_name(out_dtype)}")

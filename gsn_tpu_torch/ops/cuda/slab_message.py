@@ -19,9 +19,14 @@ dtype for all of it; b1 and db1 are f32.  In bf16 (the reference's
 ``data_dtype="bfloat16"``) H is computed in f32 from the bf16 values,
 in the order above (so the relu mask is the reference's), each message
 is rounded to bf16, row sums accumulate in f32 and are rounded once, g
-is rounded to bf16, and dH, a masked copy of g, is exact.  The
-``id_sq`` moments mode (fused BN inside the message MLP) is not ported:
-it raises.
+is rounded to bf16, and dH, a masked copy of g, is exact.
+
+``act="id_sq"`` is the fused-BN moments pass of the message MLP: the
+output is ``Σ_{e→v} [H, H²]`` [N, 2d], in f32 for either data dtype
+(H from the data as given, in the same order); the backward takes an
+f32 [N, 2d] cotangent, unrounded, and ``dH = g₁ + 2H·g₂`` is f32; dA
+is rounded once to A's dtype, dB is K3 from the f32 dH into B's dtype,
+dPe is dH in Pe's dtype and db1 its f32 sum.
 """
 
 from __future__ import annotations
@@ -33,7 +38,10 @@ import torch
 from . import build
 from .slab_combine import DATA_DTYPES, segment_sum_sorted
 
+# the message MLP activations the fused path takes
 ACTS = ("relu", "identity")
+# the kernels' activation codes: ACTS and the fused-BN moments pass
+ACT_CODES = {"identity": 0, "relu": 1, "id_sq": 2}
 
 
 class EdgeSegments(NamedTuple):
@@ -62,40 +70,57 @@ def _pre_activation(A, B, Pe, b1, recv, send):
 
 
 def _check_act(act: str) -> None:
-    if act not in ACTS:
+    if act not in ACT_CODES:
         raise ValueError(f"edge message activation {act!r}: the kernels "
-                         f"take {ACTS}")
+                         f"take {tuple(ACT_CODES)}")
+
+
+def _moment_dtype(act, dtype):
+    """The dtype of K1's output, K2's cotangent and dH: f32 for id_sq,
+    else the data dtype."""
+    return torch.float32 if act == "id_sq" else dtype
 
 
 def edge_message_fwd_plain(A, B, Pe, b1, recv_ptr, send, act="relu"):
-    """Plain PyTorch version of K1, in B's dtype (messages rounded to it,
-    summed in f32, the sum rounded once)."""
+    """Plain PyTorch version of K1: relu/identity in B's dtype (messages
+    rounded to it, summed in f32, the sum rounded once); id_sq the f32
+    [N, 2d] sums of [H, H²]."""
     _check_act(act)
     recv = receivers(recv_ptr)
     h = _pre_activation(A, B, Pe, b1, recv, send)
     if act == "relu":
         h = torch.relu(h)
-    out = torch.zeros(recv_ptr.numel() - 1, B.shape[1],
+    if act == "id_sq":
+        h = torch.cat([h, h * h], dim=1)
+    else:
+        h = h.to(B.dtype).float()
+    out = torch.zeros(recv_ptr.numel() - 1, h.shape[1],
                       dtype=torch.float32, device=B.device)
-    return out.index_add_(0, recv, h.to(B.dtype).float()).to(B.dtype)
+    return out.index_add_(0, recv, h).to(_moment_dtype(act, B.dtype))
 
 
 def edge_message_bwd_recv_plain(A, B, Pe, b1, g, recv_ptr, send,
                                 act="relu", num_edge_slots=None):
-    """Plain PyTorch version of K2: (dH [slots, d], dA [N, d] or None),
-    in B's dtype (g rounded to it; dA summed in f32, rounded once)."""
+    """Plain PyTorch version of K2: (dH [slots, d], dA [N, d] or None).
+    relu/identity in B's dtype (g rounded to it; dA summed in f32,
+    rounded once); id_sq from the f32 [N, 2d] g, dH f32 and dA rounded
+    once to B's dtype."""
     _check_act(act)
     recv = receivers(recv_ptr)
-    dh = g.to(B.dtype)[recv]
-    if act == "relu":
+    d = B.shape[1]
+    dh = g.to(_moment_dtype(act, B.dtype))[recv]
+    if act != "identity":
         h = _pre_activation(A, B, Pe, b1, recv, send)
-        dh = torch.where(h > 0, dh, torch.zeros_like(dh))
+        if act == "relu":
+            dh = torch.where(h > 0, dh, torch.zeros_like(dh))
+        else:
+            dh = dh[:, :d] + 2.0 * h * dh[:, d:]
     slots = send.numel() if num_edge_slots is None else num_edge_slots
-    dH = torch.zeros(slots, g.shape[1], dtype=B.dtype, device=g.device)
+    dH = torch.zeros(slots, d, dtype=dh.dtype, device=g.device)
     dH[:send.numel()] = dh
     dA = None
     if A is not None:
-        dA = torch.zeros(g.shape, dtype=torch.float32,
+        dA = torch.zeros(A.shape, dtype=torch.float32,
                          device=g.device).index_add_(
                              0, recv, dh.float()).to(B.dtype)
     return dH, dA
@@ -104,14 +129,16 @@ def edge_message_bwd_recv_plain(A, B, Pe, b1, g, recv_ptr, send,
 def _check_cuda(what, A, B, Pe, b1, g, recv_ptr, send, act):
     _check_act(act)
     dev = B.device
-    build.require(what, dev, A, B, Pe, g, dtype=DATA_DTYPES)
-    build.require(what, dev, b1, dtype=torch.float32)
+    sq = act == "id_sq"
+    build.require(what, dev, A, B, Pe, None if sq else g, dtype=DATA_DTYPES)
+    build.require(what, dev, b1, g if sq else None, dtype=torch.float32)
     build.require(what, dev, recv_ptr, send, dtype=torch.int32)
     d = B.shape[1]
     n_rows = recv_ptr.numel() - 1
-    for name, t, rows in (("A", A, n_rows), ("g", g, n_rows),
-                          ("Pe", Pe, None)):
-        if t is not None and (t.dim() != 2 or t.shape[1] != d
+    for name, t, rows, width in (("A", A, n_rows, d),
+                                 ("g", g, n_rows, 2 * d if sq else d),
+                                 ("Pe", Pe, None, d)):
+        if t is not None and (t.dim() != 2 or t.shape[1] != width
                               or (rows is not None and t.shape[0] != rows)):
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}")
     if b1.shape != (d,):
@@ -125,68 +152,79 @@ def _suffix(dtype) -> str:
     return "_bf16" if dtype == torch.bfloat16 else ""
 
 
+def _mode(act, dtype) -> str:
+    """A launch's mode: the data dtype, and ``id_sq`` for that pass."""
+    return build.dtype_name(dtype) + (" id_sq" if act == "id_sq" else "")
+
+
 @build.counted
 def edge_message_fwd(A: Optional[torch.Tensor], B: torch.Tensor,
                      Pe: Optional[torch.Tensor], b1: torch.Tensor,
                      recv_ptr: torch.Tensor, send: torch.Tensor,
                      act: str = "relu") -> torch.Tensor:
-    """K1: [N, d] ``agg`` in the data dtype, f32 or bf16 (see module
-    docstring); A (``has_a``) and Pe (``has_pe``) may be None.  CPU
-    tensors take the plain version."""
+    """K1: [N, d] ``agg`` in the data dtype, f32 or bf16, or with
+    ``act="id_sq"`` the f32 [N, 2d] moments (see module docstring); A
+    (``has_a``) and Pe (``has_pe``) may be None.  CPU tensors take the
+    plain version."""
     if not build.on_cuda(B):
         return edge_message_fwd_plain(A, B, Pe, b1, recv_ptr, send, act)
     _check_cuda("edge_message_fwd", A, B, Pe, b1, None, recv_ptr, send,
                 act)
     n_rows, d = recv_ptr.numel() - 1, B.shape[1]
-    out = torch.empty(n_rows, d, dtype=B.dtype, device=B.device)
+    width = 2 * d if act == "id_sq" else d
+    out = torch.empty(n_rows, width, dtype=_moment_dtype(act, B.dtype),
+                      device=B.device)
     if n_rows == 0 or d == 0:
         return out
     fn = getattr(build.lib("edge_message"),
                  "gsn_edge_message_fwd" + _suffix(B.dtype))
     rc = fn(build.ptr(A), build.ptr(B), build.ptr(Pe), build.ptr(b1),
             build.ptr(recv_ptr), build.ptr(send), build.ptr(out), n_rows, d,
-            int(act == "relu"), int(A is not None), int(Pe is not None),
+            ACT_CODES[act], int(A is not None), int(Pe is not None),
             build.stream_ptr(B.device))
     build.check(rc, "edge_message_fwd")
-    build.count(edge_message_fwd, build.dtype_name(B.dtype))
+    build.count(edge_message_fwd, _mode(act, B.dtype))
     return out
 
 
 @build.counted
 def edge_message_bwd_recv(A, B, Pe, b1, g, recv_ptr, send, act="relu",
                           num_edge_slots=None):
-    """K2: (dH [num_edge_slots, d], dA [N, d] or None when A is None), in
-    the data dtype (g must have it on the card).  ``num_edge_slots``
-    defaults to the real edge count; slots past the real edges get zero
-    rows."""
+    """K2: (dH [num_edge_slots, d], dA [N, d] or None when A is None).
+    dH is in the data dtype and g must have it on the card, or with
+    ``act="id_sq"`` g is the f32 [N, 2d] cotangent of the moments and dH
+    is f32; dA is in the data dtype.  ``num_edge_slots`` defaults to the
+    real edge count; slots past the real edges get zero rows."""
     if not build.on_cuda(g):
         return edge_message_bwd_recv_plain(A, B, Pe, b1, g, recv_ptr,
                                            send, act, num_edge_slots)
     _check_cuda("edge_message_bwd_recv", A, B, Pe, b1, g, recv_ptr, send,
                 act)
-    n_rows, d = recv_ptr.numel() - 1, g.shape[1]
+    n_rows, d = recv_ptr.numel() - 1, B.shape[1]
     e_real = send.numel()
     slots = e_real if num_edge_slots is None else num_edge_slots
     dH = torch.empty(slots, d, dtype=g.dtype, device=g.device)
     dH[e_real:].zero_()
-    dA = torch.empty_like(g) if A is not None else None
+    dA = (torch.empty(n_rows, d, dtype=B.dtype, device=g.device)
+          if A is not None else None)
     if n_rows == 0 or d == 0:
         return dH, dA
     fn = getattr(build.lib("edge_message"),
-                 "gsn_edge_message_bwd_recv" + _suffix(g.dtype))
+                 "gsn_edge_message_bwd_recv" + _suffix(B.dtype))
     rc = fn(build.ptr(A), build.ptr(B), build.ptr(Pe), build.ptr(b1),
             build.ptr(g), build.ptr(recv_ptr), build.ptr(send), build.ptr(dH),
-            build.ptr(dA), n_rows, d, int(act == "relu"), int(A is not None),
+            build.ptr(dA), n_rows, d, ACT_CODES[act], int(A is not None),
             int(Pe is not None), build.stream_ptr(g.device))
     build.check(rc, "edge_message_bwd_recv")
-    build.count(edge_message_bwd_recv, build.dtype_name(g.dtype))
+    build.count(edge_message_bwd_recv, _mode(act, B.dtype))
     return dH, dA
 
 
 class EdgeMessageAggregate(torch.autograd.Function):
     """Autograd wrapper: K1 forward; K2 (dH, dA) and K3 (dB) backward.
     Each gradient comes back in its input's dtype: dA, dB and dPe in the
-    data dtype, db1 in f32 (an f32 sum of dH)."""
+    data dtype, db1 in f32 (an f32 sum of dH).  The cotangent is rounded
+    to the output's dtype (the data dtype, or f32 for id_sq)."""
 
     @staticmethod
     def forward(ctx, A, B, Pe, b1, seg: EdgeSegments, act: str):
@@ -202,13 +240,13 @@ class EdgeMessageAggregate(torch.autograd.Function):
         A, B, Pe, b1 = ctx.saved_tensors
         seg = ctx.seg
         slots = Pe.shape[0] if Pe is not None else seg.send.numel()
-        dH, dA = edge_message_bwd_recv(A, B, Pe, b1,
-                                       g.to(B.dtype).contiguous(),
-                                       seg.recv_ptr, seg.send, ctx.act,
-                                       slots)
+        g = g.to(_moment_dtype(ctx.act, B.dtype)).contiguous()
+        dH, dA = edge_message_bwd_recv(A, B, Pe, b1, g, seg.recv_ptr,
+                                       seg.send, ctx.act, slots)
         dB = (segment_sum_sorted(dH, seg.send_ptr, seg.send_perm, B.dtype)
               if ctx.needs_input_grad[1] else None)
-        dPe = dH if Pe is not None and ctx.needs_input_grad[2] else None
+        dPe = (dH.to(Pe.dtype) if Pe is not None and ctx.needs_input_grad[2]
+               else None)
         # a constant b1 (the ogb message's zeros) skips the [E, d] reduction
         db1 = dH.float().sum(0) if ctx.needs_input_grad[3] else None
         return dA, dB, dPe, db1, None, None
@@ -216,6 +254,6 @@ class EdgeMessageAggregate(torch.autograd.Function):
 
 def edge_message_aggregate(A, B, Pe, b1, seg: EdgeSegments,
                            act: str = "relu") -> torch.Tensor:
-    """Differentiable ``agg`` [N, d] in the data dtype (see module
-    docstring)."""
+    """Differentiable ``agg`` [N, d] in the data dtype, or the f32
+    [N, 2d] moments for ``act="id_sq"`` (see module docstring)."""
     return EdgeMessageAggregate.apply(A, B, Pe, b1, seg, act)

@@ -18,6 +18,11 @@ The backward splits each column's cotangent evenly over the tied edges,
 ``dh_e = [h_e == max]·g/max(cnt, 1)`` (minus the same for the min
 half), as ``jax.ops.segment_max``'s cotangent does; ``dB`` is the
 sender sum of dh (K3).
+
+B is f32 or bf16.  Maxima and tie counts are exact in either: bf16 rows
+are compared as bf16 values (``slab_minmax.py:71-76``), and mm holds
+them in f32.  The cotangent g_mm is f32 and is not rounded; dh is
+rounded once to B's dtype, and K3 sums it into dB of that dtype.
 """
 
 from __future__ import annotations
@@ -51,9 +56,9 @@ def segment_minmax_fwd_plain(B: torch.Tensor, recv_ptr: torch.Tensor,
     return mm, cnt
 
 
-def minmax_dh_plain(B, mm, cnt, g_mm, recv_ptr, send) -> torch.Tensor:
-    """Plain per-edge cotangent [E, d] of the minmax output: the even
-    tie split, written out (not the backward of ``scatter_reduce``)."""
+def minmax_dh_f32(B, mm, cnt, g_mm, recv_ptr, send) -> torch.Tensor:
+    """Plain per-edge cotangent [E, d] of the minmax output in f32: the
+    even tie split, written out (not the backward of ``scatter_reduce``)."""
     recv = receivers(recv_ptr)
     h = B[send].float()
     hc = torch.cat([h, -h], dim=1)
@@ -61,6 +66,12 @@ def minmax_dh_plain(B, mm, cnt, g_mm, recv_ptr, send) -> torch.Tensor:
     dhc = torch.where(hc == mm[recv], gp[recv], torch.zeros_like(hc))
     d = h.shape[1]
     return dhc[:, :d] - dhc[:, d:]
+
+
+def minmax_dh_plain(B, mm, cnt, g_mm, recv_ptr, send) -> torch.Tensor:
+    """Plain PyTorch version of the minmax backward: ``minmax_dh_f32``
+    rounded once to B's dtype."""
+    return minmax_dh_f32(B, mm, cnt, g_mm, recv_ptr, send).to(B.dtype)
 
 
 @build.counted
@@ -73,22 +84,21 @@ def segment_minmax_fwd(B: torch.Tensor, recv_ptr: torch.Tensor,
         return segment_minmax_fwd_plain(B, recv_ptr, send)
     _, mm, cnt = launch_fwd("segment_minmax_fwd", B, None, recv_ptr, send,
                             minmax=True)
-    build.count(segment_minmax_fwd, "f32")
+    build.count(segment_minmax_fwd, build.dtype_name(B.dtype))
     return mm, cnt
-
 
 
 @build.counted
 def segment_minmax_bwd(B, mm, cnt, g_mm, recv_ptr, send) -> torch.Tensor:
-    """dh [E, d]: the cotangent of ``B[send e]`` for every real edge.
-    CPU tensors take the plain version; CUDA tensors launch K6."""
+    """dh [E, d] in B's dtype: the cotangent of ``B[send e]`` for every
+    real edge.  CPU tensors take the plain version; CUDA tensors launch
+    K6."""
     if not build.on_cuda(B):
         return minmax_dh_plain(B, mm, cnt, g_mm, recv_ptr, send)
     dh, _ = launch_bwd("segment_minmax_bwd", B, None, None, mm, cnt, g_mm,
                        recv_ptr, send)
-    build.count(segment_minmax_bwd, "f32")
+    build.count(segment_minmax_bwd, build.dtype_name(B.dtype))
     return dh
-
 
 
 class SegmentMinmax(torch.autograd.Function):
@@ -108,7 +118,8 @@ class SegmentMinmax(torch.autograd.Function):
         seg = ctx.seg
         dh = segment_minmax_bwd(B, mm, cnt, g.contiguous(), seg.recv_ptr,
                                 seg.send)
-        return segment_sum_sorted(dh, seg.send_ptr, seg.send_perm), None
+        return (segment_sum_sorted(dh, seg.send_ptr, seg.send_perm,
+                                   dh.dtype), None)
 
 
 def segment_minmax(B: torch.Tensor, seg: EdgeSegments) -> torch.Tensor:

@@ -9,8 +9,9 @@ Builds the kernel's source from ``OTHER_CSRC_DIR`` (another commit's
 
 - ``dgn``: K5/K6 (``dgn_aggregate.cu``), the six functions on them in
   the main path's forms, on the DGN batch and operands of
-  ``chip_smoke.py`` phases 7-8; the path is ``bench.py::bench_dgn``'s
-  configuration.
+  ``chip_smoke.py`` phases 7-8, on f32 rows and (where both builds have
+  the bf16 entry points) on bf16 rows; the path is
+  ``bench.py::bench_dgn``'s configuration.
 - ``k4``: K4 (``segment_broadcast.cu``) at its four shapes on the paths:
   zinc's pool backward (d=128), the DGN mean-pool backward (d=70), the
   molhiv virtual node's pool backward and B4's forward (d=300), each on
@@ -75,9 +76,13 @@ def dgn_case(dev):
 
     graphs, _, data = smoke.dgn_batch(dev)
     seg, W, B, g_w, g_mm = smoke.dgn_operands(dev, data)
-    mm, cnt = b6.segment_minmax_fwd_plain(B, seg.recv_ptr, seg.send)
-    fns = {name: fn for name, (fn, _) in smoke.dgn_kernel_calls(
-        B, W, g_w, mm, cnt, g_mm, seg).items()}
+    fns = {}
+    for tag, dtype in (("", torch.float32), ("[bf16]", torch.bfloat16)):
+        Bt, g_wt = B.to(dtype), g_w.to(dtype)
+        mm, cnt = b6.segment_minmax_fwd_plain(Bt, seg.recv_ptr, seg.send)
+        fns.update({name + tag: fn for name, (fn, _) in
+                    smoke.dgn_kernel_calls(Bt, W, g_wt, mm, cnt, g_mm,
+                                           seg).items()})
     cfg, tcfg = smoke.dgn_main_config(graphs)
     return fns, {"dgn": (lambda: Trainer(cfg, tcfg, graphs,
                                          model=DGNNet(cfg)), data)}
@@ -138,6 +143,11 @@ def main():
     cpm = smoke.spin_cycles_per_ms()
     result = {}
     for name, fn in fns.items():
+        if "[bf16]" in name and not hasattr(libs["other"],
+                                            "gsn_dgn_aggregate_fwd_bf16"):
+            smoke.log(f"[turns] {name}: the other build has no bf16 "
+                      "entry points; not turned")
+            continue
         outs = {}
         for who in ("other", "this"):
             with build.use(source, libs[who]):

@@ -46,6 +46,7 @@ from gsn_tpu.train import metrics as jax_metrics
 from gsn_tpu_torch.config import GSNConfig
 from gsn_tpu_torch.data.synthetic import make_molhiv_like, make_zinc_like
 from gsn_tpu_torch.graphs.batching import iterate_batches
+from gsn_tpu_torch.nn import filters
 from gsn_tpu_torch.nn.models import build_model
 from gsn_tpu_torch.ops.cuda import slab_combine as k3
 from gsn_tpu_torch.ops.cuda import slab_message as k12
@@ -490,16 +491,25 @@ def test_dtypes_through_the_model(case):
     assert all(seen[h] == {torch.float32} for h in heads)
 
 
-def test_bn_mlp_general_bf16_raises():
-    """general messages with bn_mlp in bf16 would take the reference's
-    fused-BN id_sq pass, which is not ported: the port raises rather
-    than take another path."""
+def test_bn_mlp_general_bf16_routes_through_id_sq(monkeypatch):
+    """general messages with bn_mlp in bf16 take the reference's fused-BN
+    path: in training each layer's message runs the id_sq moments pass
+    on bf16 data, then relu on the folded inputs; the prediction is
+    finite f32 (tests/test_torch_fused_bn.py holds it to the
+    reference)."""
     graphs, d_id = make_zinc_like(4)
     tb = next(iterate_batches(graphs, 4, y_dtype=np.float32)).to("cpu")
     model = build_model(GSNConfig(**{**zinc_kwargs(d_id), "bn_mlp": True,
-                                     "compute_dtype": "bfloat16"}))
-    with pytest.raises(NotImplementedError, match="id_sq"):
-        model(tb)
+                                     "compute_dtype": "bfloat16"})).train()
+    calls = []
+    real = filters.edge_message_aggregate
+    monkeypatch.setattr(filters, "edge_message_aggregate",
+                        lambda *a: calls.append((a[-1], a[1].dtype))
+                        or real(*a))
+    out = model(tb)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert calls == [("id_sq", torch.bfloat16),
+                     ("relu", torch.bfloat16)] * len(model.cfg.d_out)
 
 
 @pytest.mark.parametrize("kind", ["zinc", "molhiv"])

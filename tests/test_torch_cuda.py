@@ -22,7 +22,13 @@ K1–K4 also run in bf16 at the paths' widths (128, 300) and at odd ones
 for bit (copies and masked copies of bf16 values); K1, dA, dB and every
 sum rounded to bf16 at rtol 8e-3 / atol 1e-4 * max|want| (one bf16 ulp:
 the plain versions sum in another order, and a rounding may fall on the
-other side); K3 into f32 at the f32 tolerances.
+other side); K3 into f32 at the f32 tolerances.  K5/K6 run on bf16 rows
+at the same DGN shapes: the f32 outputs (weighted sums, dW) at the f32
+tolerances, maxima and tie counts exact, dh and dB within one bf16 ulp.
+K1/K2's fused-BN moments mode (``id_sq``) runs on f32 and bf16 data:
+its f32 moments and dH at the f32 tolerances, dA, dB and dPe in the
+data dtype (one bf16 ulp in bf16); K3 from f32 rows into bf16 within
+one bf16 ulp.
 """
 
 import numpy as np
@@ -363,16 +369,36 @@ def test_kernels_count_launches_and_reject_bf16(dev):
     assert k3.segment_sum_sorted.launches == before + 3
     for mode in ("f32->f32", "bf16->f32", "bf16->bf16"):
         assert k3.segment_sum_sorted.modes[mode] == modes.get(mode, 0) + 1
+    # f32 rows into bf16 (dB of the fused-BN moments pass)
+    k3.segment_sum_sorted(rows, ptr, out_dtype=torch.bfloat16)
+    assert k3.segment_sum_sorted.modes["f32->bf16"] == modes.get(
+        "f32->bf16", 0) + 1
     with pytest.raises(TypeError, match="dtype"):
         k3.segment_sum_sorted(rows.half(), ptr)
     with pytest.raises(TypeError, match="dtype"):
-        k3.segment_sum_sorted(rows, ptr, out_dtype=torch.bfloat16)
+        k3.segment_sum_sorted(rows, ptr, out_dtype=torch.float16)
     with pytest.raises(TypeError, match="dtype"):
         k12.edge_message_fwd(rows, rows.bfloat16(), None, rows[0], ptr,
                              ptr[:2].contiguous())
+    # the id_sq moments pass counts by data dtype; its cotangent is f32
+    fwd_modes = dict(k12.edge_message_fwd.modes)
+    send = ptr[:2].contiguous()   # two receivers, senders among 3 rows
+    for x in (rows, rows.bfloat16()):
+        hs = k12.edge_message_fwd(x[:2], x, None, rows[0], ptr, send,
+                                  "id_sq")
+        assert hs.dtype == torch.float32 and hs.shape == (2, 16)
+        k12.edge_message_bwd_recv(x[:2], x, None, rows[0], hs, ptr, send,
+                                  "id_sq")
+    for mode in ("f32 id_sq", "bf16 id_sq"):
+        assert k12.edge_message_fwd.modes[mode] == fwd_modes.get(mode, 0) + 1
+    with pytest.raises(TypeError, match="dtype"):
+        k12.edge_message_bwd_recv(rows[:2], rows, None, rows[0],
+                                  hs.bfloat16(), ptr, send, "id_sq")
+    with pytest.raises(ValueError, match="shape"):
+        k12.edge_message_bwd_recv(rows[:2], rows, None, rows[0], rows[:2],
+                                  ptr, send, "id_sq")
     with pytest.raises(ValueError, match="activation"):
-        k12.edge_message_fwd(rows, rows, None, rows[0], ptr,
-                             ptr[:2].contiguous(), "id_sq")
+        k12.edge_message_fwd(rows, rows, None, rows[0], ptr, send, "elu")
 
 
 def tied_rows(gen, n, d, dev):
@@ -472,5 +498,153 @@ def test_dgn_kernels_count_launches_and_reject(dev):
     with pytest.raises(ValueError, match="weight columns"):
         b58.weighted_gather_fwd(B, torch.rand(120, 17, device=dev), rp,
                                 send)
+    # bf16 rows count as their own mode; W, mm, cnt and g_mm stay f32
+    Bb = B.bfloat16()
+    modes = [dict(w.modes) for w in wrappers]
+    out = b58.weighted_gather_fwd(Bb, W, rp, send)
+    b58.weighted_gather_bwd(Bb, W, out, rp, send)
+    mm, cnt = b6.segment_minmax_fwd(Bb, rp, send)
+    b6.segment_minmax_bwd(Bb, mm, cnt, mm, rp, send)
+    out, mm, cnt = b58.dgn_fused_fwd(Bb, W, rp, send)
+    b58.dgn_fused_bwd(Bb, W, out, mm, cnt, mm, rp, send)
+    torch.cuda.synchronize()
+    assert [w.modes.get("bf16", 0) - m.get("bf16", 0)
+            for w, m in zip(wrappers, modes)] == [1] * 6
     with pytest.raises(TypeError, match="dtype"):
-        b6.segment_minmax_fwd(B.bfloat16(), rp, send)
+        b6.segment_minmax_fwd(B.half(), rp, send)
+    with pytest.raises(TypeError, match="dtype"):
+        b58.weighted_gather_fwd(Bb, W.bfloat16(), rp, send)
+    with pytest.raises(TypeError, match="dtype"):
+        b6.segment_minmax_bwd(Bb, mm.bfloat16(), cnt, mm, rp, send)
+
+
+@pytest.mark.parametrize("d", [70, 64, 33, 130])
+@pytest.mark.parametrize("K", [1, 5, 16])
+@pytest.mark.parametrize("op", ["weighted", "minmax", "fused"])
+def test_dgn_kernels_bf16(dev, d, K, op):
+    """K5/K6 on bf16 rows (f32 W, g_mm) against the plain versions: the
+    f32 weighted sums and dW at the f32 tolerances, maxima and tie counts
+    exact, dh within one bf16 ulp, and the autograd Function's dB (bf16)
+    within one ulp of K3's plain sum of the kernel's dh (a dh one ulp off
+    may move a sum of several by more); d=130 spans two tiles."""
+    rng = np.random.RandomState(d + K + 1)
+    seg = k12.EdgeSegments(*(t.to(dev)
+                             for t in ragged_segments(rng, 400, 1200)))
+    gen = torch.Generator(device=dev).manual_seed(K + 1)
+    B = tied_rows(gen, 400, d, dev).bfloat16()
+    W = torch.rand(1200, K, device=dev, generator=gen)
+    g_w = torch.randn(400, K * d, device=dev, generator=gen)
+    g_mm = torch.randn(400, 2 * d, device=dev, generator=gen)
+    rp, send = seg.recv_ptr, seg.send
+    weighted, minmax = op != "minmax", op != "weighted"
+    if minmax:
+        mm, cnt = b6.segment_minmax_fwd(B, rp, send)
+        mm_p, cnt_p = b6.segment_minmax_fwd_plain(B, rp, send)
+        assert torch.equal(mm, mm_p) and torch.equal(cnt, cnt_p)
+        assert (cnt_p > 1).any()
+    if op == "weighted":
+        out = b58.weighted_gather_fwd(B, W, rp, send)
+        got = b58.weighted_gather_bwd(B, W, g_w, rp, send, True)
+        want = b58.weighted_gather_bwd_plain(B, W, g_w, rp, send, True)
+        fn = lambda b, w: (b58.weighted_gather(b, w, seg),)  # noqa: E731
+        cots = (g_w,)
+    elif op == "minmax":
+        got = (b6.segment_minmax_bwd(B, mm, cnt, g_mm, rp, send), None)
+        want = (b6.minmax_dh_plain(B, mm_p, cnt_p, g_mm, rp, send), None)
+        fn = lambda b, w: (b6.segment_minmax(b, seg),)  # noqa: E731
+        cots = (g_mm,)
+    else:
+        out, mm2, cnt2 = b58.dgn_fused_fwd(B, W, rp, send)
+        assert torch.equal(mm2, mm_p) and torch.equal(cnt2, cnt_p)
+        got = b58.dgn_fused_bwd(B, W, g_w, mm, cnt, g_mm, rp, send, True)
+        want = b58.dgn_fused_bwd_plain(B, W, g_w, mm_p, cnt_p, g_mm, rp,
+                                       send, True)
+        fn = lambda b, w: b58.dgn_fused(b, w, seg)  # noqa: E731
+        cots = (g_w, g_mm)
+    if weighted:
+        assert out.dtype == torch.float32
+        torch.testing.assert_close(
+            out, b58.weighted_gather_fwd_plain(B, W, rp, send), **FWD)
+        grad_close([got[1]], [want[1]])
+    bf16_close(got[0], want[0])
+
+    Bl = B.clone().requires_grad_(True)
+    Wl = W.clone().requires_grad_(weighted)
+    outs = fn(Bl, Wl)
+    leaves = [Bl, Wl] if weighted else [Bl]
+    grads = torch.autograd.grad(
+        sum((o.float() * c).sum() for o, c in zip(outs, cots)), leaves)
+    bf16_close(grads[0], k3.segment_sum_sorted_plain(
+        got[0], seg.send_ptr, seg.send_perm, torch.bfloat16))
+    if weighted:
+        grad_close(grads[1:], [want[1]])
+
+
+@pytest.mark.parametrize("d", [128, 300, 33])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("has_a,has_pe", [(True, True), (False, False)])
+def test_edge_message_id_sq(dev, d, dtype, has_a, has_pe):
+    """K1/K2 in the fused-BN moments mode: the f32 [N, 2d] sums of
+    [H, H²] and the f32 dH = g1 + 2H·g2 at the f32 tolerances, dA in the
+    data dtype; the autograd Function's dA, dB (K3 f32 -> data dtype),
+    dPe and db1 against the plain backward."""
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    rng = np.random.RandomState(d + 5)
+    n, e, slots = 300, 900, 1000
+    seg = k12.EdgeSegments(*(t.to(dev)
+                             for t in ragged_segments(rng, n, e)))
+    gen = torch.Generator(device=dev).manual_seed(d + 1)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).to(dt)
+
+    A = rnd(n, d) if has_a else None
+    B = rnd(n, d)
+    Pe = rnd(slots, d) if has_pe else None
+    b1 = torch.randn(d, device=dev, generator=gen)
+    g = torch.randn(n, 2 * d, device=dev, generator=gen)
+    rp, send = seg.recv_ptr, seg.send
+    hs = k12.edge_message_fwd(A, B, Pe, b1, rp, send, "id_sq")
+    assert hs.dtype == torch.float32 and hs.shape == (n, 2 * d)
+    torch.testing.assert_close(
+        hs, k12.edge_message_fwd_plain(A, B, Pe, b1, rp, send, "id_sq"),
+        **FWD)
+    dH, dA = k12.edge_message_bwd_recv(A, B, Pe, b1, g, rp, send, "id_sq",
+                                       slots)
+    dH_p, dA_p = k12.edge_message_bwd_recv_plain(A, B, Pe, b1, g, rp, send,
+                                                 "id_sq", slots)
+    assert dH.dtype == torch.float32
+    torch.testing.assert_close(dH, dH_p, **FWD)
+    close = bf16_close if dt == torch.bfloat16 else (
+        lambda a, b: grad_close([a], [b]))
+    if has_a:
+        assert dA.dtype == dt
+        close(dA, dA_p)
+    leaves = [t.clone().requires_grad_(True) for t in (A, B, Pe, b1)
+              if t is not None]
+    it = iter(leaves)
+    args = [next(it) if t is not None else None for t in (A, B, Pe, b1)]
+    got = torch.autograd.grad(
+        (k12.edge_message_aggregate(*args, seg, "id_sq") * g).sum(), leaves)
+    want = ([dA_p] if has_a else []) + [k3.segment_sum_sorted_plain(
+        dH_p, seg.send_ptr, seg.send_perm, dt)] + (
+            [dH_p.to(dt)] if has_pe else [])
+    for a, b in zip(got[:-1], want):
+        assert a.dtype == dt
+        close(a, b)
+    assert got[-1].dtype == torch.float32
+    grad_close([got[-1]], [dH_p.sum(0)])
+
+
+@pytest.mark.parametrize("d", [128, 33])
+def test_segment_sum_kernel_f32_to_bf16(dev, d):
+    """K3 from f32 rows into bf16 (the fused-BN pass's dB): the f32 sum
+    rounded once, within one bf16 ulp of the plain version's."""
+    rng = np.random.RandomState(d + 9)
+    recv_ptr, send, send_ptr, perm = (t.to(dev) for t in
+                                      ragged_segments(rng, 200, 700))
+    rows = torch.randn(700, d, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(d))
+    for ptr, p in ((send_ptr, perm), (recv_ptr, None)):
+        bf16_close(k3.segment_sum_sorted(rows, ptr, p, torch.bfloat16),
+                   k3.segment_sum_sorted_plain(rows, ptr, p, torch.bfloat16))

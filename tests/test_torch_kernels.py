@@ -234,4 +234,4 @@ def test_wrappers_reject_other_devices_and_activations():
         k12.edge_message_fwd_plain(
             torch.zeros(1, 2), torch.zeros(1, 2), None, torch.zeros(2),
             torch.zeros(2, dtype=torch.int32),
-            torch.zeros(0, dtype=torch.int32), "id_sq")
+            torch.zeros(0, dtype=torch.int32), "elu")
