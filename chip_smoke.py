@@ -7,7 +7,8 @@ Phases (any failure is an uncaught exception and a nonzero exit):
 
 1. Print the card's name and power limit, turn TF32 off, build every
    CUDA kernel from ``gsn_tpu_torch/csrc`` (one ``nvcc`` per source, all
-   at once) and print the build seconds.
+   at once, beside an empty kernel that measures the launch floor in
+   phase 30) and print the build seconds.
 2. Build the main path's batch: 1024 ZINC-like graphs with cycle counts
    k=3..8 (the port's copy of ``bench.py::make_zinc_like``), one batch at
    the tight epoch caps.
@@ -143,6 +144,39 @@ Phases (any failure is an uncaught exception and a nonzero exit):
     for STEPS steps: per step K1 8 and K2 8 (4 relu and 4 id_sq, bf16),
     K3 13 (4 bf16 -> bf16, 4 f32 -> bf16, 5 bf16 -> f32), K4 5; the
     same numbers as phase 25.
+29. The CLI's data: a synthetic ZINC set in the ZINC loader's layout
+    (``write_zinc_dataset``: the ZINC subset's 10,000 / 1,000 / 1,000
+    molecules, ``molecules/*.pickle``, ``indices/*.index``,
+    ``10fold_idx/*_idx-0.txt``) in a temporary directory;
+    ``prepare_dataset`` cold and from its cache (both times, the id
+    vocabulary).
+30. The CLI path (zinc-cli): ``gsn_tpu_torch.cli.main`` with
+    ``scripts/zinc_10_runs.py``'s flags at the 500K budget (d=150, 4
+    layers, batch 128, Plateau, L1), 2 epochs with an evaluation each,
+    on the card, launch counters zeroed just before and read just after:
+    exactly K3 5 (f32->f32) and K4 5 a train step and K3 5 an eval step
+    (``bn_mlp`` is on, so f32 messages take the per-edge path: each
+    layer's messages are summed at their receivers by K3, backward K4,
+    and the one pool is K3, backward K4); finite
+    histories, the lr at each evaluation, ``log.jsonl``, ``params.json``
+    and the checkpoint, each epoch's seconds, median step and host
+    batching ms a step, peak memory, the ``watch`` count.  Then 1 epoch
+    with ``--compute_dtype bfloat16`` (zinc-cli-bf16: K1/K2 4 bf16 + 4
+    bf16 id_sq, K3 9, K4 1 a train step; K1 4, K3 1 an eval step); one
+    epoch of the same trainer under the profiler (busy and idle share of
+    the epoch); K1/K2 (f32 on log lines, bf16 relu and id_sq), K3 (the
+    messages' sum, the pools beside ``index_add`` and
+    ``segment_reduce``, dB) and K4 at d=150 on one train batch against
+    their plain versions, timed with bounds; and
+    the launch floor, an empty kernel on the grids of this pool and of
+    the zinc path's pools.
+31. ``--mode test`` on phase 30's checkpoint gives its last test metric
+    (rtol 1e-5); ``--resume True --num_epochs 3`` trains epoch 2 only,
+    and its train loss is within rtol 1e-3 of an uninterrupted 3-epoch
+    run's.
+32. ``--mode isomorphism_test`` on SR(16,6,2,2) (the 4x4 rook's graph
+    and the Shrikhande graph, ``write_sr16622``) on the card: GSN with
+    edge-level K3/K4 counts fails 0% of the pairs, the MPNN 100%.
 
 Then it prints three lines: ``{"kernels": [...]}`` (each kernel's
 checks, times, bound and its launches on the path named in its
@@ -156,6 +190,7 @@ printing any of them.
 import copy
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -168,6 +203,10 @@ import torch
 STEPS = 20
 PROFILE_STEPS = 5
 D = 128
+# the CLI path: the ZINC subset's split sizes (train, val, test) and
+# scripts/zinc_10_runs.py's width at the 500K budget
+ZINC_SIZES = (10000, 1000, 1000)
+CLI_D = 150
 # bench.py::bench_dgn: width, aggregators (K=5 of them are weighted sums)
 DGN_D = 70
 DGN_AGGS = ("mean", "max", "min", "dir0-av", "dir1-av", "dir2-av",
@@ -377,25 +416,33 @@ def k4_stress(dev):
 def k4_timed(timed, data, g, kernel, plain):
     """K4 (``kernel`` is ``segment_broadcast`` or B4's
     ``graph_broadcast``) at a path's shape: ``g`` [G, d] over the batch's
-    graphs into its node slots, equal to ``plain`` bit for bit and to one
-    ``index_select`` over ``g`` with a zero row appended; timed beside
-    both, with its bytes bound (graphs with nodes read, every slot
-    written, in g's dtype) and, as ``fill_ms``, a fill of an output-sized
-    tensor: the streaming write K4 is to approach."""
-    gp, N = data.graph_ptr, data.num_node_slots
+    graphs into its node slots, through ``k4_timed_ptr``."""
+    return k4_timed_ptr(timed, g, data.graph_ptr, data.num_node_slots,
+                        kernel, plain)
+
+
+def k4_timed_ptr(timed, g, ptr, n_rows, kernel, plain):
+    """K4 of ``g`` [G, d] over the segments ``ptr`` into ``n_rows`` rows,
+    equal to ``plain`` bit for bit and to one ``index_select`` over ``g``
+    with a zero row appended; timed beside both, with its bytes bound
+    (segments with rows read, every row written, in g's dtype) and, as
+    ``fill_ms``, a fill of an output-sized tensor: the streaming write K4
+    is to approach."""
     G, d = g.shape
-    want = plain(g, gp, N)
-    exact(kernel(g, gp, N), want, f"{kernel.__name__} d={d}")
+    want = plain(g, ptr, n_rows)
+    exact(kernel(g, ptr, n_rows), want, f"{kernel.__name__} d={d}")
     g_ext = torch.cat([g, torch.zeros(1, d, dtype=g.dtype, device=g.device)])
-    node_graph = torch.where(data.node_mask, data.batch.long(),
-                             torch.full_like(data.batch.long(), G))
-    exact(torch.index_select(g_ext, 0, node_graph), want,
+    seg_of = torch.full((n_rows,), G, dtype=torch.long, device=g.device)
+    seg_of[int(ptr[0]):int(ptr[-1])] = torch.repeat_interleave(
+        torch.arange(G, device=g.device), ptr.diff().long())
+    exact(torch.index_select(g_ext, 0, seg_of), want,
           f"library {kernel.__name__} d={d}")
-    t_b, by = bound(g.element_size() * (int((gp.diff() > 0).sum()) + N) * d
-                    + 4 * (G + 1), 0)
+    t_b, by = bound(g.element_size() * (int((ptr.diff() > 0).sum()) + n_rows)
+                    * d + 4 * (G + 1), 0)
     return dict(max_abs_err=0.0, bound_ms=t_b, bound_by=by,
-                **timed(lambda: kernel(g, gp, N), lambda: plain(g, gp, N),
-                        lambda: torch.index_select(g_ext, 0, node_graph),
+                **timed(lambda: kernel(g, ptr, n_rows),
+                        lambda: plain(g, ptr, n_rows),
+                        lambda: torch.index_select(g_ext, 0, seg_of),
                         fill=want.zero_))
 
 
@@ -1368,7 +1415,11 @@ def bf16_zinc_kernels(dev, timed, data):
         replaces="gsn_tpu/ops/pallas/slab_pool.py:84",
         max_abs_err=err, bound_ms=t_b, bound_by=by,
         **timed(lambda: k3.segment_sum_sorted(A, gp),
-                lambda: k3.segment_sum_sorted_plain(A, gp)))
+                lambda: k3.segment_sum_sorted_plain(A, gp),
+                # one segment_reduce call sums bf16 rows into bf16, not
+                # f32: a time beside the row, not its library call
+                also={"segment_reduce_ms": lambda: torch.segment_reduce(
+                    A[:n_real], "sum", offsets=gp.long())}))
     # K4: the pool backward, bit for bit
     rows["segment_broadcast[bf16 d=128]"] = dict(
         source=src + "segment_broadcast.cu",
@@ -2066,6 +2117,540 @@ def fused_bn_phases(dev, card, timed, zinc):
     return rows
 
 
+LAUNCH_PROBE_SRC = r"""
+// An empty kernel: the launch floor of a grid, for the smoke log.
+#include <cuda_runtime.h>
+__global__ void gsn_empty_kernel() {}
+extern "C" int gsn_empty(int blocks, int threads, void* stream) {
+  gsn_empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def start_launch_probe():
+    """Start ``nvcc`` on the empty kernel that measures the launch floor
+    (it builds beside the port's kernels, into ``build/``)."""
+    from gsn_tpu_torch.ops.cuda import build
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    src = os.path.join(build.BUILD_DIR, "launch_probe.cu")
+    with open(src, "w") as f:
+        f.write(LAUNCH_PROBE_SRC)
+    so = os.path.join(build.BUILD_DIR, "liblaunch_probe.so")
+    return so, subprocess.Popen(
+        [build.nvcc(), *build.NVCC_FLAGS, "-o", so, src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def load_launch_probe(probe):
+    """The probe's ``gsn_empty(blocks, threads, stream)``."""
+    import ctypes
+    so, proc = probe
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"nvcc failed for the launch probe:\n{out}")
+    fn = ctypes.CDLL(so).gsn_empty
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_floor_ms(empty, cpm, n_rows, lanes):
+    """Device ms of an empty kernel with K3's grid for ``n_rows`` rows of
+    ``lanes`` lanes (blocks of 256 threads, as ``row_blocks``)."""
+    blocks = -(-n_rows // (256 // lanes))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        rc = empty(blocks, 256, stream)
+        if rc:
+            raise AssertionError(f"empty kernel: CUDA error {rc}")
+
+    return time_ms(call, cpm)[0], blocks
+
+
+def zinc_cli_argv(root, *extra):
+    """``scripts/zinc_10_runs.py --budget 500K`` (seed 0) on the synthetic
+    ZINC set under ``root``, 2 epochs with an evaluation each, JSONL
+    logging, on the card."""
+    argv = ["--seed", "0", "--onesplit", "True", "--dataset", "chemical",
+            "--dataset_name", "ZINC", "--root_folder", root,
+            "--cache_folder", os.path.join(root, "cache"),
+            "--id_type", "cycle_graph", "--induced", "False", "--k", "8",
+            "--id_scope", "global", "--id_encoding", "one_hot_unique",
+            "--id_embedding", "one_hot_encoder",
+            "--input_node_encoder", "one_hot_encoder",
+            "--edge_encoder", "one_hot_encoder",
+            "--model_name", "GSN_edge_sparse", "--msg_kind", "general",
+            "--num_layers", "4", "--d_out", str(CLI_D),
+            "--dropout_features", "0", "--final_projection", "False",
+            "--jk_mlp", "True", "--readout", "sum", "--batch_size", "128",
+            "--num_epochs", "2", "--eval_frequency", "1", "--lr", "1e-3",
+            "--scheduler", "ReduceLROnPlateau", "--decay_rate", "0.5",
+            "--patience", "5", "--min_lr", "1e-5", "--regression", "True",
+            "--loss_fn", "L1Loss", "--prediction_fn", "L1Loss",
+            "--mode", "train", "--wandb", "False"]
+    return argv + list(extra)
+
+
+def run_cli(argv):
+    from gsn_tpu_torch import cli
+    return cli.main(vars(cli.build_parser().parse_args(argv)))
+
+
+def read_log(args, fold=-1):
+    """(run directory, records of its log.jsonl) of a CLI run."""
+    from gsn_tpu_torch import cli
+    run_dir = cli.run_dir(args, fold)
+    with open(os.path.join(run_dir, "log.jsonl")) as f:
+        return run_dir, [json.loads(line) for line in f]
+
+
+def k12_timed(timed, data, d, dtype, act, gen):
+    """K1 and K2 in ``act`` mode on ``dtype`` data at width ``d`` over the
+    batch's edges, against their plain versions; their (fwd, bwd) rows
+    with bounds (rows the functions must touch, as phase 3's)."""
+    from gsn_tpu_torch.nn.models import edge_segments
+    from gsn_tpu_torch.ops.cuda import slab_message as k12
+    N, E, e_real = data.num_node_slots, data.num_edge_slots, \
+        data.num_real_edges
+    seg = edge_segments(data)
+    rp, send = seg.recv_ptr, seg.send
+    n_recv = int((rp.diff() > 0).sum())
+    n_send = int((seg.send_ptr.diff() > 0).sum())
+    t = 2 if dtype == torch.bfloat16 else 4
+    tag = f"{dtype_tag(dtype)} {act} d={d}"
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=data.x.device,
+                           generator=gen).to(dtype)
+
+    A, B, Pe = rnd(N, d), rnd(N, d), rnd(E, d)
+    b1 = torch.randn(d, device=data.x.device, generator=gen)
+    g = torch.randn(N, 2 * d if act == "id_sq" else d,
+                    device=data.x.device, generator=gen)
+    if act != "id_sq":
+        g = g.to(dtype)
+
+    def close(got, want, what):
+        if got.dtype == torch.bfloat16:
+            return bf16_check(got, want, what)
+        return max_err(got, want, FWD_RTOL, FWD_ATOL, what)
+
+    err_f = close(k12.edge_message_fwd(A, B, Pe, b1, rp, send, act),
+                  k12.edge_message_fwd_plain(A, B, Pe, b1, rp, send, act),
+                  f"edge_message_fwd[{tag}]")
+    dH, dA = k12.edge_message_bwd_recv(A, B, Pe, b1, g, rp, send, act, E)
+    dH_p, dA_p = k12.edge_message_bwd_recv_plain(A, B, Pe, b1, g, rp, send,
+                                                 act, E)
+    if dH.dtype == torch.bfloat16:
+        exact(dH, dH_p, f"edge_message_bwd_recv[{tag}] dH")
+        err_b = 0.0
+    else:
+        err_b = max_err(dH, dH_p, FWD_RTOL, FWD_ATOL,
+                        f"edge_message_bwd_recv[{tag}] dH")
+    err_b = max(err_b, bf16_check(dA, dA_p, f"[{tag}] dA")
+                if dA.dtype == torch.bfloat16
+                else grad_check([dA], [dA_p], f"[{tag}] dA"))
+    idx = 4 * (d + N + 1 + e_real)
+    if act == "id_sq":
+        fwd_b = bound(t * ((n_recv + n_send) * d + e_real * d) + idx
+                      + 4 * N * 2 * d, 7 * e_real * d)
+        bwd_b = bound(t * ((n_recv + n_send + N) * d + e_real * d) + idx
+                      + 4 * (2 * n_recv * d + E * d), 8 * e_real * d)
+    else:
+        fwd_b = bound(t * ((n_recv + n_send + N) * d + e_real * d) + idx,
+                      5 * e_real * d)
+        bwd_b = bound(t * ((2 * n_recv + n_send + N) * d + e_real * d
+                           + E * d) + idx, 5 * e_real * d)
+    fwd = timed(lambda: k12.edge_message_fwd(A, B, Pe, b1, rp, send, act),
+                lambda: k12.edge_message_fwd_plain(A, B, Pe, b1, rp, send,
+                                                   act))
+    bwd = timed(lambda: k12.edge_message_bwd_recv(A, B, Pe, b1, g, rp, send,
+                                                  act, E),
+                lambda: k12.edge_message_bwd_recv_plain(A, B, Pe, b1, g, rp,
+                                                        send, act, E))
+    src = "gsn_tpu_torch/csrc/edge_message.cu"
+    out = []
+    for row, (t_b, by), err, line in ((fwd, fwd_b, err_f, "214"),
+                                      (bwd, bwd_b, err_b, "240")):
+        out.append(dict(source=src,
+                        replaces=f"gsn_tpu/ops/pallas/slab_message.py:{line}",
+                        max_abs_err=err, bound_ms=t_b, bound_by=by, **row))
+    return out
+
+
+def dtype_tag(dtype):
+    return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
+def zinc_cli_kernels(dev, timed, data, d, empty, cpm, main_graphs):
+    """Phase 30's kernel checks at the zinc-cli path's shapes (one train
+    batch of 128 graphs at the trainer's caps, width d): K1/K2 f32 relu
+    (log lines: no zinc-cli path launches them), K1/K2 bf16 relu and
+    id_sq, K3 (f32: the per-edge messages' sum at their receivers and,
+    on a log line, the pool; bf16 -> f32: the pool; each beside
+    ``index_add`` and ``segment_reduce``; dB bf16 -> bf16 and f32 ->
+    bf16) and K4 (f32: the backward of both; bf16: the pool's), each
+    against its plain version and timed; the launch floor (an
+    empty kernel) on the grids of this pool and of the zinc path's pools
+    over ``main_graphs`` graphs.  Returns the rows by name."""
+    from gsn_tpu_torch.nn.models import edge_segments
+    from gsn_tpu_torch.ops.cuda import slab_combine as k3
+    from gsn_tpu_torch.ops.cuda import slab_pool as k4
+    gen = torch.Generator(device=dev).manual_seed(11)
+    N, E, G = data.num_node_slots, data.num_edge_slots, data.num_graph_slots
+    e_real, gp = data.num_real_edges, data.graph_ptr
+    n_real = int(data.node_mask.sum())
+    log(f"[zinc-cli] kernel shapes: d={d}, nodes {n_real}/{N}, edges "
+        f"{e_real}/{E}, graphs {int(data.graph_mask.sum())}/{G}")
+    rows = {}
+    fwd, bwd = k12_timed(timed, data, d, torch.float32, "relu", gen)
+    log_row("zinc-cli", f"edge_message_fwd[f32 relu d={d}]", fwd)
+    log_row("zinc-cli", f"edge_message_bwd_recv[f32 relu d={d}]", bwd)
+    bf = torch.bfloat16
+    for act, mode in (("relu", "bf16"), ("id_sq", "id_sq bf16")):
+        fwd, bwd = k12_timed(timed, data, d, bf, act, gen)
+        rows[f"edge_message_fwd[{mode} d={d}]"] = fwd
+        rows[f"edge_message_bwd_recv[{mode} d={d}]"] = bwd
+    src = "gsn_tpu_torch/csrc/"
+    seg = edge_segments(data)
+    sp, perm = seg.send_ptr, seg.send_perm
+    n_dst = sp.numel() - 1
+    rp = seg.recv_ptr
+    zeros_gd = torch.zeros(G, d, device=dev)
+    zeros_nd = torch.zeros(N, d, device=dev)
+    batch_l = data.batch[:n_real].long()
+    recv_l = data.edge_index[data.select, :e_real].long()
+    n_recv = int((rp.diff() > 0).sum())
+
+    def pool_row(x, ptr, n_in, idx, zeros, t_in, what):
+        """K3 from ``x``'s first ``n_in`` rows into the segments ``ptr``,
+        against its plain version; timed beside ``index_add`` (f32 only:
+        on bf16 rows it sums in bf16) and ``segment_reduce`` (bf16 out
+        from bf16 rows, so only a time beside the row)."""
+        n_seg = ptr.numel() - 1
+        err = max_err(k3.segment_sum_sorted(x, ptr),
+                      k3.segment_sum_sorted_plain(x, ptr), FWD_RTOL,
+                      FWD_ATOL, f"segment_sum_sorted[{what}]")
+        t_b, by = bound(t_in * n_in * d + 4 * (n_seg * d + n_seg + 1),
+                        n_in * d)
+        ptr_l = ptr.long()
+        return dict(source=src + "segment_sum.cu",
+                    replaces="gsn_tpu/ops/pallas/slab_pool.py:84",
+                    max_abs_err=err, bound_ms=t_b, bound_by=by,
+                    **timed(lambda: k3.segment_sum_sorted(x, ptr),
+                            lambda: k3.segment_sum_sorted_plain(x, ptr),
+                            (lambda: torch.index_add(zeros, 0, idx, x[:n_in]))
+                            if x.dtype == torch.float32 else None,
+                            also={"segment_reduce_ms": lambda: (
+                                torch.segment_reduce(x[:n_in], "sum",
+                                                     offsets=ptr_l))}))
+
+    # f32 (zinc-cli): K3 sums each layer's per-edge messages at their
+    # receivers (its row) and pools the last layer (a log line); K4 is
+    # the backward of both
+    msgs = torch.randn(E, d, device=dev, generator=gen)
+    rows[f"segment_sum_sorted[f32 d={d}]"] = pool_row(
+        msgs, rp, e_real, recv_l, zeros_nd, 4, f"aggregate f32 d={d}")
+    rows[f"segment_sum_sorted[f32 d={d}]"].update(
+        replaces="gsn_tpu/ops/pallas/slab_combine.py:77")
+    x = torch.randn(N, d, device=dev, generator=gen)
+    log_row("zinc-cli", f"segment_sum_sorted[pool f32 d={d}]",
+            pool_row(x, gp, n_real, batch_l, zeros_gd, 4, f"pool f32 d={d}"))
+    rows[f"segment_broadcast[f32 d={d}]"] = dict(
+        source=src + "segment_broadcast.cu",
+        replaces="gsn_tpu/ops/pallas/slab_pool.py:90",
+        **k4_timed_ptr(timed, torch.randn(N, d, device=dev, generator=gen),
+                       rp, E, k4.segment_broadcast,
+                       k4.segment_broadcast_plain))
+    log_row("zinc-cli", f"segment_broadcast[pool backward f32 d={d}]",
+            k4_timed(timed, data, torch.randn(G, d, device=dev,
+                                              generator=gen),
+                     k4.segment_broadcast, k4.segment_broadcast_plain))
+    log(f"[zinc-cli] receivers with edges {n_recv} of {N}")
+    # bf16 (zinc-cli-bf16): K3 and K4 pool only (the messages are fused)
+    xb = torch.randn(N, d, device=dev, generator=gen).to(bf)
+    rows[f"segment_sum_sorted[bf16->f32 d={d}]"] = pool_row(
+        xb, gp, n_real, batch_l, zeros_gd, 2, f"pool bf16->f32 d={d}")
+    rows[f"segment_broadcast[bf16 d={d}]"] = dict(
+        source=src + "segment_broadcast.cu",
+        replaces="gsn_tpu/ops/pallas/slab_pool.py:90",
+        **k4_timed(timed, data, torch.randn(G, d, device=dev,
+                                            generator=gen).to(bf),
+                   k4.segment_broadcast, k4.segment_broadcast_plain))
+    # the pool's launch floor: an empty kernel with its grid (f32 rows of
+    # 150 are not whole float4s: one element a lane, 32 lanes a row)
+    for what, n_rows, lanes in (
+            (f"zinc-cli f32 pool (d={d}, G={G})", G, 32),
+            (f"zinc f32 pool (d={D}, G={main_graphs})", main_graphs, 32),
+            (f"zinc bf16 -> f32 pool (d={D}, G={main_graphs})", main_graphs,
+             16)):
+        floor_ms, blocks = launch_floor_ms(empty, cpm, n_rows, lanes)
+        log(f"[launch floor] {what}: an empty kernel on its grid ({blocks} "
+            f"blocks of 256 threads) {floor_ms} ms")
+    # K3 dB at this width: bf16 -> bf16 (relu pass) and f32 -> bf16 (id_sq)
+    for src_dt, mode in ((bf, "bf16->bf16"), (torch.float32, "f32->bf16")):
+        dH = torch.randn(E, d, device=dev, generator=gen).to(src_dt)
+        err = bf16_check(k3.segment_sum_sorted(dH, sp, perm, bf),
+                         k3.segment_sum_sorted_plain(dH, sp, perm, bf),
+                         f"segment_sum_sorted[{mode} d={d}]")
+        t_in = 2 if src_dt == bf else 4
+        t_b, by = bound(t_in * e_real * d + 2 * n_dst * d
+                        + 4 * (n_dst + 1 + e_real), e_real * d)
+        rows[f"segment_sum_sorted[{mode} d={d}]"] = dict(
+            source=src + "segment_sum.cu",
+            replaces="gsn_tpu/ops/pallas/slab_combine.py:77",
+            max_abs_err=err, bound_ms=t_b, bound_by=by,
+            **timed(lambda: k3.segment_sum_sorted(dH, sp, perm, bf),
+                    lambda: k3.segment_sum_sorted_plain(dH, sp, perm, bf)))
+    torch.cuda.synchronize()
+    return rows
+
+
+def profile_epoch(trainer, state, graphs, epoch_s, tag):
+    """One train epoch under ``torch.profiler``: the device's busy time
+    and its share of the unprofiled epoch's wall time ``epoch_s``."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as exc:
+        log(f"[profile {tag}] not measured ({exc})")
+        return trainer.train_epoch(state, graphs)[0]
+    t0 = time.perf_counter()
+    state, _ = trainer.train_epoch(state, graphs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    try:
+        prof.stop()
+    except RuntimeError as exc:
+        log(f"[profile {tag}] not measured ({exc})")
+        return state
+    events = device_events(prof)
+    if not events:
+        log(f"[profile {tag}] not measured (no device time recorded)")
+        return state
+    busy = sum(us for us, _ in events) / 1e6
+    steps = trainer.epoch_stats["steps"]
+    n_kernels = sum(e.count for _, e in events)
+    log(f"[profile {tag}] one epoch ({steps} steps): device busy {busy:.4f} "
+        f"s in {n_kernels} launches ({busy / steps * 1e3:.3f} ms, "
+        f"{n_kernels / steps:.0f} launches a step); profiled wall "
+        f"{wall:.4f} s; busy share {busy / epoch_s:.4f} of the unprofiled "
+        f"epoch ({epoch_s:.4f} s), idle share {1 - busy / epoch_s:.4f}")
+    events.sort(key=lambda ue: -ue[0])
+    for us, e in events[:8]:
+        log(f"[profile {tag}]   {us / steps:9.1f} us/step  "
+            f"x{e.count / steps:5.1f}  {e.key[:90]}")
+    return state
+
+
+def cli_path(card, root, tag, per_train, per_eval, *extra):
+    """Phase 30's run of the CLI (``zinc_cli_argv`` + ``extra``):
+    launch counters zeroed just before ``cli.main`` and read just after,
+    exactly ``per_train`` a train step and ``per_eval`` an eval step (by
+    kernel and mode); finite histories, the lr at each evaluation, the
+    run's files, its per-epoch times and peak memory.  Returns (args,
+    history, launches by mode, the log records)."""
+    from gsn_tpu_torch import cli
+    argv = zinc_cli_argv(root, *extra)
+    args = vars(cli.build_parser().parse_args(argv))
+    counters = kernel_counters()
+    # the path's own peak: above what earlier phases still hold
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches, fn.modes = 0, {}
+    t0 = time.perf_counter()
+    hist = run_cli(argv)[0]
+    wall = time.perf_counter() - t0
+    modes = {name: dict(fn.modes) for name, fn in counters.items()
+             if fn.modes}
+    run_dir, recs = read_log(args)
+    evals = [r for r in recs if "train_loss" in r]
+    for key, vals in hist.items():
+        if len(vals) != args["num_epochs"] or not np.isfinite(vals).all():
+            raise AssertionError(f"{tag}: history {key} = {vals}")
+    ckpt = cli.checkpoint_path(args, -1)
+    for path in (os.path.join(run_dir, "log.jsonl"),
+                 os.path.join(run_dir, "params.json"), ckpt):
+        if not os.path.exists(path):
+            raise AssertionError(f"{tag}: {path} is missing")
+    n_train = -(-ZINC_SIZES[0] // 128)
+    n_eval = sum(-(-n // 128) for n in ZINC_SIZES)
+    epochs = args["num_epochs"]
+    want = {}
+    for per, n in ((per_train, n_train), (per_eval, n_eval)):
+        for k, ms in per.items():
+            for m, c in ms.items():
+                want.setdefault(k, {}).setdefault(m, 0)
+                want[k][m] += c * n * epochs
+    if modes != want:
+        raise AssertionError(f"{tag}: launches by mode {modes}, expected "
+                             f"{want} ({epochs} epochs of {n_train} train "
+                             f"and {n_eval} eval steps)")
+    log(f"[{tag}] cli.main {wall:.3f} s: {epochs} epochs of {n_train} "
+        f"train steps and {n_eval} eval steps; launches by mode {modes} "
+        f"= a train step {per_train}, an eval step {per_eval}")
+    log(f"[{tag}] watch: {recs[0]['watch_num_params']} parameters")
+    for r in evals:
+        log(f"[{tag}] epoch {r['step']}: train {r['train_loss']:.6f} test "
+            f"{r['test_loss']:.6f} val {r['val_loss']:.6f} lr {r['lr']}; "
+            f"epoch {r['epoch_s']:.4f} s ({r['steps']} steps, median step "
+            f"{r['step_median_s'] * 1e3:.3f} ms, host batching "
+            f"{r['host_batch_s'] / r['steps'] * 1e3:.3f} ms a step = "
+            f"{r['host_batch_s'] / r['epoch_s']:.4f} of the epoch); "
+            f"evaluation {r['eval_s']:.4f} s")
+    log(f"[{tag}] files: {sorted(os.listdir(run_dir))}, checkpoint "
+        f"{os.path.basename(ckpt)}; peak memory "
+        f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.3f} GiB "
+        f"above the {held / 2**30:.3f} GiB earlier phases hold ({card})")
+    return args, hist, modes, evals
+
+
+def cli_phases(dev, card, timed, cpm, empty, main_graphs):
+    """Phases 29-32 (see module docstring); returns the zinc-cli paths'
+    kernel rows."""
+    import tempfile
+    from gsn_tpu_torch import cli
+    from gsn_tpu_torch.data.encoding import encode
+    from gsn_tpu_torch.data.pipeline import prepare_dataset
+    from gsn_tpu_torch.data.synthetic import write_sr16622, write_zinc_dataset
+
+    with tempfile.TemporaryDirectory() as root:
+        # ---- phase 29: the data ----------------------------------------
+        t0 = time.perf_counter()
+        path = write_zinc_dataset(root, ZINC_SIZES, seed=0)
+        wrote = time.perf_counter() - t0
+        times, sets = [], []
+        for _ in range(2):   # cold, then from the cache
+            t0 = time.perf_counter()
+            sets.append(prepare_dataset(
+                path, "chemical", "ZINC", id_scope="global",
+                id_type="cycle_graph", k=[8], root_folder=root,
+                cache_root=os.path.join(root, "cache")))
+            times.append(time.perf_counter() - t0)
+        (cold, n_cls, sizes), (warm, _n, _s) = sets
+        if len(cold) != sum(ZINC_SIZES) or any(
+                not np.array_equal(a["identifiers"], b["identifiers"])
+                for a, b in zip(cold, warm)):
+            raise AssertionError("zinc-cli data: the cache disagrees")
+        _g, _e, d_id, _ed, _dd = encode(warm, "one_hot_unique")
+        log(f"[zinc-cli] data: {len(cold)} molecules ({ZINC_SIZES}) written "
+            f"in {wrote:.3f} s; prepare_dataset cold {times[0]:.3f} s, from "
+            f"its cache {times[1]:.3f} s; orbit sizes {sizes}; id "
+            f"vocabulary {d_id}")
+
+        # ---- phase 30: the path -------------------------------------------
+        L = 4
+        # f32: each layer's per-edge messages summed at the receivers
+        # (K3, backward K4) and the one pool (K3, backward K4)
+        args, hist, modes, evals = cli_path(
+            card, root, "zinc-cli",
+            {"segment_sum_sorted": {"f32->f32": L + 1},
+             "segment_broadcast": {"f32": L + 1}},
+            {"segment_sum_sorted": {"f32->f32": L + 1}})
+        args_bf, _h, modes_bf, _e = cli_path(
+            card, root, "zinc-cli-bf16",
+            {"edge_message_fwd": {"bf16": L, "bf16 id_sq": L},
+             "edge_message_bwd_recv": {"bf16": L, "bf16 id_sq": L},
+             "segment_sum_sorted": {"bf16->bf16": L, "f32->bf16": L,
+                                    "bf16->f32": 1},
+             "segment_broadcast": {"bf16": 1}},
+            {"edge_message_fwd": {"bf16": L},
+             "segment_sum_sorted": {"bf16->f32": 1}},
+            "--compute_dtype", "bfloat16", "--num_epochs", "1",
+            "--results_folder", "bf16")
+        # one epoch of the same trainer under the profiler
+        graphs, cfg = cli.prepare(args)
+        train, test, val = cli.fold_splits(args, graphs, -1)
+        trainer = cli.Trainer(cfg, cli.trainer_config(args), train)
+        state = trainer.init_state(seed=0)
+        profile_epoch(trainer, state, train, evals[-1]["epoch_s"],
+                      "zinc-cli")
+        data = trainer._eval_batches(train, 1)[0].to(dev)
+        rows = zinc_cli_kernels(dev, timed, data, CLI_D, empty, cpm,
+                                main_graphs)
+        d = CLI_D
+        for name, (on, path, kernel, mode) in {
+                f"edge_message_fwd[bf16 d={d}]":
+                    (modes_bf, "zinc-cli-bf16", "edge_message_fwd", "bf16"),
+                f"edge_message_fwd[id_sq bf16 d={d}]":
+                    (modes_bf, "zinc-cli-bf16", "edge_message_fwd",
+                     "bf16 id_sq"),
+                f"edge_message_bwd_recv[bf16 d={d}]":
+                    (modes_bf, "zinc-cli-bf16", "edge_message_bwd_recv",
+                     "bf16"),
+                f"edge_message_bwd_recv[id_sq bf16 d={d}]":
+                    (modes_bf, "zinc-cli-bf16", "edge_message_bwd_recv",
+                     "bf16 id_sq"),
+                f"segment_sum_sorted[f32 d={d}]":
+                    (modes, "zinc-cli", "segment_sum_sorted", "f32->f32"),
+                f"segment_sum_sorted[bf16->f32 d={d}]":
+                    (modes_bf, "zinc-cli-bf16", "segment_sum_sorted",
+                     "bf16->f32"),
+                f"segment_sum_sorted[bf16->bf16 d={d}]":
+                    (modes_bf, "zinc-cli-bf16", "segment_sum_sorted",
+                     "bf16->bf16"),
+                f"segment_sum_sorted[f32->bf16 d={d}]":
+                    (modes_bf, "zinc-cli-bf16", "segment_sum_sorted",
+                     "f32->bf16"),
+                f"segment_broadcast[f32 d={d}]":
+                    (modes, "zinc-cli", "segment_broadcast", "f32"),
+                f"segment_broadcast[bf16 d={d}]":
+                    (modes_bf, "zinc-cli-bf16", "segment_broadcast", "bf16"),
+                }.items():
+            rows[name].update(launches=on[kernel][mode], path=path)
+
+        # ---- phase 31: test and resume ------------------------------------
+        tested = run_cli(zinc_cli_argv(root, "--mode", "test"))[0]
+        want = hist["test_accs"][-1]
+        if not np.isclose(tested["test_acc"], want, rtol=1e-5, atol=0):
+            raise AssertionError(f"--mode test: metric {tested['test_acc']},"
+                                 f" training's last {want}")
+        resumed = run_cli(zinc_cli_argv(root, "--resume", "True",
+                                         "--num_epochs", "3"))[0]
+        _d, recs = read_log(args)
+        if [r["step"] for r in recs if "train_loss" in r][-1] != 2 or len(
+                resumed["train_losses"]) != 1:
+            raise AssertionError("--resume did not continue at epoch 2")
+        straight = run_cli(zinc_cli_argv(root, "--num_epochs", "3",
+                                          "--results_folder", "straight"))[0]
+        got, ref = resumed["train_losses"][-1], straight["train_losses"][-1]
+        if not np.isclose(got, ref, rtol=1e-3, atol=0):
+            raise AssertionError(f"resumed epoch-3 train loss {got}, "
+                                 f"uninterrupted {ref}")
+        log(f"[zinc-cli] --mode test: metric {tested['test_acc']} (training's"
+            f" last {want}); --resume True --num_epochs 3 trained epoch 2 "
+            f"only: train loss {got}, uninterrupted 3 epochs {ref} (rel "
+            f"{abs(got - ref) / abs(ref):.3e}); phase 30's and the "
+            f"uninterrupted run's first 2 epochs' train losses "
+            f"{hist['train_losses']} / {straight['train_losses'][:2]}, equal "
+            f"{hist['train_losses'] == straight['train_losses'][:2]}")
+
+        # ---- phase 32: isomorphism mode ---------------------------------
+        write_sr16622(root)
+        verdicts = {}
+        for model, want in (("GSN_sparse", 0.0), ("MPNN_sparse", 1.0)):
+            out = run_cli([
+                "--seed", "0", "--dataset", "SR_graphs",
+                "--dataset_name", "sr16622", "--root_folder", root,
+                "--cache_folder", os.path.join(root, "cache_sr"),
+                "--id_type", "complete_graph", "--k", "4",
+                "--id_scope", "local", "--id_embedding", "one_hot_encoder",
+                "--model_name", model, "--num_layers", "2", "--d_out", "64",
+                "--msg_kind", "general", "--bn", "False", "--readout", "sum",
+                "--final_projection", "False", "--jk_mlp", "True",
+                "--mode", "isomorphism_test", "--wandb", "False"])
+            if out["failure_percentage"] != want or out["pairs"] != 1:
+                raise AssertionError(f"isomorphism {model}: {out}")
+            verdicts[model] = out["failure_percentage"]
+        log(f"[zinc-cli] isomorphism on SR(16,6,2,2) (4x4 rook's graph, "
+            f"Shrikhande) on the card: failure {verdicts}")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2084,7 +2669,9 @@ def main():
     card = card_line()
     log(f"[smoke] card: {card}")
     full_f32_matmuls()
+    probe = start_launch_probe()
     secs = build.build_all()
+    empty = load_launch_probe(probe)
     log(f"[smoke] built {len(build.SIGNATURES)} kernel libraries in "
         f"{secs:.1f} s")
     for name, text in build.build_logs.items():
@@ -2121,13 +2708,15 @@ def main():
     rows = {}
     cpm = spin_cycles_per_ms()
 
-    def timed(kernel, plain, library=None, fill=None):
+    def timed(kernel, plain, library=None, fill=None, also=None):
         ms, host_ms = time_ms(kernel, cpm)
         row = dict(ms=ms, host_ms=host_ms,
                    plain_ms=time_ms(plain, cpm, guard=False)[0],
                    library_ms=time_ms(library, cpm)[0] if library else None)
         if fill is not None:
             row["fill_ms"] = time_ms(fill, cpm)[0]
+        for key, fn in (also or {}).items():   # more library calls
+            row[key] = time_ms(fn, cpm)[0]
         return row
 
     # K1
@@ -2199,9 +2788,12 @@ def main():
     zeros_gd = torch.zeros(G, D, device=dev)
     batch_l = data.batch[:n_real].long()
     pool_b, _ = bound(4 * (n_real * D + G * D + G + 1), n_real * D)
+    gp_l = data.graph_ptr.long()
     pool = timed(lambda: k3.segment_sum_sorted(A, data.graph_ptr),
                  lambda: k3.segment_sum_sorted_plain(A, data.graph_ptr),
-                 lambda: torch.index_add(zeros_gd, 0, batch_l, A[:n_real]))
+                 lambda: torch.index_add(zeros_gd, 0, batch_l, A[:n_real]),
+                 also={"segment_reduce_ms": lambda: torch.segment_reduce(
+                     A[:n_real], "sum", offsets=gp_l)})
     log("[smoke] segment_sum_sorted[pool] "
         + " ".join(f"{k} {v}" for k, v in pool.items())
         + f" bound_ms {pool_b}")
@@ -2291,6 +2883,7 @@ def main():
     rows.update(bf16_phases(dev, card, timed, zinc, molhiv))
     rows.update(dgn_bf16_phases(dev, card, timed, dgn))
     rows.update(fused_bn_phases(dev, card, timed, zinc))
+    rows.update(cli_phases(dev, card, timed, cpm, empty, G))
 
     # kernel_ms and bound_us repeat ms and bound_ms in the units the
     # port's kernel table uses

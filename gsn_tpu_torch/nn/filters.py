@@ -29,6 +29,13 @@ turns them into (mean, var) and its running statistics, and
 rounded once to bf16) while the bias becomes ``(b1 − mean)·s + bias``;
 the relu pass then runs on those.  In eval the running statistics fold
 in.  In f32, ``bn_mlp`` messages stay on the per-edge path.
+
+Per-edge messages are summed at their receivers through the batch's
+receiver-sorted segment layout (``add_pool`` over ``recv_ptr``: K3
+forward, K4 backward), each receiver's messages in one fixed order: the
+reference sums them with a segment sum (``gsn_tpu/nn/filters.py:581-
+586``), and a float-atomic ``index_add`` here made two runs of one seed
+part within an epoch on the card.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from torch import nn
 
 from gsn_tpu_torch.ops.cuda.slab_message import (ACTS, EdgeSegments,
                                                  edge_message_aggregate)
+from gsn_tpu_torch.ops.cuda.slab_pool import add_pool
 from gsn_tpu_torch.ops.norm import MaskedBatchNorm
 from gsn_tpu_torch.ops.segment import masked_segment_mean, masked_segment_sum
 from .mlp import MLP, choose_activation, dense
@@ -285,11 +293,16 @@ class GSNLayer(nn.Module):
         # the fused path's aggregate stays in the compute dtype; per-edge
         # messages are summed in f32 (reference filters.py:385-394)
         agg = out if fused else self._aggregate(out.float(), recv, n_nodes,
-                                                edge_mask)
+                                                edge_mask, seg)
         return self.update_fn(torch.cat([x.to(agg.dtype), agg], -1),
                               node_mask)
 
-    def _aggregate(self, msgs, recv, n_nodes, edge_mask):
+    def _aggregate(self, msgs, recv, n_nodes, edge_mask, seg=None):
+        """Sum (or mean) of the per-edge messages at their receivers;
+        with ``seg``, a sorted segment sum over its ``recv_ptr`` (the
+        padding edges at the tail lie outside every segment)."""
+        if self.aggr == "add" and seg is not None:
+            return add_pool(msgs, seg.recv_ptr)
         if self.aggr == "add":
             return masked_segment_sum(msgs, recv, n_nodes, edge_mask)
         return masked_segment_mean(msgs, recv, n_nodes, edge_mask)

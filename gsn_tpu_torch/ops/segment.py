@@ -4,7 +4,8 @@
 ``global_add_pool`` / ``global_mean_pool`` and the virtual node's
 ``broadcast_graph_to_nodes`` route through the pool kernels
 (``ops/cuda/slab_pool.py``) over the batch's ``graph_ptr``; the masked
-segment sums serve the message layers' unfused aggregation.
+segment sums serve the message layers' unfused aggregation when no
+segment layout is given.
 """
 
 from __future__ import annotations
