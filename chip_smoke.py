@@ -167,16 +167,32 @@ Phases (any failure is an uncaught exception and a nonzero exit):
     the epoch); K1/K2 (f32 on log lines, bf16 relu and id_sq), K3 (the
     messages' sum, the pools beside ``index_add`` and
     ``segment_reduce``, dB) and K4 at d=150 on one train batch against
-    their plain versions, timed with bounds; and
-    the launch floor, an empty kernel on the grids of this pool and of
-    the zinc path's pools.
+    their plain versions, timed with bounds; K3's launches by form are
+    asserted too (a train step: warp 4 and block 1, the pool; bf16: warp
+    8, block 1; an eval step: warp 4 and block 1, or block 1 in bf16),
+    the pool f32 and each K3 row carry the form ``segment_sum_form``
+    picked and the launch floor of its own grid (``floor_ms``, an empty
+    kernel on ``blocks`` blocks; K1's rows on K1's grid), and the block
+    form called twice on the pool's rows gives the same bits; the launch
+    floor on the zinc path's pool grids goes on log lines.
 31. ``--mode test`` on phase 30's checkpoint gives its last test metric
-    (rtol 1e-5); ``--resume True --num_epochs 3`` trains epoch 2 only,
-    and its train loss is within rtol 1e-3 of an uninterrupted 3-epoch
-    run's.
+    (rtol 1e-5); ``--resume True --num_epochs 3`` trains epoch 2 only;
+    phase 30's two epochs' train losses equal an uninterrupted 3-epoch
+    run's first two, and the resumed epoch's train loss equals its
+    third, bit for bit (every sum on the path has a fixed order).
 32. ``--mode isomorphism_test`` on SR(16,6,2,2) (the 4x4 rook's graph
     and the Shrikhande graph, ``write_sr16622``) on the card: GSN with
     edge-level K3/K4 counts fails 0% of the pairs, the MPNN 100%.
+33. K1 and K3 against their plain versions across widths (SWEEP_D: 2,
+    6, 37, 75, 150, 298) on f32 and bf16: K3 in both forms, with and
+    without ``perm``, into f32 and bf16, over segments of SWEEP_LENGTHS
+    (empty ones, 1 to 2,000 rows) and 300 of 0-4 rows, starting 13 rows
+    in; each call repeated must give the same bits; K1 in every mode
+    (relu, identity, id_sq; with and without A and Pe) with the same
+    segments as receivers.  Sums of the same terms in another order:
+    bf16 within one ulp, f32 within the f32 tolerances plus the
+    worst-case rounding of two f32 sums of the row's terms (the long
+    rows cancel).
 
 Then it prints three lines: ``{"kernels": [...]}`` (each kernel's
 checks, times, bound and its launches on the path named in its
@@ -189,6 +205,7 @@ printing any of them.
 
 import copy
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -227,6 +244,12 @@ HOLD_TRIES = 5
 # K4's stress widths: below a float4, odd, the paths' 70, 128 and 300,
 # and 130 (rows that are not whole float4s past 128)
 K4_STRESS_D = (1, 3, 33, 70, 128, 130, 300)
+# phase 33's widths for K1 and K3 (one pair of elements, three pairs,
+# odd, 75 pairs, zinc-cli's 150, two column tiles of pairs) and segment
+# lengths (empty ones, chunk edges at 31-33 and 64, long ones to 2,000)
+SWEEP_D = (2, 6, 37, 75, 150, 298)
+SWEEP_LENGTHS = (0, 1, 2, 3, 4, 5, 0, 7, 8, 9, 16, 31, 32, 33, 0, 64, 100,
+                 257, 1000, 2000)
 # f32 tolerances (tests/test_mxu_integration.py:48,79-84)
 FWD_RTOL, FWD_ATOL = 2e-4, 2e-5
 GRAD_RTOL = 2e-3
@@ -659,8 +682,9 @@ def train_steps(trainer, state, data, steps, counters):
     """``steps`` Adam steps; the launch counters are zeroed just before
     and read just after.  Returns (state, losses, step seconds,
     launches by name, launches by name and mode)."""
+    from gsn_tpu_torch.ops.cuda import build
     for fn in counters.values():
-        fn.launches, fn.modes = 0, {}
+        build.reset(fn)
     torch.cuda.synchronize()
     losses, step_s = [], []
     for _ in range(steps):
@@ -2155,10 +2179,9 @@ def load_launch_probe(probe):
     return fn
 
 
-def launch_floor_ms(empty, cpm, n_rows, lanes):
-    """Device ms of an empty kernel with K3's grid for ``n_rows`` rows of
-    ``lanes`` lanes (blocks of 256 threads, as ``row_blocks``)."""
-    blocks = -(-n_rows // (256 // lanes))
+def launch_floor_ms(empty, cpm, blocks):
+    """Device ms of an empty kernel on a grid of ``blocks`` blocks of 256
+    threads."""
     stream = torch.cuda.current_stream().cuda_stream
 
     def call():
@@ -2166,7 +2189,26 @@ def launch_floor_ms(empty, cpm, n_rows, lanes):
         if rc:
             raise AssertionError(f"empty kernel: CUDA error {rc}")
 
-    return time_ms(call, cpm)[0], blocks
+    return time_ms(call, cpm)[0]
+
+
+def k3_blocks(form, n_seg, lanes=32):
+    """K3's grid: a block a segment in the block form; in the warp form
+    a group of ``lanes`` lanes a segment, in blocks of 256 threads."""
+    return n_seg if form == "block" else -(-n_seg // (256 // lanes))
+
+
+def k1_blocks(n_rows, lanes=32):
+    """K1's grid (``csrc/edge_message.cu``: group_rows): groups of
+    ``lanes`` lanes that walk 4, 2 or 1 rows, the most that leaves a
+    warp's worth of groups (32) for each of the card's SMs, in blocks of
+    256 threads."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rpg = 4
+    while rpg > 1 and n_rows < rpg * sms * 32:
+        rpg //= 2
+    groups = -(-n_rows // rpg)
+    return -(-groups // (256 // lanes))
 
 
 def zinc_cli_argv(root, *extra):
@@ -2191,6 +2233,21 @@ def zinc_cli_argv(root, *extra):
             "--loss_fn", "L1Loss", "--prediction_fn", "L1Loss",
             "--mode", "train", "--wandb", "False"]
     return argv + list(extra)
+
+
+def zinc_cli_trainer(args, dev):
+    """The trainer of a zinc-cli run's parsed ``args`` (its data written
+    by ``write_zinc_dataset``): (a function making a fresh ``Trainer`` of
+    its configuration, its train graphs, its first train batch in a
+    fixed order on ``dev``)."""
+    from gsn_tpu_torch import cli
+    graphs, cfg = cli.prepare(args)
+    train = cli.fold_splits(args, graphs, -1)[0]
+
+    def make():
+        return cli.Trainer(cfg, cli.trainer_config(args), train)
+
+    return make, train, make()._eval_batches(train, 1)[0].to(dev)
 
 
 def run_cli(argv):
@@ -2284,17 +2341,20 @@ def dtype_tag(dtype):
     return "bf16" if dtype == torch.bfloat16 else "f32"
 
 
-def zinc_cli_kernels(dev, timed, data, d, empty, cpm, main_graphs):
+def zinc_cli_kernels(dev, timed, data, d, empty, cpm, main_pool):
     """Phase 30's kernel checks at the zinc-cli path's shapes (one train
     batch of 128 graphs at the trainer's caps, width d): K1/K2 f32 relu
     (log lines: no zinc-cli path launches them), K1/K2 bf16 relu and
-    id_sq, K3 (f32: the per-edge messages' sum at their receivers and,
-    on a log line, the pool; bf16 -> f32: the pool; each beside
+    id_sq, K3 (f32: the per-edge messages' sum at their receivers, warp
+    form, and the pool, block form; bf16 -> f32: the pool; each beside
     ``index_add`` and ``segment_reduce``; dB bf16 -> bf16 and f32 ->
     bf16) and K4 (f32: the backward of both; bf16: the pool's), each
-    against its plain version and timed; the launch floor (an
-    empty kernel) on the grids of this pool and of the zinc path's pools
-    over ``main_graphs`` graphs.  Returns the rows by name."""
+    against its plain version and timed; the block form called twice
+    on the same rows must give the same bits.  Each K1 and K3 row
+    carries ``floor_ms``, an empty kernel on its grid (``blocks``); the
+    launch floor is also logged on the grids of the zinc path's pools
+    (``main_pool``: its graphs and node slots).  Returns the rows by
+    name."""
     from gsn_tpu_torch.nn.models import edge_segments
     from gsn_tpu_torch.ops.cuda import slab_combine as k3
     from gsn_tpu_torch.ops.cuda import slab_pool as k4
@@ -2305,13 +2365,16 @@ def zinc_cli_kernels(dev, timed, data, d, empty, cpm, main_graphs):
     log(f"[zinc-cli] kernel shapes: d={d}, nodes {n_real}/{N}, edges "
         f"{e_real}/{E}, graphs {int(data.graph_mask.sum())}/{G}")
     rows = {}
+    k1_floor = launch_floor_ms(empty, cpm, k1_blocks(N))
     fwd, bwd = k12_timed(timed, data, d, torch.float32, "relu", gen)
-    log_row("zinc-cli", f"edge_message_fwd[f32 relu d={d}]", fwd)
+    log_row("zinc-cli", f"edge_message_fwd[f32 relu d={d}]",
+            dict(fwd, floor_ms=k1_floor, blocks=k1_blocks(N)))
     log_row("zinc-cli", f"edge_message_bwd_recv[f32 relu d={d}]", bwd)
     bf = torch.bfloat16
     for act, mode in (("relu", "bf16"), ("id_sq", "id_sq bf16")):
         fwd, bwd = k12_timed(timed, data, d, bf, act, gen)
-        rows[f"edge_message_fwd[{mode} d={d}]"] = fwd
+        rows[f"edge_message_fwd[{mode} d={d}]"] = dict(
+            fwd, floor_ms=k1_floor, blocks=k1_blocks(N))
         rows[f"edge_message_bwd_recv[{mode} d={d}]"] = bwd
     src = "gsn_tpu_torch/csrc/"
     seg = edge_segments(data)
@@ -2326,19 +2389,28 @@ def zinc_cli_kernels(dev, timed, data, d, empty, cpm, main_graphs):
 
     def pool_row(x, ptr, n_in, idx, zeros, t_in, what):
         """K3 from ``x``'s first ``n_in`` rows into the segments ``ptr``,
-        against its plain version; timed beside ``index_add`` (f32 only:
-        on bf16 rows it sums in bf16) and ``segment_reduce`` (bf16 out
-        from bf16 rows, so only a time beside the row)."""
+        in the form ``segment_sum_form`` picks, against its plain version;
+        timed beside ``index_add`` (f32 only: on bf16 rows it sums in
+        bf16) and ``segment_reduce`` (bf16 out from bf16 rows, so only a
+        time beside the row), with the launch floor of its grid."""
         n_seg = ptr.numel() - 1
-        err = max_err(k3.segment_sum_sorted(x, ptr),
-                      k3.segment_sum_sorted_plain(x, ptr), FWD_RTOL,
+        form = k3.segment_sum_form(n_seg, x.shape[0])
+        got = k3.segment_sum_sorted(x, ptr)
+        err = max_err(got, k3.segment_sum_sorted_plain(x, ptr), FWD_RTOL,
                       FWD_ATOL, f"segment_sum_sorted[{what}]")
+        if form == "block" and not torch.equal(
+                got, k3.segment_sum_sorted(x, ptr)):
+            raise AssertionError(f"segment_sum_sorted[{what}]: the block "
+                                 f"form gave other bits on a second call")
         t_b, by = bound(t_in * n_in * d + 4 * (n_seg * d + n_seg + 1),
                         n_in * d)
         ptr_l = ptr.long()
+        blocks = k3_blocks(form, n_seg)
         return dict(source=src + "segment_sum.cu",
                     replaces="gsn_tpu/ops/pallas/slab_pool.py:84",
-                    max_abs_err=err, bound_ms=t_b, bound_by=by,
+                    form=form, max_abs_err=err, bound_ms=t_b, bound_by=by,
+                    floor_ms=launch_floor_ms(empty, cpm, blocks),
+                    blocks=blocks,
                     **timed(lambda: k3.segment_sum_sorted(x, ptr),
                             lambda: k3.segment_sum_sorted_plain(x, ptr),
                             (lambda: torch.index_add(zeros, 0, idx, x[:n_in]))
@@ -2348,7 +2420,7 @@ def zinc_cli_kernels(dev, timed, data, d, empty, cpm, main_graphs):
                                                      offsets=ptr_l))}))
 
     # f32 (zinc-cli): K3 sums each layer's per-edge messages at their
-    # receivers (its row) and pools the last layer (a log line); K4 is
+    # receivers (warp form) and pools the last layer (block form); K4 is
     # the backward of both
     msgs = torch.randn(E, d, device=dev, generator=gen)
     rows[f"segment_sum_sorted[f32 d={d}]"] = pool_row(
@@ -2356,8 +2428,8 @@ def zinc_cli_kernels(dev, timed, data, d, empty, cpm, main_graphs):
     rows[f"segment_sum_sorted[f32 d={d}]"].update(
         replaces="gsn_tpu/ops/pallas/slab_combine.py:77")
     x = torch.randn(N, d, device=dev, generator=gen)
-    log_row("zinc-cli", f"segment_sum_sorted[pool f32 d={d}]",
-            pool_row(x, gp, n_real, batch_l, zeros_gd, 4, f"pool f32 d={d}"))
+    rows[f"segment_sum_sorted[pool f32 d={d}]"] = pool_row(
+        x, gp, n_real, batch_l, zeros_gd, 4, f"pool f32 d={d}")
     rows[f"segment_broadcast[f32 d={d}]"] = dict(
         source=src + "segment_broadcast.cu",
         replaces="gsn_tpu/ops/pallas/slab_pool.py:90",
@@ -2379,16 +2451,16 @@ def zinc_cli_kernels(dev, timed, data, d, empty, cpm, main_graphs):
         **k4_timed(timed, data, torch.randn(G, d, device=dev,
                                             generator=gen).to(bf),
                    k4.segment_broadcast, k4.segment_broadcast_plain))
-    # the pool's launch floor: an empty kernel with its grid (f32 rows of
-    # 150 are not whole float4s: one element a lane, 32 lanes a row)
-    for what, n_rows, lanes in (
-            (f"zinc-cli f32 pool (d={d}, G={G})", G, 32),
-            (f"zinc f32 pool (d={D}, G={main_graphs})", main_graphs, 32),
-            (f"zinc bf16 -> f32 pool (d={D}, G={main_graphs})", main_graphs,
-             16)):
-        floor_ms, blocks = launch_floor_ms(empty, cpm, n_rows, lanes)
-        log(f"[launch floor] {what}: an empty kernel on its grid ({blocks} "
-            f"blocks of 256 threads) {floor_ms} ms")
+    # the launch floor on the zinc path's pool grids (d=128, 1024 graphs
+    # over its node slots: the f32 rows' lanes are a warp, the bf16 rows'
+    # a half warp in the warp form)
+    main_graphs = main_pool[0]
+    for what, lanes in (("f32", 32), ("bf16 -> f32", 16)):
+        form = k3.segment_sum_form(*main_pool)
+        blocks = k3_blocks(form, main_graphs, lanes)
+        log(f"[launch floor] zinc {what} pool (d={D}, G={main_graphs}, "
+            f"{form} form): an empty kernel on its grid ({blocks} blocks "
+            f"of 256 threads) {launch_floor_ms(empty, cpm, blocks)} ms")
     # K3 dB at this width: bf16 -> bf16 (relu pass) and f32 -> bf16 (id_sq)
     for src_dt, mode in ((bf, "bf16->bf16"), (torch.float32, "f32->bf16")):
         dH = torch.randn(E, d, device=dev, generator=gen).to(src_dt)
@@ -2398,10 +2470,13 @@ def zinc_cli_kernels(dev, timed, data, d, empty, cpm, main_graphs):
         t_in = 2 if src_dt == bf else 4
         t_b, by = bound(t_in * e_real * d + 2 * n_dst * d
                         + 4 * (n_dst + 1 + e_real), e_real * d)
+        form = k3.segment_sum_form(n_dst, perm.numel())
+        blocks = k3_blocks(form, n_dst)
         rows[f"segment_sum_sorted[{mode} d={d}]"] = dict(
             source=src + "segment_sum.cu",
-            replaces="gsn_tpu/ops/pallas/slab_combine.py:77",
+            replaces="gsn_tpu/ops/pallas/slab_combine.py:77", form=form,
             max_abs_err=err, bound_ms=t_b, bound_by=by,
+            floor_ms=launch_floor_ms(empty, cpm, blocks), blocks=blocks,
             **timed(lambda: k3.segment_sum_sorted(dH, sp, perm, bf),
                     lambda: k3.segment_sum_sorted_plain(dH, sp, perm, bf)))
     torch.cuda.synchronize()
@@ -2446,14 +2521,17 @@ def profile_epoch(trainer, state, graphs, epoch_s, tag):
     return state
 
 
-def cli_path(card, root, tag, per_train, per_eval, *extra):
+def cli_path(card, root, tag, per_train, per_eval, forms, *extra):
     """Phase 30's run of the CLI (``zinc_cli_argv`` + ``extra``):
     launch counters zeroed just before ``cli.main`` and read just after,
     exactly ``per_train`` a train step and ``per_eval`` an eval step (by
-    kernel and mode); finite histories, the lr at each evaluation, the
+    kernel and mode) and ``forms`` (K3's launches by form, a train step
+    and an eval step); finite histories, the lr at each evaluation, the
     run's files, its per-epoch times and peak memory.  Returns (args,
-    history, launches by mode, the log records)."""
+    history, launches by mode, K3's launches by form, the log
+    records)."""
     from gsn_tpu_torch import cli
+    from gsn_tpu_torch.ops.cuda import build
     argv = zinc_cli_argv(root, *extra)
     args = vars(cli.build_parser().parse_args(argv))
     counters = kernel_counters()
@@ -2461,12 +2539,13 @@ def cli_path(card, root, tag, per_train, per_eval, *extra):
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
-        fn.launches, fn.modes = 0, {}
+        build.reset(fn)
     t0 = time.perf_counter()
     hist = run_cli(argv)[0]
     wall = time.perf_counter() - t0
     modes = {name: dict(fn.modes) for name, fn in counters.items()
              if fn.modes}
+    k3_forms = dict(counters["segment_sum_sorted"].forms)
     run_dir, recs = read_log(args)
     evals = [r for r in recs if "train_loss" in r]
     for key, vals in hist.items():
@@ -2486,13 +2565,19 @@ def cli_path(card, root, tag, per_train, per_eval, *extra):
             for m, c in ms.items():
                 want.setdefault(k, {}).setdefault(m, 0)
                 want[k][m] += c * n * epochs
-    if modes != want:
-        raise AssertionError(f"{tag}: launches by mode {modes}, expected "
-                             f"{want} ({epochs} epochs of {n_train} train "
-                             f"and {n_eval} eval steps)")
+    want_forms = {}
+    for per, n in zip(forms, (n_train, n_eval)):
+        for f, c in per.items():
+            want_forms[f] = want_forms.get(f, 0) + c * n * epochs
+    if modes != want or k3_forms != want_forms:
+        raise AssertionError(f"{tag}: launches by mode {modes}, K3's by "
+                             f"form {k3_forms}, expected {want} and "
+                             f"{want_forms} ({epochs} epochs of {n_train} "
+                             f"train and {n_eval} eval steps)")
     log(f"[{tag}] cli.main {wall:.3f} s: {epochs} epochs of {n_train} "
         f"train steps and {n_eval} eval steps; launches by mode {modes} "
-        f"= a train step {per_train}, an eval step {per_eval}")
+        f"= a train step {per_train}, an eval step {per_eval}; K3 by form "
+        f"{k3_forms} = a train and an eval step {forms}")
     log(f"[{tag}] watch: {recs[0]['watch_num_params']} parameters")
     for r in evals:
         log(f"[{tag}] epoch {r['step']}: train {r['train_loss']:.6f} test "
@@ -2506,10 +2591,10 @@ def cli_path(card, root, tag, per_train, per_eval, *extra):
         f"{os.path.basename(ckpt)}; peak memory "
         f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.3f} GiB "
         f"above the {held / 2**30:.3f} GiB earlier phases hold ({card})")
-    return args, hist, modes, evals
+    return args, hist, modes, k3_forms, evals
 
 
-def cli_phases(dev, card, timed, cpm, empty, main_graphs):
+def cli_phases(dev, card, timed, cpm, empty, main_pool):
     """Phases 29-32 (see module docstring); returns the zinc-cli paths'
     kernel rows."""
     import tempfile
@@ -2546,12 +2631,14 @@ def cli_phases(dev, card, timed, cpm, empty, main_graphs):
         L = 4
         # f32: each layer's per-edge messages summed at the receivers
         # (K3, backward K4) and the one pool (K3, backward K4)
-        args, hist, modes, evals = cli_path(
+        # (K3's forms: the message sums and dB warp, the pool block)
+        args, hist, modes, forms, evals = cli_path(
             card, root, "zinc-cli",
             {"segment_sum_sorted": {"f32->f32": L + 1},
              "segment_broadcast": {"f32": L + 1}},
-            {"segment_sum_sorted": {"f32->f32": L + 1}})
-        args_bf, _h, modes_bf, _e = cli_path(
+            {"segment_sum_sorted": {"f32->f32": L + 1}},
+            ({"warp": L, "block": 1}, {"warp": L, "block": 1}))
+        args_bf, _h, modes_bf, forms_bf, _e = cli_path(
             card, root, "zinc-cli-bf16",
             {"edge_message_fwd": {"bf16": L, "bf16 id_sq": L},
              "edge_message_bwd_recv": {"bf16": L, "bf16 id_sq": L},
@@ -2560,18 +2647,17 @@ def cli_phases(dev, card, timed, cpm, empty, main_graphs):
              "segment_broadcast": {"bf16": 1}},
             {"edge_message_fwd": {"bf16": L},
              "segment_sum_sorted": {"bf16->f32": 1}},
+            ({"warp": 2 * L, "block": 1}, {"block": 1}),
             "--compute_dtype", "bfloat16", "--num_epochs", "1",
             "--results_folder", "bf16")
         # one epoch of the same trainer under the profiler
-        graphs, cfg = cli.prepare(args)
-        train, test, val = cli.fold_splits(args, graphs, -1)
-        trainer = cli.Trainer(cfg, cli.trainer_config(args), train)
+        make_trainer, train, data = zinc_cli_trainer(args, dev)
+        trainer = make_trainer()
         state = trainer.init_state(seed=0)
         profile_epoch(trainer, state, train, evals[-1]["epoch_s"],
                       "zinc-cli")
-        data = trainer._eval_batches(train, 1)[0].to(dev)
         rows = zinc_cli_kernels(dev, timed, data, CLI_D, empty, cpm,
-                                main_graphs)
+                                main_pool)
         d = CLI_D
         for name, (on, path, kernel, mode) in {
                 f"edge_message_fwd[bf16 d={d}]":
@@ -2586,7 +2672,9 @@ def cli_phases(dev, card, timed, cpm, empty, main_graphs):
                     (modes_bf, "zinc-cli-bf16", "edge_message_bwd_recv",
                      "bf16 id_sq"),
                 f"segment_sum_sorted[f32 d={d}]":
-                    (modes, "zinc-cli", "segment_sum_sorted", "f32->f32"),
+                    (forms, "zinc-cli", None, "warp"),
+                f"segment_sum_sorted[pool f32 d={d}]":
+                    (forms, "zinc-cli", None, "block"),
                 f"segment_sum_sorted[bf16->f32 d={d}]":
                     (modes_bf, "zinc-cli-bf16", "segment_sum_sorted",
                      "bf16->f32"),
@@ -2601,7 +2689,8 @@ def cli_phases(dev, card, timed, cpm, empty, main_graphs):
                 f"segment_broadcast[bf16 d={d}]":
                     (modes_bf, "zinc-cli-bf16", "segment_broadcast", "bf16"),
                 }.items():
-            rows[name].update(launches=on[kernel][mode], path=path)
+            rows[name].update(launches=(on[kernel] if kernel else on)[mode],
+                              path=path)
 
         # ---- phase 31: test and resume ------------------------------------
         tested = run_cli(zinc_cli_argv(root, "--mode", "test"))[0]
@@ -2617,10 +2706,17 @@ def cli_phases(dev, card, timed, cpm, empty, main_graphs):
             raise AssertionError("--resume did not continue at epoch 2")
         straight = run_cli(zinc_cli_argv(root, "--num_epochs", "3",
                                           "--results_folder", "straight"))[0]
+        # every sum on the path has a fixed order (K3's block form too),
+        # so runs from one seed agree bit for bit, and so does a resume
         got, ref = resumed["train_losses"][-1], straight["train_losses"][-1]
-        if not np.isclose(got, ref, rtol=1e-3, atol=0):
+        if hist["train_losses"] != straight["train_losses"][:2]:
+            raise AssertionError(
+                f"phase 30's first 2 epochs' train losses "
+                f"{hist['train_losses']}, the uninterrupted run's "
+                f"{straight['train_losses'][:2]}: not bit for bit")
+        if got != ref:
             raise AssertionError(f"resumed epoch-3 train loss {got}, "
-                                 f"uninterrupted {ref}")
+                                 f"uninterrupted {ref}: not bit for bit")
         log(f"[zinc-cli] --mode test: metric {tested['test_acc']} (training's"
             f" last {want}); --resume True --num_epochs 3 trained epoch 2 "
             f"only: train loss {got}, uninterrupted 3 epochs {ref} (rel "
@@ -2649,6 +2745,92 @@ def cli_phases(dev, card, timed, cpm, empty, main_graphs):
         log(f"[zinc-cli] isomorphism on SR(16,6,2,2) (4x4 rook's graph, "
             f"Shrikhande) on the card: failure {verdicts}")
     return rows
+
+
+def sweep_layout(dev):
+    """Phase 33's segments: SWEEP_LENGTHS, then 300 segments of 0-4 rows,
+    as (K3's ptr [S+1], starting 13 positions in, over rows of which 29
+    trail the last segment; a permutation of the rows (positions -> row
+    ids); K1's recv_ptr over the same lengths from edge 0, with a sender
+    for each edge among the S nodes)."""
+    rng = np.random.RandomState(9)
+    lengths = np.r_[SWEEP_LENGTHS, rng.randint(0, 5, 300)]
+    ends = np.cumsum(lengths)
+    n_rows = 13 + int(ends[-1]) + 29
+    as_dev = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
+        np.r_[13, 13 + ends], rng.permutation(n_rows), np.r_[0, ends],
+        rng.randint(0, len(lengths), int(ends[-1])))]
+    return (*as_dev, n_rows)
+
+
+def order_check(got, want, abs_sum, counts, what):
+    """A sum's kernel output against its plain version, which adds the
+    same terms in another order: bf16 within one ulp (``bf16_check``);
+    f32 within the f32 tolerances plus, for a row of n terms whose
+    absolute values sum to S, 2 (n - 1) 2^-24 S (the worst-case error of
+    two f32 sums of the same terms: the sweep's long rows cancel)."""
+    if want.dtype == torch.bfloat16:
+        return bf16_check(got, want, what)
+    slack = 2 * (counts - 1).clamp(min=0)[:, None] * 2.0 ** -24 * abs_sum
+    err = (got - want).abs()
+    if not bool((err <= FWD_ATOL + FWD_RTOL * want.abs() + slack).all()):
+        raise AssertionError(f"{what}: kernel disagrees with its plain "
+                             f"version (max abs err {float(err.max())})")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def width_sweep(dev):
+    """Phase 33 (see module docstring); returns the number of cases, each
+    equal to its plain version within its tolerance."""
+    from gsn_tpu_torch.ops.cuda import slab_combine as k3
+    from gsn_tpu_torch.ops.cuda import slab_message as k12
+    ptr, perm, recv_ptr, send, n_rows = sweep_layout(dev)
+    n_nodes, n_edges = recv_ptr.numel() - 1, send.numel()
+    recv = k12.receivers(recv_ptr)
+    f32, bf = torch.float32, torch.bfloat16
+    cases = 0
+    for d in SWEEP_D:
+        gen = torch.Generator(device=dev).manual_seed(d)
+
+        def rnd(*shape):
+            return torch.randn(*shape, device=dev, generator=gen)
+
+        rows = rnd(n_rows, d)
+        for t_in, t_out, form, p in itertools.product(
+                (f32, bf), (f32, bf), k3.FORMS, (None, perm)):
+            x = rows.to(t_in)
+            tag = (f"sweep K3 {form} {dtype_tag(t_in)}->{dtype_tag(t_out)} "
+                   f"d={d}{' perm' if p is not None else ''}")
+            got = k3.segment_sum_sorted_in(form, x, ptr, p, t_out)
+            order_check(got, k3.segment_sum_sorted_plain(x, ptr, p, t_out),
+                        k3.segment_sum_sorted_plain(x.abs(), ptr, p),
+                        ptr.diff(), tag)
+            if not torch.equal(got, k3.segment_sum_sorted_in(form, x, ptr,
+                                                             p, t_out)):
+                raise AssertionError(f"{tag}: two calls differ")
+            cases += 1
+        b1 = rnd(d)
+        ops = rnd(n_nodes, d), rnd(n_nodes, d), rnd(n_edges + 29, d)
+        for dtype, act, has_a, has_pe in itertools.product(
+                (f32, bf), ("relu", "identity", "id_sq"), (True, False),
+                (True, False)):
+            A, B, Pe = (t.to(dtype) for t in ops)
+            A, Pe = A if has_a else None, Pe if has_pe else None
+            tag = (f"sweep K1 {dtype_tag(dtype)} {act} d={d} A={has_a} "
+                   f"Pe={has_pe}")
+            h = k12._pre_activation(A, B, Pe, b1, recv, send).abs()
+            if act == "id_sq":
+                h = torch.cat([h, h * h], dim=1)
+            abs_sum = torch.zeros(n_nodes, h.shape[1], device=dev
+                                  ).index_add_(0, recv, h)
+            order_check(
+                k12.edge_message_fwd(A, B, Pe, b1, recv_ptr, send, act),
+                k12.edge_message_fwd_plain(A, B, Pe, b1, recv_ptr, send,
+                                           act), abs_sum, recv_ptr.diff(),
+                tag)
+            cases += 1
+    torch.cuda.synchronize()
+    return cases
 
 
 def main():
@@ -2883,7 +3065,12 @@ def main():
     rows.update(bf16_phases(dev, card, timed, zinc, molhiv))
     rows.update(dgn_bf16_phases(dev, card, timed, dgn))
     rows.update(fused_bn_phases(dev, card, timed, zinc))
-    rows.update(cli_phases(dev, card, timed, cpm, empty, G))
+    rows.update(cli_phases(dev, card, timed, cpm, empty, (G, N)))
+
+    # ---- phase 33: K1 and K3 across widths ---------------------------------
+    log(f"[sweep] K1 and K3 at d in {SWEEP_D}, segment lengths "
+        f"{SWEEP_LENGTHS} and 300 of 0-4 rows: {width_sweep(dev)} cases "
+        f"equal their plain versions")
 
     # kernel_ms and bound_us repeat ms and bound_ms in the units the
     # port's kernel table uses

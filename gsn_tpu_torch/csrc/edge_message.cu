@@ -6,8 +6,8 @@
 // receiver-side slab reduction of gsn_tpu/ops/pallas/slab_combine.py:
 // slab_combine_sum.  The TPU kernel moved its gathers and scatters onto
 // the matrix unit as one-hot products over chunk slabs, then combined the
-// slabs; here each warp walks one receiver's edges in the batch's
-// receiver-sorted order (CSR recv_ptr) and gathers the sender rows
+// slabs; here the lanes walk each receiver's edges in the batch's
+// receiver-sorted order (CSR recv_ptr) and gather the sender rows
 // directly, so there are no slabs and no combine pass.
 //
 // Bound: bytes.  Per feature the work is a handful of adds, far below
@@ -41,7 +41,24 @@
 // sum, the row sum is rounded once on its store, and dH, a masked copy of
 // g, is exact.  The reference also rounds each chunk's partial sum; a row
 // here has no chunks.
-#include "common.cuh"
+//
+// The two kernels walk differently.  K2 gives a warp (a half warp for a
+// bf16 row of at most 128 elements) one receiver and strides over its
+// columns, walking the edges once per stride of 32 accesses.  K1 walks
+// each receiver's edges once with a register tile (row_tile.cuh): at a
+// receiver's 2.3 edges (the ZINC batches) a walk is a short chain of
+// dependent loads, recv_ptr -> send -> B, which a column loop like K2's
+// pays ceil(d / 32) times over at one element a lane (d=150: 5 times).
+// K1's lanes hold 2-element accesses where 4 or 8 do not fit, a group
+// walks up to kRowsPerGroup consecutive rows (one recv_ptr load and one
+// send chunk of the group's lanes serve all of them, send handed out by
+// __shfl_sync), and the sender and Pe rows of up to 4 edges
+// (k1_in_flight) are loaded before any is converted or added.  The adds
+// keep each element's edge order and each message's rounding, so K1's
+// bits are those of a walk over one column and one edge at a time.
+#include <climits>
+
+#include "row_tile.cuh"
 
 namespace gsn {
 
@@ -52,7 +69,20 @@ constexpr int kIdentity = 0, kRelu = 1, kIdSq = 2;
 template <typename T, int ACT>
 using SqT = std::conditional_t<ACT == kIdSq, float, T>;
 
-template <typename T, int V, int LANES, int ACT, bool HAS_A, bool HAS_PE>
+// Edges whose sender and Pe rows K1 loads before any is added: 4 for a
+// tile of at most 4 columns a lane, else 2.  A larger tile's in-flight
+// registers cost more resident warps than the loads gain: a receiver
+// has 2.3 edges on average (PERF.md, section 6).
+template <int P>
+__host__ __device__ constexpr int k1_in_flight() {
+  return P <= 4 ? 4 : 2;
+}
+
+// K1.  A group of LANES lanes walks rows_per_group consecutive receiver
+// rows, each once (see the header): lane i holds the first edge of row
+// row0 + i, and send for a chunk of LANES edges of the group's range.
+template <typename T, int V, int NG, int LANES, int ACT, bool HAS_A,
+          bool HAS_PE>
 __global__ void __launch_bounds__(kThreads)
 edge_message_fwd_kernel(const T* __restrict__ A,
                         const T* __restrict__ B,
@@ -60,49 +90,89 @@ edge_message_fwd_kernel(const T* __restrict__ A,
                         const float* __restrict__ b1,
                         const int32_t* __restrict__ recv_ptr,
                         const int32_t* __restrict__ send,
-                        SqT<T, ACT>* __restrict__ out, int n_rows, int d) {
+                        SqT<T, ACT>* __restrict__ out, int n_rows, int d,
+                        int rows_per_group) {
   constexpr bool SQ = ACT == kIdSq;
-  const int row = blockIdx.x * (kThreads / LANES) + threadIdx.x / LANES;
+  constexpr int P = NG * V;          // columns a lane holds
+  constexpr int TW = LANES * P;      // columns a tile spans
+  constexpr int IF = k1_in_flight<P>();
   const int lane = threadIdx.x % LANES;
-  if (row >= n_rows) return;
-  SqT<T, ACT>* o = out + (size_t)row * (SQ ? 2 * d : d);
-  const int e0 = recv_ptr[row];
-  const int e1 = recv_ptr[row + 1];
-  if (e0 == e1) {  // no edges (padding rows too): no A or b1 reads
-    for (int c = lane * V; c < d; c += LANES * V) {
-      Frag<V>::zero().store(o + c);
-      if (SQ) Frag<V>::zero().store(o + d + c);
-    }
-    return;
-  }
-  for (int c = lane * V; c < d; c += LANES * V) {
-    const Frag<V> a = HAS_A ? Frag<V>::load(A + (size_t)row * d + c)
-                            : Frag<V>::zero();
-    const Frag<V> bias = Frag<V>::load(b1 + c);
-    Frag<V> acc = Frag<V>::zero(), acc2 = Frag<V>::zero();
-    for (int e = e0; e < e1; ++e) {
-      const int s = send[e];
-      const Frag<V> h = Frag<V>::load(B + (size_t)s * d + c);
-      const Frag<V> pe = HAS_PE ? Frag<V>::load(Pe + (size_t)e * d + c)
-                                : Frag<V>::zero();
+  const int row0 = (blockIdx.x * (kThreads / LANES) + threadIdx.x / LANES)
+                   * rows_per_group;
+  if (row0 >= n_rows) return;
+  const unsigned mask = group_mask<LANES>();
+  const int nr = min(rows_per_group, n_rows - row0);
+  const int first = lane <= nr ? recv_ptr[row0 + lane] : 0;
+  const int e_end = __shfl_sync(mask, first, nr, LANES);
+  const int width = SQ ? 2 * d : d;
+
+  for (int t0 = 0; t0 < d; t0 += TW) {
+    const int tc = min(TW, d - t0);
+    float bias[P];
+    tile_load<V, NG, LANES>(b1 + t0, tc, lane, bias);
+    int cb = INT_MIN / 2, s_own = 0;   // the send chunk the lanes hold
+    for (int r = 0; r < nr; ++r) {
+      const int row = row0 + r;
+      const int e0 = __shfl_sync(mask, first, r, LANES);
+      const int e1 = __shfl_sync(mask, first, r + 1, LANES);
+      float acc[P], acc2[P];
+      tile_zero(acc);
+      tile_zero(acc2);
+      if (e0 < e1) {  // a row with no edges (padding too) stores zeros
+        float a[P];
+        if (HAS_A)
+          tile_load<V, NG, LANES>(A + (size_t)row * d + t0, tc, lane, a);
+        else
+          tile_zero(a);
+        for (int e = e0; e < e1;) {
+          if (e >= cb + LANES) {
+            cb = e;
+            s_own = cb + lane < e_end ? send[cb + lane] : 0;
+          }
+          const int nu = min(IF, min(e1 - e, cb + LANES - e));
+          Words<T, V> hw[IF][NG], pw[IF][NG];
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
-        // the reference's order: B[send] + A[recv] + Pe + b1
-        float x = h.v[i];
-        if (HAS_A) x += a.v[i];
-        if (HAS_PE) x += pe.v[i];
-        x += bias.v[i];
-        if (ACT == kRelu) x = fmaxf(x, 0.f);
-        if (SQ) {
-          acc.v[i] += x;
-          acc2.v[i] += x * x;
-        } else {
-          acc.v[i] += round_to<T>(x);  // a bf16 message is rounded
+          for (int u = 0; u < IF; ++u) {
+            const int s =
+                __shfl_sync(mask, s_own, e - cb + min(u, nu - 1), LANES);
+            if (u < nu) {
+              tile_load_words<V, NG, LANES>(B + (size_t)s * d + t0, tc, lane,
+                                            hw[u]);
+              if (HAS_PE)
+                tile_load_words<V, NG, LANES>(Pe + (size_t)(e + u) * d + t0,
+                                              tc, lane, pw[u]);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < IF; ++u) {
+            if (u < nu) {
+              float h[P], pe[P];
+              tile_unpack(hw[u], h);
+              if (HAS_PE) tile_unpack(pw[u], pe);
+#pragma unroll
+              for (int i = 0; i < P; ++i) {
+                // the reference's order: B[send] + A[recv] + Pe + b1
+                float x = h[i];
+                if (HAS_A) x += a[i];
+                if (HAS_PE) x += pe[i];
+                x += bias[i];
+                if (ACT == kRelu) x = fmaxf(x, 0.f);
+                if (SQ) {
+                  acc[i] += x;
+                  acc2[i] += x * x;
+                } else {
+                  acc[i] += round_to<T>(x);  // a bf16 message is rounded
+                }
+              }
+            }
+          }
+          e += nu;
         }
       }
+      SqT<T, ACT>* o = out + (size_t)row * width + t0;
+      tile_store<V, NG, LANES>(o, tc, lane, acc);
+      if (SQ) tile_store<V, NG, LANES>(o + d, tc, lane, acc2);
     }
-    acc.store(o + c);
-    if (SQ) acc2.store(o + d + c);
   }
 }
 
@@ -173,6 +243,23 @@ void act_switch(int act, F&& f) {
   else f(std::integral_constant<int, kIdentity>());
 }
 
+// Receiver rows a group of K1 walks: kRowsPerGroup when the rows leave
+// at least a warp's worth of groups for each of the card's SMs at that
+// many a group (a batch of 1024 graphs), fewer otherwise, so a small
+// batch (128 graphs at d=150) still spreads over the card.
+constexpr int kRowsPerGroup = 4;
+inline int group_rows(int n_rows) {
+  static const int fill = [] {
+    int dev = 0, sms = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms * kWarp;
+  }();
+  int rpg = kRowsPerGroup;
+  while (rpg > 1 && n_rows < rpg * fill) rpg /= 2;
+  return rpg;
+}
+
 template <typename T>
 int launch_fwd(const T* A, const T* B, const T* Pe, const float* b1,
                const int32_t* recv_ptr, const int32_t* send, void* out,
@@ -181,23 +268,27 @@ int launch_fwd(const T* A, const T* B, const T* Pe, const float* b1,
   if (act < kIdentity || act > kIdSq)
     return static_cast<int>(cudaErrorInvalidValue);
   const int t = sizeof(T);
-  const int vec = vec_width<T>(d, {{A, t}, {B, t}, {Pe, t}, {b1, 4},
-                                   {out, act == kIdSq ? 4 : t}});
+  int vec = tile_vec_width<T>(d, {{A, t}, {B, t}, {Pe, t}, {b1, 4},
+                                  {out, act == kIdSq ? 4 : t}});
+  // The moments pass stores 2 f32 a data element: at 8 bf16 a lane (a
+  // half warp a row) each lane stores 32 bytes of each moment in two
+  // 16-byte halves, and it measured 1.5-1.7x slower than at 4 a lane (a
+  // warp a row, 512 contiguous bytes a store; PERF.md, section 6).
+  if (act == kIdSq && vec == 8) vec = 4;
+  const int rpg = group_rows(n_rows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  vec_switch<T>(vec, [&](auto v) {
-    constexpr int V = decltype(v)::value;
-    lanes_switch<V>(d, [&](auto l) {
-      constexpr int LANES = decltype(l)::value;
-      const dim3 grid(row_blocks(n_rows, LANES));
-      act_switch(act, [&](auto ac) {
-        constexpr int ACT = decltype(ac)::value;
-        GSN_BOOL_SWITCH(has_a, HA, [&] {
-          GSN_BOOL_SWITCH(has_pe, HP, [&] {
-            edge_message_fwd_kernel<T, V, LANES, ACT, HA, HP>
-                <<<grid, kThreads, 0, st>>>(
-                    A, B, Pe, b1, recv_ptr, send,
-                    static_cast<SqT<T, ACT>*>(out), n_rows, d);
-          });
+  tile_switch<T>(vec, d, [&](auto v, auto ng, auto l) {
+    constexpr int V = decltype(v)::value, NG = decltype(ng)::value;
+    constexpr int LANES = decltype(l)::value;
+    const dim3 grid(row_blocks((n_rows + rpg - 1) / rpg, LANES));
+    act_switch(act, [&](auto ac) {
+      constexpr int ACT = decltype(ac)::value;
+      GSN_BOOL_SWITCH(has_a, HA, [&] {
+        GSN_BOOL_SWITCH(has_pe, HP, [&] {
+          edge_message_fwd_kernel<T, V, NG, LANES, ACT, HA, HP>
+              <<<grid, kThreads, 0, st>>>(
+                  A, B, Pe, b1, recv_ptr, send,
+                  static_cast<SqT<T, ACT>*>(out), n_rows, d, rpg);
         });
       });
     });

@@ -54,9 +54,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                            I, I, I, I, I, P],
     },
     "segment_sum": {
-        "gsn_segment_sum_sorted": [P, P, P, P, I, I, P],
-        "gsn_segment_sum_sorted_bf16": [P, P, P, P, I, I, I, P],
-        "gsn_segment_sum_sorted_f32_bf16": [P, P, P, P, I, I, P],
+        "gsn_segment_sum_sorted": [P, P, P, P, I, I, I, P],
+        "gsn_segment_sum_sorted_bf16": [P, P, P, P, I, I, I, I, P],
+        "gsn_segment_sum_sorted_f32_bf16": [P, P, P, P, I, I, I, P],
     },
     "segment_broadcast": {
         "gsn_segment_broadcast": [P, P, I, P, I, I, P],
@@ -250,18 +250,27 @@ def require(what, device, *tensors, dtype=None) -> None:
 
 
 def counted(fn):
-    """Give a kernel wrapper its launch counts: ``launches`` in all and
+    """Give a kernel wrapper its launch counts: ``launches`` in all,
     ``modes``, launches by mode (the data dtypes, e.g. ``"bf16"`` or
-    ``"bf16->f32"``)."""
-    fn.launches, fn.modes = 0, {}
+    ``"bf16->f32"``), and ``forms``, launches by the kernel's form where
+    it has several (K3's ``"warp"`` and ``"block"``)."""
+    reset(fn)
     return fn
 
 
-def count(fn, mode: str) -> None:
-    """One launch of ``fn``'s kernel in ``mode``; wrappers call it where
-    they launch, and nowhere else."""
+def reset(fn) -> None:
+    """Zero the launch counts of a ``counted`` wrapper."""
+    fn.launches, fn.modes, fn.forms = 0, {}, {}
+
+
+def count(fn, mode: str, form: str = "") -> None:
+    """One launch of ``fn``'s kernel in ``mode`` (and ``form``, where the
+    kernel has several); wrappers call it where they launch, and nowhere
+    else."""
     fn.launches += 1
     fn.modes[mode] = fn.modes.get(mode, 0) + 1
+    if form:
+        fn.forms[form] = fn.forms.get(form, 0) + 1
 
 
 def ptr(t) -> int:

@@ -29,6 +29,14 @@ K1/K2's fused-BN moments mode (``id_sq``) runs on f32 and bf16 data:
 its f32 moments and dH at the f32 tolerances, dA, dB and dPe in the
 data dtype (one bf16 ulp in bf16); K3 from f32 rows into bf16 within
 one bf16 ulp.
+
+K1 and K3 also run at widths 2 to 298 (pairs, odd widths, the published
+ZINC width 150, two column tiles) over segments of 0 to 2,000 rows, K3
+in both of its forms; sums of the same terms in another order are held
+to one bf16 ulp, or in f32 to the tolerances above plus the worst-case
+rounding of two f32 sums of the row's terms, 2 (n - 1) 2^-24 sum |x|
+(the long rows cancel).  K3's block form must give the same bits on
+every call.
 """
 
 import numpy as np
@@ -648,3 +656,110 @@ def test_segment_sum_kernel_f32_to_bf16(dev, d):
     for ptr, p in ((send_ptr, perm), (recv_ptr, None)):
         bf16_close(k3.segment_sum_sorted(rows, ptr, p, torch.bfloat16),
                    k3.segment_sum_sorted_plain(rows, ptr, p, torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# K1 and K3 across widths, K3's two forms (chip_smoke.py phase 33's sweep)
+# ---------------------------------------------------------------------------
+
+SWEEP_LENGTHS = (0, 1, 2, 3, 4, 5, 0, 7, 8, 9, 16, 31, 32, 33, 0, 64, 100,
+                 257, 1000, 2000)
+
+
+def sweep_layout(dev):
+    """SWEEP_LENGTHS and 300 segments of 0-4 rows: (K3's ptr starting 13
+    rows in, over rows of which 29 trail; a permutation of the rows; K1's
+    recv_ptr over the same lengths; a sender for each edge; rows)."""
+    rng = np.random.RandomState(9)
+    lengths = np.r_[SWEEP_LENGTHS, rng.randint(0, 5, 300)]
+    ends = np.cumsum(lengths)
+    n_rows = 13 + int(ends[-1]) + 29
+    return (*[torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
+        np.r_[13, 13 + ends], rng.permutation(n_rows), np.r_[0, ends],
+        rng.randint(0, len(lengths), int(ends[-1])))], n_rows)
+
+
+def order_close(got, want, abs_sum, counts):
+    """Sums of the same terms in another order: bf16 within one ulp; f32
+    within the f32 tolerances plus 2 (n - 1) 2^-24 S for a row of n terms
+    whose absolute values sum to S (the worst-case rounding of two f32
+    sums: the long rows cancel)."""
+    if want.dtype == torch.bfloat16:
+        return bf16_close(got, want)
+    slack = 2 * (counts - 1).clamp(min=0)[:, None] * 2.0 ** -24 * abs_sum
+    err = (got - want).abs()
+    assert bool((err <= 2e-5 + 2e-4 * want.abs() + slack).all()), float(
+        err.max())
+
+
+@pytest.mark.parametrize("d", [2, 6, 37, 75, 150, 298])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_segment_sum_forms_across_widths(dev, d, dtype):
+    """K3 in both forms, with and without perm, into f32 and bf16, over
+    empty segments and segments of 1 to 2,000 rows; each call repeated
+    gives the same bits."""
+    ptr, perm, _, _, n_rows = sweep_layout(dev)
+    t_in = torch.bfloat16 if dtype == "bf16" else torch.float32
+    x = torch.randn(n_rows, d, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(d)).to(t_in)
+    for form in k3.FORMS:
+        for p in (None, perm):
+            abs_sum = k3.segment_sum_sorted_plain(x.abs(), ptr, p)
+            for t_out in (torch.float32, torch.bfloat16):
+                got = k3.segment_sum_sorted_in(form, x, ptr, p, t_out)
+                assert got.dtype == t_out
+                order_close(got, k3.segment_sum_sorted_plain(x, ptr, p,
+                                                             t_out),
+                            abs_sum, ptr.diff())
+                assert torch.equal(got, k3.segment_sum_sorted_in(
+                    form, x, ptr, p, t_out))
+
+
+@pytest.mark.parametrize("d", [2, 6, 37, 75, 150, 298])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("act", ["relu", "identity", "id_sq"])
+def test_edge_message_fwd_across_widths(dev, d, dtype, act):
+    """K1 in each mode, with and without A and Pe, over receivers with
+    no edges and with 1 to 2,000."""
+    _, _, recv_ptr, send, _ = sweep_layout(dev)
+    n, e = recv_ptr.numel() - 1, send.numel()
+    gen = torch.Generator(device=dev).manual_seed(d)
+    t = torch.bfloat16 if dtype == "bf16" else torch.float32
+    A, B = (torch.randn(n, d, device=dev, generator=gen).to(t)
+            for _ in range(2))
+    Pe = torch.randn(e + 29, d, device=dev, generator=gen).to(t)
+    b1 = torch.randn(d, device=dev, generator=gen)
+    recv = k12.receivers(recv_ptr)
+    for a, pe in ((A, Pe), (None, Pe), (A, None), (None, None)):
+        h = k12._pre_activation(a, B, pe, b1, recv, send).abs()
+        if act == "id_sq":
+            h = torch.cat([h, h * h], dim=1)
+        abs_sum = torch.zeros(n, h.shape[1], device=dev).index_add_(
+            0, recv, h)
+        order_close(k12.edge_message_fwd(a, B, pe, b1, recv_ptr, send, act),
+                    k12.edge_message_fwd_plain(a, B, pe, b1, recv_ptr, send,
+                                               act), abs_sum,
+                    recv_ptr.diff())
+
+
+@pytest.mark.parametrize("n_seg,length,form", [
+    (1056, 16, "block"), (1057, 16, "warp"),    # one wave of blocks
+    (128, 15, "warp"), (128, 16, "block"),      # 16 rows a segment
+    (64, 2000, "block"), (4096, 2, "warp")])
+def test_segment_sum_sorted_takes_the_chosen_form(dev, n_seg, length,
+                                                  form):
+    """segment_sum_sorted launches the form segment_sum_form picks, on
+    either side of its thresholds, and agrees with the plain version; the
+    block form gives the same bits on every call."""
+    ptr = torch.arange(n_seg + 1, dtype=torch.int32, device=dev) * length
+    x = torch.randn(n_seg * length, 150, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    assert k3.segment_sum_form(n_seg, n_seg * length) == form
+    before = dict(k3.segment_sum_sorted.forms)
+    got = k3.segment_sum_sorted(x, ptr)
+    assert k3.segment_sum_sorted.forms.get(form, 0) == before.get(form,
+                                                                  0) + 1
+    order_close(got, k3.segment_sum_sorted_plain(x, ptr),
+                k3.segment_sum_sorted_plain(x.abs(), ptr), ptr.diff())
+    for _ in range(3):
+        assert torch.equal(got, k3.segment_sum_sorted(x, ptr))
