@@ -172,9 +172,11 @@ Phases (any failure is an uncaught exception and a nonzero exit):
     8, block 1; an eval step: warp 4 and block 1, or block 1 in bf16),
     the pool f32 and each K3 row carry the form ``segment_sum_form``
     picked and the launch floor of its own grid (``floor_ms``, an empty
-    kernel on ``blocks`` blocks; K1's rows on K1's grid), and the block
-    form called twice on the pool's rows gives the same bits; the launch
-    floor on the zinc path's pool grids goes on log lines.
+    kernel on ``blocks`` blocks; K1's and K2's rows on their grid; K2's
+    rows also time the wrapper's zero fill of dH's padding slots alone,
+    ``pad_fill_ms``), and the block form called twice on the pool's rows
+    gives the same bits; the launch floor on the zinc path's pool grids
+    goes on log lines.
 31. ``--mode test`` on phase 30's checkpoint gives its last test metric
     (rtol 1e-5); ``--resume True --num_epochs 3`` trains epoch 2 only;
     phase 30's two epochs' train losses equal an uninterrupted 3-epoch
@@ -183,16 +185,18 @@ Phases (any failure is an uncaught exception and a nonzero exit):
 32. ``--mode isomorphism_test`` on SR(16,6,2,2) (the 4x4 rook's graph
     and the Shrikhande graph, ``write_sr16622``) on the card: GSN with
     edge-level K3/K4 counts fails 0% of the pairs, the MPNN 100%.
-33. K1 and K3 against their plain versions across widths (SWEEP_D: 2,
-    6, 37, 75, 150, 298) on f32 and bf16: K3 in both forms, with and
-    without ``perm``, into f32 and bf16, over segments of SWEEP_LENGTHS
-    (empty ones, 1 to 2,000 rows) and 300 of 0-4 rows, starting 13 rows
-    in; each call repeated must give the same bits; K1 in every mode
-    (relu, identity, id_sq; with and without A and Pe) with the same
-    segments as receivers.  Sums of the same terms in another order:
-    bf16 within one ulp, f32 within the f32 tolerances plus the
-    worst-case rounding of two f32 sums of the row's terms (the long
-    rows cancel).
+33. K1, K2 and K3 against their plain versions across widths
+    (SWEEP_D: 2, 6, 37, 75, 150, 298) on f32 and bf16: K3 in both forms,
+    with and without ``perm``, into f32 and bf16, over segments of
+    SWEEP_LENGTHS (empty ones, 1 to 2,000 rows) and 300 of 0-4 rows,
+    starting 13 rows in; each call repeated must give the same bits; K1
+    and K2 in every mode (relu, identity, id_sq; with and without A and
+    Pe) with the same segments as receivers: K2's relu and identity dH
+    bit for bit, its id_sq dH at the f32 tolerances, and a repeated K2
+    call with the same bits.  Sums of the same terms in another order
+    (K1, K2's dA, K3): bf16 within one ulp, f32 within the f32
+    tolerances plus the worst-case rounding of two f32 sums of the row's
+    terms (the long rows cancel).
 
 Then it prints three lines: ``{"kernels": [...]}`` (each kernel's
 checks, times, bound and its launches on the path named in its
@@ -244,7 +248,7 @@ HOLD_TRIES = 5
 # K4's stress widths: below a float4, odd, the paths' 70, 128 and 300,
 # and 130 (rows that are not whole float4s past 128)
 K4_STRESS_D = (1, 3, 33, 70, 128, 130, 300)
-# phase 33's widths for K1 and K3 (one pair of elements, three pairs,
+# phase 33's widths for K1-K3 (one pair of elements, three pairs,
 # odd, 75 pairs, zinc-cli's 150, two column tiles of pairs) and segment
 # lengths (empty ones, chunk edges at 31-33 and 64, long ones to 2,000)
 SWEEP_D = (2, 6, 37, 75, 150, 298)
@@ -2211,6 +2215,10 @@ def k1_blocks(n_rows, lanes=32):
     return -(-groups // (256 // lanes))
 
 
+# K2's grid is K1's: the same group_rows rule over the receiver rows
+k2_blocks = k1_blocks
+
+
 def zinc_cli_argv(root, *extra):
     """``scripts/zinc_10_runs.py --budget 500K`` (seed 0) on the synthetic
     ZINC set under ``root``, 2 epochs with an evaluation each, JSONL
@@ -2266,7 +2274,10 @@ def read_log(args, fold=-1):
 def k12_timed(timed, data, d, dtype, act, gen):
     """K1 and K2 in ``act`` mode on ``dtype`` data at width ``d`` over the
     batch's edges, against their plain versions; their (fwd, bwd) rows
-    with bounds (rows the functions must touch, as phase 3's)."""
+    with bounds (rows the functions must touch, as phase 3's).  K2's row
+    also carries ``pad_fill_ms``: the wrapper's zero fill of dH's padding
+    slots (a PyTorch fill launched beside the kernel, part of ``ms``),
+    timed alone."""
     from gsn_tpu_torch.nn.models import edge_segments
     from gsn_tpu_torch.ops.cuda import slab_message as k12
     N, E, e_real = data.num_node_slots, data.num_edge_slots, \
@@ -2326,7 +2337,8 @@ def k12_timed(timed, data, d, dtype, act, gen):
     bwd = timed(lambda: k12.edge_message_bwd_recv(A, B, Pe, b1, g, rp, send,
                                                   act, E),
                 lambda: k12.edge_message_bwd_recv_plain(A, B, Pe, b1, g, rp,
-                                                        send, act, E))
+                                                        send, act, E),
+                also={"pad_fill_ms": lambda: dH[e_real:].zero_()})
     src = "gsn_tpu_torch/csrc/edge_message.cu"
     out = []
     for row, (t_b, by), err, line in ((fwd, fwd_b, err_f, "214"),
@@ -2350,7 +2362,7 @@ def zinc_cli_kernels(dev, timed, data, d, empty, cpm, main_pool):
     ``index_add`` and ``segment_reduce``; dB bf16 -> bf16 and f32 ->
     bf16) and K4 (f32: the backward of both; bf16: the pool's), each
     against its plain version and timed; the block form called twice
-    on the same rows must give the same bits.  Each K1 and K3 row
+    on the same rows must give the same bits.  Each K1, K2 and K3 row
     carries ``floor_ms``, an empty kernel on its grid (``blocks``); the
     launch floor is also logged on the grids of the zinc path's pools
     (``main_pool``: its graphs and node slots).  Returns the rows by
@@ -2366,16 +2378,19 @@ def zinc_cli_kernels(dev, timed, data, d, empty, cpm, main_pool):
         f"{e_real}/{E}, graphs {int(data.graph_mask.sum())}/{G}")
     rows = {}
     k1_floor = launch_floor_ms(empty, cpm, k1_blocks(N))
+    k2_floor = launch_floor_ms(empty, cpm, k2_blocks(N))
     fwd, bwd = k12_timed(timed, data, d, torch.float32, "relu", gen)
     log_row("zinc-cli", f"edge_message_fwd[f32 relu d={d}]",
             dict(fwd, floor_ms=k1_floor, blocks=k1_blocks(N)))
-    log_row("zinc-cli", f"edge_message_bwd_recv[f32 relu d={d}]", bwd)
+    log_row("zinc-cli", f"edge_message_bwd_recv[f32 relu d={d}]",
+            dict(bwd, floor_ms=k2_floor, blocks=k2_blocks(N)))
     bf = torch.bfloat16
     for act, mode in (("relu", "bf16"), ("id_sq", "id_sq bf16")):
         fwd, bwd = k12_timed(timed, data, d, bf, act, gen)
         rows[f"edge_message_fwd[{mode} d={d}]"] = dict(
             fwd, floor_ms=k1_floor, blocks=k1_blocks(N))
-        rows[f"edge_message_bwd_recv[{mode} d={d}]"] = bwd
+        rows[f"edge_message_bwd_recv[{mode} d={d}]"] = dict(
+            bwd, floor_ms=k2_floor, blocks=k2_blocks(N))
     src = "gsn_tpu_torch/csrc/"
     seg = edge_segments(data)
     sp, perm = seg.send_ptr, seg.send_perm
@@ -2829,8 +2844,43 @@ def width_sweep(dev):
                                            act), abs_sum, recv_ptr.diff(),
                 tag)
             cases += 1
+            cases += k2_sweep_case(A, B, Pe, b1, recv_ptr, send, act,
+                                   n_edges + 29, tag.replace("K1", "K2"))
     torch.cuda.synchronize()
     return cases
+
+
+def k2_sweep_case(A, B, Pe, b1, recv_ptr, send, act, slots, tag):
+    """Phase 33's K2 case on K1's operands and a random cotangent: dH
+    against its plain version bit for bit (relu and identity: a masked
+    copy of g) or at the f32 tolerances (id_sq: the kernel contracts
+    g1 + 2 H g2 into one rounding), dA through ``order_check``, and a
+    repeated call with the same bits; returns 1."""
+    from gsn_tpu_torch.ops.cuda import slab_message as k12
+    n, d = recv_ptr.numel() - 1, B.shape[1]
+    gen = torch.Generator(device=B.device).manual_seed(d + 1)
+    g = torch.randn(n, 2 * d if act == "id_sq" else d, device=B.device,
+                    generator=gen)
+    if act != "id_sq":
+        g = g.to(B.dtype)
+    got = k12.edge_message_bwd_recv(A, B, Pe, b1, g, recv_ptr, send, act,
+                                    slots)
+    dH_p, dA_p = k12.edge_message_bwd_recv_plain(A, B, Pe, b1, g, recv_ptr,
+                                                 send, act, slots)
+    if act == "id_sq":
+        max_err(got[0], dH_p, FWD_RTOL, FWD_ATOL, f"{tag} dH")
+    else:
+        exact(got[0], dH_p, f"{tag} dH")
+    if A is not None:
+        recv = k12.receivers(recv_ptr)
+        abs_sum = torch.zeros(n, d, device=B.device).index_add_(
+            0, recv, dH_p[:send.numel()].float().abs())
+        order_check(got[1], dA_p, abs_sum, recv_ptr.diff(), f"{tag} dA")
+    again = k12.edge_message_bwd_recv(A, B, Pe, b1, g, recv_ptr, send, act,
+                                      slots)
+    if not all(x is None or torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"{tag}: two calls differ")
+    return 1
 
 
 def main():
@@ -3067,8 +3117,8 @@ def main():
     rows.update(fused_bn_phases(dev, card, timed, zinc))
     rows.update(cli_phases(dev, card, timed, cpm, empty, (G, N)))
 
-    # ---- phase 33: K1 and K3 across widths ---------------------------------
-    log(f"[sweep] K1 and K3 at d in {SWEEP_D}, segment lengths "
+    # ---- phase 33: K1, K2 and K3 across widths -----------------------------
+    log(f"[sweep] K1, K2 and K3 at d in {SWEEP_D}, segment lengths "
         f"{SWEEP_LENGTHS} and 300 of 0-4 rows: {width_sweep(dev)} cases "
         f"equal their plain versions")
 

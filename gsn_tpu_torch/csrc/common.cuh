@@ -45,42 +45,6 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
-// V elements of T moved by one access (aligned to its size, at most 16
-// bytes: wider packs take several 16-byte accesses)
-template <typename T, int V>
-struct alignas(sizeof(T) * V < 16 ? sizeof(T) * V : 16) Pack {
-  T v[V];
-};
-
-template <int V>
-struct Frag {
-  float v[V];
-
-  __device__ __forceinline__ static Frag zero() {
-    Frag f;
-#pragma unroll
-    for (int i = 0; i < V; ++i) f.v[i] = 0.f;
-    return f;
-  }
-
-  template <typename T>
-  __device__ __forceinline__ static Frag load(const T* __restrict__ p) {
-    const Pack<T, V> raw = *reinterpret_cast<const Pack<T, V>*>(p);
-    Frag f;
-#pragma unroll
-    for (int i = 0; i < V; ++i) f.v[i] = to_f32(raw.v[i]);
-    return f;
-  }
-
-  template <typename T>
-  __device__ __forceinline__ void store(T* __restrict__ p) const {
-    Pack<T, V> raw;
-#pragma unroll
-    for (int i = 0; i < V; ++i) raw.v[i] = from_f32<T>(v[i]);
-    *reinterpret_cast<Pack<T, V>*>(p) = raw;
-  }
-};
-
 // Elements a lane moves per access over rows of d elements of T: 16
 // bytes of T (a float4 of f32), else (bf16 only) 8 bytes, else one
 // element, the widest that divides d and that every operand allows.
@@ -104,27 +68,6 @@ inline int vec_width(int d,
   if (fits(wide)) return wide;
   if (sizeof(T) == 2 && fits(4)) return 4;
   return 1;
-}
-
-// Run f with the vector width vec_width<T> chose, as a compile-time
-// constant (std::integral_constant): 4 or 1 for f32, 8, 4 or 1 for bf16.
-template <typename T, typename F>
-inline void vec_switch(int vec, F&& f) {
-  if constexpr (sizeof(T) == 2) {
-    if (vec == 8) return f(std::integral_constant<int, 8>());
-  }
-  if (vec == 4) return f(std::integral_constant<int, 4>());
-  return f(std::integral_constant<int, 1>());
-}
-
-// Run f with the lanes that own a row (std::integral_constant): 16 when
-// V = 8 elements a lane cover the row in one pass of 16 lanes, else 32.
-template <int V, typename F>
-inline void lanes_switch(int d, F&& f) {
-  if constexpr (V == 8) {
-    if (d <= 16 * V) return f(std::integral_constant<int, 16>());
-  }
-  return f(std::integral_constant<int, kWarp>());
 }
 
 // Blocks of kThreads threads for n_rows rows of `lanes` lanes each.

@@ -42,20 +42,19 @@
 // g, is exact.  The reference also rounds each chunk's partial sum; a row
 // here has no chunks.
 //
-// The two kernels walk differently.  K2 gives a warp (a half warp for a
-// bf16 row of at most 128 elements) one receiver and strides over its
-// columns, walking the edges once per stride of 32 accesses.  K1 walks
-// each receiver's edges once with a register tile (row_tile.cuh): at a
-// receiver's 2.3 edges (the ZINC batches) a walk is a short chain of
-// dependent loads, recv_ptr -> send -> B, which a column loop like K2's
-// pays ceil(d / 32) times over at one element a lane (d=150: 5 times).
-// K1's lanes hold 2-element accesses where 4 or 8 do not fit, a group
-// walks up to kRowsPerGroup consecutive rows (one recv_ptr load and one
-// send chunk of the group's lanes serve all of them, send handed out by
-// __shfl_sync), and the sender and Pe rows of up to 4 edges
-// (k1_in_flight) are loaded before any is converted or added.  The adds
-// keep each element's edge order and each message's rounding, so K1's
-// bits are those of a walk over one column and one edge at a time.
+// Both kernels walk each receiver's edges once with a register tile
+// (row_tile.cuh).  At a receiver's 2.3 edges (the ZINC batches) a walk is
+// a short chain of dependent loads, recv_ptr -> send -> B, which a loop
+// over columns outside the edge walk pays ceil(d / 32) times over at one
+// element a lane (d=150: 5 times).  A lane holds 2-element accesses where
+// 4 or 8 do not fit, a group walks up to kRowsPerGroup consecutive rows
+// (one recv_ptr load and one send chunk of the group's lanes serve all of
+// them, send handed out by __shfl_sync), and the sender and Pe rows of up
+// to 4 edges (edges_in_flight) are loaded before any is converted or
+// added.  K2 loads a row's g (and A) tile once before its edges and
+// stores each edge's dH tile as it goes.  The adds keep each element's
+// edge order and each message's rounding, so the bits are those of a
+// walk over one column and one edge at a time.
 #include <climits>
 
 #include "row_tile.cuh"
@@ -69,12 +68,12 @@ constexpr int kIdentity = 0, kRelu = 1, kIdSq = 2;
 template <typename T, int ACT>
 using SqT = std::conditional_t<ACT == kIdSq, float, T>;
 
-// Edges whose sender and Pe rows K1 loads before any is added: 4 for a
-// tile of at most 4 columns a lane, else 2.  A larger tile's in-flight
+// Edges whose sender and Pe rows K1 and K2 load before any is used: 4
+// for a tile of at most 4 columns a lane, else 2.  A larger tile's in-flight
 // registers cost more resident warps than the loads gain: a receiver
 // has 2.3 edges on average (PERF.md, section 6).
 template <int P>
-__host__ __device__ constexpr int k1_in_flight() {
+__host__ __device__ constexpr int edges_in_flight() {
   return P <= 4 ? 4 : 2;
 }
 
@@ -95,7 +94,7 @@ edge_message_fwd_kernel(const T* __restrict__ A,
   constexpr bool SQ = ACT == kIdSq;
   constexpr int P = NG * V;          // columns a lane holds
   constexpr int TW = LANES * P;      // columns a tile spans
-  constexpr int IF = k1_in_flight<P>();
+  constexpr int IF = edges_in_flight<P>();
   const int lane = threadIdx.x % LANES;
   const int row0 = (blockIdx.x * (kThreads / LANES) + threadIdx.x / LANES)
                    * rows_per_group;
@@ -176,7 +175,15 @@ edge_message_fwd_kernel(const T* __restrict__ A,
   }
 }
 
-template <typename T, int V, int LANES, int ACT, bool HAS_A, bool HAS_PE>
+// K2.  The same walk as K1: a group of LANES lanes takes rows_per_group
+// consecutive receiver rows, each once.  A row loads its g tile (and
+// g2's in id_sq), A's and the bias once; then the sender and Pe words of
+// up to edges_in_flight<P>() edges issue before any is unpacked, and each
+// edge stores its dH tile and adds it to dA's sum, which is stored once
+// at the row's end.  Identity mode reads no A, B, Pe or b1: each edge
+// stores g's tile.
+template <typename T, int V, int NG, int LANES, int ACT, bool HAS_A,
+          bool HAS_PE>
 __global__ void __launch_bounds__(kThreads)
 edge_message_bwd_recv_kernel(const T* __restrict__ A,
                              const T* __restrict__ B,
@@ -186,52 +193,106 @@ edge_message_bwd_recv_kernel(const T* __restrict__ A,
                              const int32_t* __restrict__ recv_ptr,
                              const int32_t* __restrict__ send,
                              SqT<T, ACT>* __restrict__ dH,
-                             T* __restrict__ dA, int n_rows, int d) {
+                             T* __restrict__ dA, int n_rows, int d,
+                             int rows_per_group) {
   constexpr bool SQ = ACT == kIdSq;
   constexpr bool RECOMPUTE = ACT != kIdentity;  // does dH need H
-  const int row = blockIdx.x * (kThreads / LANES) + threadIdx.x / LANES;
+  constexpr int P = NG * V;          // columns a lane holds
+  constexpr int TW = LANES * P;      // columns a tile spans
+  constexpr int IF = edges_in_flight<P>();
   const int lane = threadIdx.x % LANES;
-  if (row >= n_rows) return;
-  const int e0 = recv_ptr[row];
-  const int e1 = recv_ptr[row + 1];
-  if (e0 == e1) {  // no edges: no g, A or b1 reads
-    if (HAS_A)
-      for (int c = lane * V; c < d; c += LANES * V)
-        Frag<V>::zero().store(dA + (size_t)row * d + c);
-    return;
-  }
-  const SqT<T, ACT>* gr = g + (size_t)row * (SQ ? 2 * d : d);
-  for (int c = lane * V; c < d; c += LANES * V) {
-    const Frag<V> gv = Frag<V>::load(gr + c);
-    const Frag<V> g2 = SQ ? Frag<V>::load(gr + d + c) : Frag<V>::zero();
-    const Frag<V> a = (RECOMPUTE && HAS_A)
-                          ? Frag<V>::load(A + (size_t)row * d + c)
-                          : Frag<V>::zero();
-    const Frag<V> bias = RECOMPUTE ? Frag<V>::load(b1 + c)
-                                   : Frag<V>::zero();
-    Frag<V> acc = Frag<V>::zero();
-    for (int e = e0; e < e1; ++e) {
-      Frag<V> dh = gv;
-      if (RECOMPUTE) {
-        const int s = send[e];
-        const Frag<V> h = Frag<V>::load(B + (size_t)s * d + c);
-        const Frag<V> pe = HAS_PE ? Frag<V>::load(Pe + (size_t)e * d + c)
-                                  : Frag<V>::zero();
+  const int row0 = (blockIdx.x * (kThreads / LANES) + threadIdx.x / LANES)
+                   * rows_per_group;
+  if (row0 >= n_rows) return;
+  const unsigned mask = group_mask<LANES>();
+  const int nr = min(rows_per_group, n_rows - row0);
+  const int first = lane <= nr ? recv_ptr[row0 + lane] : 0;
+  const int e_end = __shfl_sync(mask, first, nr, LANES);
+  const int gw = SQ ? 2 * d : d;     // g's row
+
+  for (int t0 = 0; t0 < d; t0 += TW) {
+    const int tc = min(TW, d - t0);
+    float bias[P];
+    if (RECOMPUTE)
+      tile_load<V, NG, LANES>(b1 + t0, tc, lane, bias);
+    else
+      tile_zero(bias);
+    int cb = INT_MIN / 2, s_own = 0;   // the send chunk the lanes hold
+    for (int r = 0; r < nr; ++r) {
+      const int row = row0 + r;
+      const int e0 = __shfl_sync(mask, first, r, LANES);
+      const int e1 = __shfl_sync(mask, first, r + 1, LANES);
+      float acc[P];
+      tile_zero(acc);
+      // a row with no edges reads nothing and stores dA's zeros
+      if (e0 < e1) {
+        if constexpr (!RECOMPUTE) {  // dH is g's row
+          float gv[P];
+          tile_load<V, NG, LANES>(g + (size_t)row * gw + t0, tc, lane, gv);
+          for (int e = e0; e < e1; ++e) {
+            tile_store<V, NG, LANES>(dH + (size_t)e * d + t0, tc, lane, gv);
 #pragma unroll
-        for (int i = 0; i < V; ++i) {
-          float x = h.v[i];
-          if (HAS_A) x += a.v[i];
-          if (HAS_PE) x += pe.v[i];
-          x += bias.v[i];
-          dh.v[i] = SQ ? gv.v[i] + 2.f * x * g2.v[i]
-                       : (x > 0.f ? gv.v[i] : 0.f);
+            for (int i = 0; i < P; ++i) acc[i] += gv[i];
+          }
+        } else {
+          float gv[P], g2[P], a[P];
+          const SqT<T, ACT>* gr = g + (size_t)row * gw + t0;
+          tile_load<V, NG, LANES>(gr, tc, lane, gv);
+          if (SQ)
+            tile_load<V, NG, LANES>(gr + d, tc, lane, g2);
+          else
+            tile_zero(g2);
+          if (HAS_A)
+            tile_load<V, NG, LANES>(A + (size_t)row * d + t0, tc, lane, a);
+          else
+            tile_zero(a);
+          for (int e = e0; e < e1;) {
+            if (e >= cb + LANES) {
+              cb = e;
+              s_own = cb + lane < e_end ? send[cb + lane] : 0;
+            }
+            const int nu = min(IF, min(e1 - e, cb + LANES - e));
+            Words<T, V> hw[IF][NG], pw[IF][NG];
+#pragma unroll
+            for (int u = 0; u < IF; ++u) {
+              const int s =
+                  __shfl_sync(mask, s_own, e - cb + min(u, nu - 1), LANES);
+              if (u < nu) {
+                tile_load_words<V, NG, LANES>(B + (size_t)s * d + t0, tc, lane,
+                                              hw[u]);
+                if (HAS_PE)
+                  tile_load_words<V, NG, LANES>(Pe + (size_t)(e + u) * d + t0,
+                                                tc, lane, pw[u]);
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < IF; ++u) {
+              if (u < nu) {
+                float h[P], pe[P], dh[P];
+                tile_unpack(hw[u], h);
+                if (HAS_PE) tile_unpack(pw[u], pe);
+#pragma unroll
+                for (int i = 0; i < P; ++i) {
+                  // the reference's order: B[send] + A[recv] + Pe + b1
+                  float x = h[i];
+                  if (HAS_A) x += a[i];
+                  if (HAS_PE) x += pe[i];
+                  x += bias[i];
+                  dh[i] = SQ ? gv[i] + 2.f * x * g2[i]
+                             : (x > 0.f ? gv[i] : 0.f);
+                  acc[i] += dh[i];
+                }
+                tile_store<V, NG, LANES>(dH + (size_t)(e + u) * d + t0, tc,
+                                         lane, dh);
+              }
+            }
+            e += nu;
+          }
         }
       }
-      dh.store(dH + (size_t)e * d + c);
-#pragma unroll
-      for (int i = 0; i < V; ++i) acc.v[i] += dh.v[i];
+      if (HAS_A)
+        tile_store<V, NG, LANES>(dA + (size_t)row * d + t0, tc, lane, acc);
     }
-    if (HAS_A) acc.store(dA + (size_t)row * d + c);
   }
 }
 
@@ -243,7 +304,7 @@ void act_switch(int act, F&& f) {
   else f(std::integral_constant<int, kIdentity>());
 }
 
-// Receiver rows a group of K1 walks: kRowsPerGroup when the rows leave
+// Receiver rows a group of K1 or K2 walks: kRowsPerGroup when the rows leave
 // at least a warp's worth of groups for each of the card's SMs at that
 // many a group (a batch of 1024 graphs), fewer otherwise, so a small
 // batch (128 graphs at d=150) still spreads over the card.
@@ -305,24 +366,27 @@ int launch_bwd_recv(const T* A, const T* B, const T* Pe, const float* b1,
     return static_cast<int>(cudaErrorInvalidValue);
   const int t = sizeof(T);
   const int tg = act == kIdSq ? 4 : t;
-  const int vec = vec_width<T>(d, {{A, t}, {B, t}, {Pe, t}, {b1, 4},
-                                   {g, tg}, {dH, tg}, {dA, t}});
+  int vec = tile_vec_width<T>(d, {{A, t}, {B, t}, {Pe, t}, {b1, 4},
+                                  {g, tg}, {dH, tg}, {dA, t}});
+  // id_sq's f32 dH: 8 bf16 a lane (a half warp a row) store each edge's
+  // 32 bytes a lane in two 16-byte halves, as K1's moments; at 4 a lane
+  // (a warp a row) it measured 0.90x (PERF.md, section 6).
+  if (act == kIdSq && vec == 8) vec = 4;
+  const int rpg = group_rows(n_rows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  vec_switch<T>(vec, [&](auto v) {
-    constexpr int V = decltype(v)::value;
-    lanes_switch<V>(d, [&](auto l) {
-      constexpr int LANES = decltype(l)::value;
-      const dim3 grid(row_blocks(n_rows, LANES));
-      act_switch(act, [&](auto ac) {
-        constexpr int ACT = decltype(ac)::value;
-        GSN_BOOL_SWITCH(has_a, HA, [&] {
-          GSN_BOOL_SWITCH(has_pe, HP, [&] {
-            edge_message_bwd_recv_kernel<T, V, LANES, ACT, HA, HP>
-                <<<grid, kThreads, 0, st>>>(
-                    A, B, Pe, b1, static_cast<const SqT<T, ACT>*>(g),
-                    recv_ptr, send, static_cast<SqT<T, ACT>*>(dH), dA,
-                    n_rows, d);
-          });
+  tile_switch<T>(vec, d, [&](auto v, auto ng, auto l) {
+    constexpr int V = decltype(v)::value, NG = decltype(ng)::value;
+    constexpr int LANES = decltype(l)::value;
+    const dim3 grid(row_blocks((n_rows + rpg - 1) / rpg, LANES));
+    act_switch(act, [&](auto ac) {
+      constexpr int ACT = decltype(ac)::value;
+      GSN_BOOL_SWITCH(has_a, HA, [&] {
+        GSN_BOOL_SWITCH(has_pe, HP, [&] {
+          edge_message_bwd_recv_kernel<T, V, NG, LANES, ACT, HA, HP>
+              <<<grid, kThreads, 0, st>>>(
+                  A, B, Pe, b1, static_cast<const SqT<T, ACT>*>(g),
+                  recv_ptr, send, static_cast<SqT<T, ACT>*>(dH), dA,
+                  n_rows, d, rpg);
         });
       });
     });

@@ -1,6 +1,7 @@
-// The register tile of K1 (edge_message_fwd) and K3 (segment_sum_sorted):
-// a group of LANES lanes (a warp, or a half warp) walks each of its rows
-// once, and a lane holds its columns of the whole walk in registers.
+// The register tile of K1 and K2 (edge_message_fwd, edge_message_bwd_recv)
+// and K3 (segment_sum_sorted): a group of LANES lanes (a warp, or a half
+// warp) walks each of its rows once, and a lane holds its columns of the
+// whole walk in registers.
 //
 // A lane owns NG groups of V columns of a column tile: group g covers
 // the V columns from (lane + LANES g) V, so one access of a group moves

@@ -5,6 +5,7 @@
     python3 kernel_turns.py k4 OTHER_CSRC_DIR
     python3 kernel_turns.py k3 OTHER_CSRC_DIR
     python3 kernel_turns.py k1 OTHER_CSRC_DIR
+    python3 kernel_turns.py k2 OTHER_CSRC_DIR
 
 Builds the kernel's source from ``OTHER_CSRC_DIR`` (another commit's
 ``gsn_tpu_torch/csrc``) beside this checkout's kernels:
@@ -31,6 +32,12 @@ Builds the kernel's source from ``OTHER_CSRC_DIR`` (another commit's
   at d=128 on both, the ogb form (no A) at molhiv's d=300, and relu and
   id_sq at zinc-cli's d=150 on both; the paths are zinc, zinc-bf16,
   zinc-bf16-bnmlp, molhiv and zinc-cli-bf16.
+- ``k2``: K2 (``edge_message.cu``'s backward) in every mode the paths
+  run, each on its path's batch: relu at zinc's d=128 on f32 and bf16
+  data, id_sq bf16 at d=128, the ogb form (relu, no A, Pe, zero b1) at
+  molhiv's d=300 on f32 and bf16, and relu and id_sq bf16 at zinc-cli's
+  d=150; the paths are zinc, zinc-bf16, zinc-bf16-bnmlp, molhiv,
+  molhiv-bf16 and zinc-cli-bf16.
 
 Then:
 
@@ -46,8 +53,9 @@ Then:
    share of it.
 4. Compares the ptxas lines (registers, shared memory, spills) of the
    source's kernels that both builds compile under one name (for k1,
-   K2: this build keeps it as it was), and prints the new build's most
-   registers and spill bytes over the kernel it compares.
+   K2, and for k2, K1, where the other kernel kept its code), and prints
+   the new build's most registers and spill bytes over the kernel it
+   compares.
 
 Prints the card's name and power limit first and one JSON line last.
 Needs one CUDA card; run from the repository root.
@@ -71,7 +79,8 @@ PROFILE_STEPS = 5
 MODES = {"dgn": ("dgn_aggregate", "K5/K6", "dgn_aggregate"),
          "k4": ("segment_broadcast", "K4", "segment_broadcast"),
          "k3": ("segment_sum", "K3", "segment_sum"),
-         "k1": ("edge_message", "K1", "edge_message_fwd")}
+         "k1": ("edge_message", "K1", "edge_message_fwd"),
+         "k2": ("edge_message", "K2", "edge_message_bwd_recv")}
 
 
 def outputs(x):
@@ -278,6 +287,55 @@ def k1_case(dev, root):
     return fns, paths
 
 
+def k2_case(dev, root):
+    """The k2 mode's (functions by name: (call, True), paths by name),
+    as ``k3_case``."""
+    from gsn_tpu_torch.data.synthetic import write_zinc_dataset
+    from gsn_tpu_torch.nn.models import edge_segments
+    from gsn_tpu_torch.ops.cuda import slab_message as k12
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    f32, bf = torch.float32, torch.bfloat16
+    fns = {}
+
+    def add(tag, data, d, dtype, act, has_a=True):
+        seg = edge_segments(data)
+        N, E = data.num_node_slots, data.num_edge_slots
+
+        def rnd(*shape):
+            return torch.randn(*shape, device=dev, generator=gen)
+
+        A = rnd(N, d).to(dtype) if has_a else None
+        B, Pe = rnd(N, d).to(dtype), rnd(E, d).to(dtype)
+        b1 = rnd(d) if has_a else torch.zeros(d, device=dev)
+        g = rnd(N, 2 * d) if act == "id_sq" else rnd(N, d).to(dtype)
+        fns[f"{tag} {smoke.dtype_tag(dtype)} {act} d={d}"] = (
+            lambda: k12.edge_message_bwd_recv(A, B, Pe, b1, g, seg.recv_ptr,
+                                              seg.send, act, E), True)
+
+    zinc = smoke.zinc_setup(dev)
+    add("zinc", zinc[2], smoke.D, f32, "relu")
+    add("zinc", zinc[2], smoke.D, bf, "relu")
+    add("zinc", zinc[2], smoke.D, bf, "id_sq")
+    molhiv = smoke.molhiv_setup(dev)
+    for dtype in (f32, bf):
+        add("molhiv ogb", molhiv[2], smoke.MOLHIV_D, dtype, "relu", False)
+    write_zinc_dataset(root, smoke.ZINC_SIZES, seed=0)
+    cli = zinc_cli_path(dev, root, "--compute_dtype", "bfloat16")
+    for act in ("relu", "id_sq"):
+        add("zinc-cli", cli[1], smoke.CLI_D, bf, act)
+    paths = {
+        "zinc": path_of(zinc),
+        "zinc-bf16": path_of(zinc, compute_dtype="bfloat16"),
+        "zinc-bf16-bnmlp": path_of(zinc, compute_dtype="bfloat16",
+                                   bn_mlp=True),
+        "molhiv": path_of(molhiv),
+        "molhiv-bf16": path_of(molhiv, compute_dtype="bfloat16"),
+        "zinc-cli-bf16": cli,
+    }
+    return fns, paths
+
+
 def same_or_close(got, want):
     """(equal bits, max abs err) of one build's outputs against the
     other's; a tolerance failure raises (chip_smoke's checks)."""
@@ -356,7 +414,8 @@ def main():
             fns, paths = (dgn_case if mode == "dgn" else k4_case)(dev)
             fns = {name: (fn, True) for name, fn in fns.items()}
         else:
-            fns, paths = (k3_case if mode == "k3" else k1_case)(dev, root)
+            fns, paths = {"k3": k3_case, "k1": k1_case,
+                          "k2": k2_case}[mode](dev, root)
         cpm = smoke.spin_cycles_per_ms()
         result = {}
         for name, (fn, exact) in fns.items():

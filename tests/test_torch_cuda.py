@@ -30,13 +30,14 @@ its f32 moments and dH at the f32 tolerances, dA, dB and dPe in the
 data dtype (one bf16 ulp in bf16); K3 from f32 rows into bf16 within
 one bf16 ulp.
 
-K1 and K3 also run at widths 2 to 298 (pairs, odd widths, the published
-ZINC width 150, two column tiles) over segments of 0 to 2,000 rows, K3
-in both of its forms; sums of the same terms in another order are held
-to one bf16 ulp, or in f32 to the tolerances above plus the worst-case
-rounding of two f32 sums of the row's terms, 2 (n - 1) 2^-24 sum |x|
-(the long rows cancel).  K3's block form must give the same bits on
-every call.
+K1, K2 and K3 also run at widths 2 to 298 (pairs, odd widths, the
+published ZINC width 150, two column tiles) over segments of 0 to 2,000
+rows, K3 in both of its forms; sums of the same terms in another order
+are held to one bf16 ulp, or in f32 to the tolerances above plus the
+worst-case rounding of two f32 sums of the row's terms, 2 (n - 1) 2^-24
+sum |x| (the long rows cancel).  K2's relu and identity dH are masked
+copies of g, bit for bit.  K3's block form and K2 must give the same
+bits on every call.
 """
 
 import numpy as np
@@ -659,7 +660,7 @@ def test_segment_sum_kernel_f32_to_bf16(dev, d):
 
 
 # ---------------------------------------------------------------------------
-# K1 and K3 across widths, K3's two forms (chip_smoke.py phase 33's sweep)
+# K1-K3 across widths, K3's two forms (chip_smoke.py phase 33's sweep)
 # ---------------------------------------------------------------------------
 
 SWEEP_LENGTHS = (0, 1, 2, 3, 4, 5, 0, 7, 8, 9, 16, 31, 32, 33, 0, 64, 100,
@@ -740,6 +741,49 @@ def test_edge_message_fwd_across_widths(dev, d, dtype, act):
                     k12.edge_message_fwd_plain(a, B, pe, b1, recv_ptr, send,
                                                act), abs_sum,
                     recv_ptr.diff())
+
+
+@pytest.mark.parametrize("d", [2, 6, 37, 75, 150, 298])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("act", ["relu", "identity", "id_sq"])
+def test_edge_message_bwd_recv_across_widths(dev, d, dtype, act):
+    """K2 in each mode, with and without A and Pe, over receivers with
+    no edges and with 1 to 2,000: relu and identity dH bit for bit (a
+    masked copy of g), id_sq's f32 dH at the f32 tolerances (the kernel
+    contracts g1 + 2 H g2 into one rounding), dA as a sum in another
+    order, and a repeated call with the same bits."""
+    _, _, recv_ptr, send, _ = sweep_layout(dev)
+    n, e = recv_ptr.numel() - 1, send.numel()
+    gen = torch.Generator(device=dev).manual_seed(d)
+    t = torch.bfloat16 if dtype == "bf16" else torch.float32
+    A, B = (torch.randn(n, d, device=dev, generator=gen).to(t)
+            for _ in range(2))
+    Pe = torch.randn(e + 29, d, device=dev, generator=gen).to(t)
+    b1 = torch.randn(d, device=dev, generator=gen)
+    g = torch.randn(n, 2 * d if act == "id_sq" else d, device=dev,
+                    generator=gen)
+    if act != "id_sq":
+        g = g.to(t)
+    recv = k12.receivers(recv_ptr)
+    for a, pe in ((A, Pe), (None, Pe), (A, None), (None, None)):
+        dH, dA = k12.edge_message_bwd_recv(a, B, pe, b1, g, recv_ptr, send,
+                                           act, e + 29)
+        dH_p, dA_p = k12.edge_message_bwd_recv_plain(a, B, pe, b1, g,
+                                                     recv_ptr, send, act,
+                                                     e + 29)
+        if act == "id_sq":
+            torch.testing.assert_close(dH, dH_p, **FWD)
+        else:
+            assert dH.dtype == dH_p.dtype and torch.equal(dH, dH_p)
+        assert (dA is None) == (a is None)
+        if a is not None:
+            abs_sum = torch.zeros(n, d, device=dev).index_add_(
+                0, recv, dH_p[:e].float().abs())
+            order_close(dA, dA_p, abs_sum, recv_ptr.diff())
+        dH2, dA2 = k12.edge_message_bwd_recv(a, B, pe, b1, g, recv_ptr,
+                                             send, act, e + 29)
+        assert torch.equal(dH, dH2)
+        assert a is None or torch.equal(dA, dA2)
 
 
 @pytest.mark.parametrize("n_seg,length,form", [

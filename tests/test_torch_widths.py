@@ -1,7 +1,8 @@
 """K1-K3's plain versions against the reference package's Pallas kernels
-at the widths the redesigned K1 and K3 target, on the CPU: the
-published ZINC width (d=150, rows of 2-element accesses) and an odd one
-(d=37, one element a lane); and K3's form chooser.
+at the widths the redesigned K1-K3 target, on the CPU: the published
+ZINC width (d=150, rows of 2-element accesses) and an odd one (d=37, one
+element a lane), K2's ogb form also at molhiv's d=300; and K3's form
+chooser.
 
 The reference runs its kernels as its own tests do here (interpret
 mode / the chunk-by-chunk emulation); the port runs its plain versions,
@@ -127,6 +128,75 @@ def test_edge_message_matches_slab_kernel_at_width(d, dtype, act):
         if not bf:
             grad_close(got, w, f"d{name}")
         elif name == "Pe" and act == "relu":
+            np.testing.assert_array_equal(f32(got), f32(w), err_msg="dPe")
+        else:
+            bf16_close(got, w, f"d{name}")
+    assert leaves["b1"].grad.dtype == torch.float32
+    grad_close(leaves["b1"].grad, want["b1"], "db1")
+
+
+# the forms the test above leaves out: identity with A and Pe, and the
+# ogb message's (relu, no A side, Pe, a zero b1), also at molhiv's d=300
+@pytest.mark.parametrize("form,d", [("identity", 150), ("identity", 37),
+                                    ("ogb", 150), ("ogb", 37),
+                                    ("ogb", 300)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_edge_message_backward_forms_at_width(form, d, dtype):
+    """EdgeMessageAggregate (K1 forward; K2 and K3 for dA, dB; dPe, db1)
+    against jax.grad of slab_edge_message_aggregate with ``data_dtype``
+    in the identity and ogb forms.  dPe is a copy (identity) or masked
+    copy (relu) of the bf16 cotangent in both: bit for bit in bf16."""
+    s = slab_setup(seed=d + 2, d1=d, with_pe=True)
+    N = s["N"]
+    bf = dtype == "bfloat16"
+    has_a = form == "identity"
+    act = "identity" if has_a else "relu"
+    g_out = np.random.RandomState(d + 3).randn(s["num_nodes"], d).astype(
+        np.float32)
+    A_j, A_t = data(s["A"] if has_a else np.zeros_like(s["A"]), bf)
+    B_j, B_t = data(s["B"], bf)
+    Pe_j, Pe_t = data(s["Pe"], bf)
+    b1 = s["b1"] if has_a else np.zeros(d, np.float32)
+
+    def ref(A, B, Pe, b):
+        return slab_edge_message_aggregate(
+            A, B, Pe, b, jnp.asarray(s["meta"]["recv_local"]),
+            jnp.asarray(s["meta"]["send_local"]), jnp.asarray(s["fb_wf"]),
+            N, s["num_nodes"], BN, BE, act, True, True, None, dtype, has_a,
+            s["meta"]["s_s"])
+
+    args = (A_j, B_j, Pe_j, jnp.asarray(b1))
+    out_ref = ref(*args)
+    grads = jax.grad(lambda *a: jnp.sum(ref(*a).astype(jnp.float32)
+                                        * g_out), argnums=(0, 1, 2, 3))(*args)
+
+    send = s["send"].astype(np.int32)
+    seg = k12.EdgeSegments(csr(s["recv"], N), torch.from_numpy(send),
+                           csr(send, N), torch.from_numpy(
+                               np.argsort(send, kind="stable")
+                               .astype(np.int32)))
+    leaves = {"A": A_t if has_a else None, "B": B_t, "Pe": Pe_t,
+              "b1": torch.from_numpy(b1)}
+    for x in leaves.values():
+        if x is not None:
+            x.requires_grad_(True)
+    out = k12.edge_message_aggregate(*leaves.values(), seg, act)
+    assert out.dtype == B_t.dtype
+    if bf:
+        bf16_close(out, out_ref[:N], "forward")
+    else:
+        np.testing.assert_allclose(f32(out), f32(out_ref)[:N], **FWD)
+    (out.float() * torch.from_numpy(g_out[:N])).sum().backward()
+    want = dict(zip(("A", "B", "Pe", "b1"), grads))
+    for name in ("A", "B", "Pe"):
+        if leaves[name] is None:
+            continue
+        got = leaves[name].grad
+        assert got.dtype == leaves[name].dtype
+        w = want[name] if name == "Pe" else want[name][:N]
+        if not bf:
+            grad_close(got, w, f"d{name}")
+        elif name == "Pe":
             np.testing.assert_array_equal(f32(got), f32(w), err_msg="dPe")
         else:
             bf16_close(got, w, f"d{name}")
