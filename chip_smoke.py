@@ -197,12 +197,44 @@ Phases (any failure is an uncaught exception and a nonzero exit):
     (K1, K2's dA, K3): bf16 within one ulp, f32 within the f32
     tolerances plus the worst-case rounding of two f32 sums of the row's
     terms (the long rows cancel).
+34. Repeatable receiver sums: ``zinc_cfg`` with ``aggr="mean"`` (per
+    step K3 9: the 4 receiver means and the 5 pools; K4 9) and
+    ``bench_dgn`` with ``var`` and ``std`` added (K3 and K4 each 4 more a
+    step than phase 10: two receiver means each) take C3_STEPS steps
+    twice from seed 0; the losses must be equal bit for bit, and a
+    profiled step must run no ``index_add``.
+35. B1's ``num_send_nodes`` mode: phase 2's batch split by
+    ``parallel.make_ep_batch`` into SPLIT_D shards; in each of
+    SPLIT_MODES (f32 relu, bf16 relu, f32 id_sq) each shard's K1, K2 and
+    K3 (dB into all the batch's sender rows) against their plain
+    versions, with A, g and the output over the shard's block of rows
+    and B over all of them; the shards' stacked K1 outputs equal the
+    unpartitioned K1's bit for bit.  Shard 0's calls are timed with
+    their bounds (the block's receivers with edges, the senders the
+    shard touches, its edges) and launch floors, beside K1 on the same
+    edges with the shard's senders compacted into B's first rows
+    (``compact_ms``; the same bits).  Rows ``kernel[num_send ...]``.
+36. ``parallel.ParallelTrainer`` on NCCL at world size 1, dp and ep,
+    STEPS steps each of ``zinc_cfg`` on phase 2's batch (its one dp
+    shard, its one ep shard): launches a step as phase 5's, the loss
+    falls, the losses against phase 5's (f32 tolerances; whether bit for
+    bit is logged), the median step and a profile as in phases 5-6; the
+    host time of one collective call, and a step of one device, dp and
+    ep in turns (TURNS rounds).
+    Then C3_STEPS steps of the ep path in bf16 and with ``bn_mlp`` (f32
+    id_sq under ep), launches by mode asserted; these runs give phase
+    35's rows their launches.
+37. ``cli.main`` with ``--parallel dp`` and ``--parallel ep``
+    ``--parallel_devices 1`` (one spawned NCCL rank) for one epoch of
+    phase 30's data and flags: a finite history, and the first epoch's
+    train loss within CLI_PARALLEL_RTOL of phase 30's.
 
 Then it prints three lines: ``{"kernels": [...]}`` (each kernel's
 checks, times, bound and its launches on the path named in its
 ``path``; a bf16 mode's row is named ``kernel[bf16 ...]``, a fused-BN
-moments mode's ``kernel[id_sq ...]``), the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``.
+moments mode's ``kernel[id_sq ...]``, the split sender space's
+``kernel[num_send ...]``), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.
 Without a CUDA card, or outside the repository, it exits nonzero before
 printing any of them.
 """
@@ -216,6 +248,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -223,6 +256,17 @@ import torch
 
 STEPS = 20
 PROFILE_STEPS = 5
+# phases 34 and 36: the steps of each repeat run and of the extra ep runs
+C3_STEPS = 3
+# phase 36: rounds of steps in turns (one device, dp, ep)
+TURNS = 12
+# phase 35: the shards of the main path's batch, and the modes
+SPLIT_D = 4
+SPLIT_MODES = (("f32", "relu"), ("bf16", "relu"), ("f32", "id_sq"))
+# phase 37: the first epoch's train loss (an evaluation after Adam steps
+# that move the biases ahead of each BN by noise) against the serial
+# run's
+CLI_PARALLEL_RTOL = 2e-2
 D = 128
 # the CLI path: the ZINC subset's split sizes (train, val, test) and
 # scripts/zinc_10_runs.py's width at the 500K budget
@@ -1149,7 +1193,7 @@ def dgn_phases(dev, card, timed):
         cfg_b = dataclasses.replace(cfg, aggregators=DGN_BRANCHES[branch])
         tr = Trainer(cfg_b, tcfg, graphs, model=DGNNet(cfg_b))
         fwd, bwd = branch_kernels[branch]
-        _, b_losses, b_s, b_launches, _ = train_steps(
+        b_state, b_losses, b_s, b_launches, _ = train_steps(
             tr, tr.init_state(seed=0), data, BRANCH_STEPS, counters)
         expect_launches(b_launches, {fwd: L, bwd: L,
                                      "segment_sum_sorted": L + 2,
@@ -1918,7 +1962,7 @@ def dgn_bf16_phases(dev, card, timed, dgn):
         tr = Trainer(cfg_b, tcfg, graphs, model=DGNNet(cfg_b))
         fwd = branch_fwd[branch]
         bwd = fwd.replace("_fwd", "_bwd")
-        _, b_losses, b_s, b_launches, b_modes = train_steps(
+        b_state, b_losses, b_s, b_launches, b_modes = train_steps(
             tr, tr.init_state(seed=0), data, BRANCH_STEPS, counters)
         expect_launches(b_launches, {fwd: L, bwd: L,
                                      "segment_sum_sorted": L + 2,
@@ -2609,157 +2653,156 @@ def cli_path(card, root, tag, per_train, per_eval, forms, *extra):
     return args, hist, modes, k3_forms, evals
 
 
-def cli_phases(dev, card, timed, cpm, empty, main_pool):
-    """Phases 29-32 (see module docstring); returns the zinc-cli paths'
-    kernel rows."""
-    import tempfile
+def cli_phases(dev, card, timed, cpm, empty, main_pool, root):
+    """Phases 29-32 (see module docstring), their data written under
+    ``root``; returns (the zinc-cli paths' kernel rows, phase 30's
+    history)."""
     from gsn_tpu_torch import cli
     from gsn_tpu_torch.data.encoding import encode
     from gsn_tpu_torch.data.pipeline import prepare_dataset
     from gsn_tpu_torch.data.synthetic import write_sr16622, write_zinc_dataset
 
-    with tempfile.TemporaryDirectory() as root:
-        # ---- phase 29: the data ----------------------------------------
+    # ---- phase 29: the data ----------------------------------------
+    t0 = time.perf_counter()
+    path = write_zinc_dataset(root, ZINC_SIZES, seed=0)
+    wrote = time.perf_counter() - t0
+    times, sets = [], []
+    for _ in range(2):   # cold, then from the cache
         t0 = time.perf_counter()
-        path = write_zinc_dataset(root, ZINC_SIZES, seed=0)
-        wrote = time.perf_counter() - t0
-        times, sets = [], []
-        for _ in range(2):   # cold, then from the cache
-            t0 = time.perf_counter()
-            sets.append(prepare_dataset(
-                path, "chemical", "ZINC", id_scope="global",
-                id_type="cycle_graph", k=[8], root_folder=root,
-                cache_root=os.path.join(root, "cache")))
-            times.append(time.perf_counter() - t0)
-        (cold, n_cls, sizes), (warm, _n, _s) = sets
-        if len(cold) != sum(ZINC_SIZES) or any(
-                not np.array_equal(a["identifiers"], b["identifiers"])
-                for a, b in zip(cold, warm)):
-            raise AssertionError("zinc-cli data: the cache disagrees")
-        _g, _e, d_id, _ed, _dd = encode(warm, "one_hot_unique")
-        log(f"[zinc-cli] data: {len(cold)} molecules ({ZINC_SIZES}) written "
-            f"in {wrote:.3f} s; prepare_dataset cold {times[0]:.3f} s, from "
-            f"its cache {times[1]:.3f} s; orbit sizes {sizes}; id "
-            f"vocabulary {d_id}")
+        sets.append(prepare_dataset(
+            path, "chemical", "ZINC", id_scope="global",
+            id_type="cycle_graph", k=[8], root_folder=root,
+            cache_root=os.path.join(root, "cache")))
+        times.append(time.perf_counter() - t0)
+    (cold, n_cls, sizes), (warm, _n, _s) = sets
+    if len(cold) != sum(ZINC_SIZES) or any(
+            not np.array_equal(a["identifiers"], b["identifiers"])
+            for a, b in zip(cold, warm)):
+        raise AssertionError("zinc-cli data: the cache disagrees")
+    _g, _e, d_id, _ed, _dd = encode(warm, "one_hot_unique")
+    log(f"[zinc-cli] data: {len(cold)} molecules ({ZINC_SIZES}) written "
+        f"in {wrote:.3f} s; prepare_dataset cold {times[0]:.3f} s, from "
+        f"its cache {times[1]:.3f} s; orbit sizes {sizes}; id "
+        f"vocabulary {d_id}")
 
-        # ---- phase 30: the path -------------------------------------------
-        L = 4
-        # f32: each layer's per-edge messages summed at the receivers
-        # (K3, backward K4) and the one pool (K3, backward K4)
-        # (K3's forms: the message sums and dB warp, the pool block)
-        args, hist, modes, forms, evals = cli_path(
-            card, root, "zinc-cli",
-            {"segment_sum_sorted": {"f32->f32": L + 1},
-             "segment_broadcast": {"f32": L + 1}},
-            {"segment_sum_sorted": {"f32->f32": L + 1}},
-            ({"warp": L, "block": 1}, {"warp": L, "block": 1}))
-        args_bf, _h, modes_bf, forms_bf, _e = cli_path(
-            card, root, "zinc-cli-bf16",
-            {"edge_message_fwd": {"bf16": L, "bf16 id_sq": L},
-             "edge_message_bwd_recv": {"bf16": L, "bf16 id_sq": L},
-             "segment_sum_sorted": {"bf16->bf16": L, "f32->bf16": L,
-                                    "bf16->f32": 1},
-             "segment_broadcast": {"bf16": 1}},
-            {"edge_message_fwd": {"bf16": L},
-             "segment_sum_sorted": {"bf16->f32": 1}},
-            ({"warp": 2 * L, "block": 1}, {"block": 1}),
-            "--compute_dtype", "bfloat16", "--num_epochs", "1",
-            "--results_folder", "bf16")
-        # one epoch of the same trainer under the profiler
-        make_trainer, train, data = zinc_cli_trainer(args, dev)
-        trainer = make_trainer()
-        state = trainer.init_state(seed=0)
-        profile_epoch(trainer, state, train, evals[-1]["epoch_s"],
-                      "zinc-cli")
-        rows = zinc_cli_kernels(dev, timed, data, CLI_D, empty, cpm,
-                                main_pool)
-        d = CLI_D
-        for name, (on, path, kernel, mode) in {
-                f"edge_message_fwd[bf16 d={d}]":
-                    (modes_bf, "zinc-cli-bf16", "edge_message_fwd", "bf16"),
-                f"edge_message_fwd[id_sq bf16 d={d}]":
-                    (modes_bf, "zinc-cli-bf16", "edge_message_fwd",
-                     "bf16 id_sq"),
-                f"edge_message_bwd_recv[bf16 d={d}]":
-                    (modes_bf, "zinc-cli-bf16", "edge_message_bwd_recv",
-                     "bf16"),
-                f"edge_message_bwd_recv[id_sq bf16 d={d}]":
-                    (modes_bf, "zinc-cli-bf16", "edge_message_bwd_recv",
-                     "bf16 id_sq"),
-                f"segment_sum_sorted[f32 d={d}]":
-                    (forms, "zinc-cli", None, "warp"),
-                f"segment_sum_sorted[pool f32 d={d}]":
-                    (forms, "zinc-cli", None, "block"),
-                f"segment_sum_sorted[bf16->f32 d={d}]":
-                    (modes_bf, "zinc-cli-bf16", "segment_sum_sorted",
-                     "bf16->f32"),
-                f"segment_sum_sorted[bf16->bf16 d={d}]":
-                    (modes_bf, "zinc-cli-bf16", "segment_sum_sorted",
-                     "bf16->bf16"),
-                f"segment_sum_sorted[f32->bf16 d={d}]":
-                    (modes_bf, "zinc-cli-bf16", "segment_sum_sorted",
-                     "f32->bf16"),
-                f"segment_broadcast[f32 d={d}]":
-                    (modes, "zinc-cli", "segment_broadcast", "f32"),
-                f"segment_broadcast[bf16 d={d}]":
-                    (modes_bf, "zinc-cli-bf16", "segment_broadcast", "bf16"),
-                }.items():
-            rows[name].update(launches=(on[kernel] if kernel else on)[mode],
-                              path=path)
+    # ---- phase 30: the path -------------------------------------------
+    L = 4
+    # f32: each layer's per-edge messages summed at the receivers
+    # (K3, backward K4) and the one pool (K3, backward K4)
+    # (K3's forms: the message sums and dB warp, the pool block)
+    args, hist, modes, forms, evals = cli_path(
+        card, root, "zinc-cli",
+        {"segment_sum_sorted": {"f32->f32": L + 1},
+         "segment_broadcast": {"f32": L + 1}},
+        {"segment_sum_sorted": {"f32->f32": L + 1}},
+        ({"warp": L, "block": 1}, {"warp": L, "block": 1}))
+    args_bf, _h, modes_bf, forms_bf, _e = cli_path(
+        card, root, "zinc-cli-bf16",
+        {"edge_message_fwd": {"bf16": L, "bf16 id_sq": L},
+         "edge_message_bwd_recv": {"bf16": L, "bf16 id_sq": L},
+         "segment_sum_sorted": {"bf16->bf16": L, "f32->bf16": L,
+                                "bf16->f32": 1},
+         "segment_broadcast": {"bf16": 1}},
+        {"edge_message_fwd": {"bf16": L},
+         "segment_sum_sorted": {"bf16->f32": 1}},
+        ({"warp": 2 * L, "block": 1}, {"block": 1}),
+        "--compute_dtype", "bfloat16", "--num_epochs", "1",
+        "--results_folder", "bf16")
+    # one epoch of the same trainer under the profiler
+    make_trainer, train, data = zinc_cli_trainer(args, dev)
+    trainer = make_trainer()
+    state = trainer.init_state(seed=0)
+    profile_epoch(trainer, state, train, evals[-1]["epoch_s"],
+                  "zinc-cli")
+    rows = zinc_cli_kernels(dev, timed, data, CLI_D, empty, cpm,
+                            main_pool)
+    d = CLI_D
+    for name, (on, path, kernel, mode) in {
+            f"edge_message_fwd[bf16 d={d}]":
+                (modes_bf, "zinc-cli-bf16", "edge_message_fwd", "bf16"),
+            f"edge_message_fwd[id_sq bf16 d={d}]":
+                (modes_bf, "zinc-cli-bf16", "edge_message_fwd",
+                 "bf16 id_sq"),
+            f"edge_message_bwd_recv[bf16 d={d}]":
+                (modes_bf, "zinc-cli-bf16", "edge_message_bwd_recv",
+                 "bf16"),
+            f"edge_message_bwd_recv[id_sq bf16 d={d}]":
+                (modes_bf, "zinc-cli-bf16", "edge_message_bwd_recv",
+                 "bf16 id_sq"),
+            f"segment_sum_sorted[f32 d={d}]":
+                (forms, "zinc-cli", None, "warp"),
+            f"segment_sum_sorted[pool f32 d={d}]":
+                (forms, "zinc-cli", None, "block"),
+            f"segment_sum_sorted[bf16->f32 d={d}]":
+                (modes_bf, "zinc-cli-bf16", "segment_sum_sorted",
+                 "bf16->f32"),
+            f"segment_sum_sorted[bf16->bf16 d={d}]":
+                (modes_bf, "zinc-cli-bf16", "segment_sum_sorted",
+                 "bf16->bf16"),
+            f"segment_sum_sorted[f32->bf16 d={d}]":
+                (modes_bf, "zinc-cli-bf16", "segment_sum_sorted",
+                 "f32->bf16"),
+            f"segment_broadcast[f32 d={d}]":
+                (modes, "zinc-cli", "segment_broadcast", "f32"),
+            f"segment_broadcast[bf16 d={d}]":
+                (modes_bf, "zinc-cli-bf16", "segment_broadcast", "bf16"),
+            }.items():
+        rows[name].update(launches=(on[kernel] if kernel else on)[mode],
+                          path=path)
 
-        # ---- phase 31: test and resume ------------------------------------
-        tested = run_cli(zinc_cli_argv(root, "--mode", "test"))[0]
-        want = hist["test_accs"][-1]
-        if not np.isclose(tested["test_acc"], want, rtol=1e-5, atol=0):
-            raise AssertionError(f"--mode test: metric {tested['test_acc']},"
-                                 f" training's last {want}")
-        resumed = run_cli(zinc_cli_argv(root, "--resume", "True",
-                                         "--num_epochs", "3"))[0]
-        _d, recs = read_log(args)
-        if [r["step"] for r in recs if "train_loss" in r][-1] != 2 or len(
-                resumed["train_losses"]) != 1:
-            raise AssertionError("--resume did not continue at epoch 2")
-        straight = run_cli(zinc_cli_argv(root, "--num_epochs", "3",
-                                          "--results_folder", "straight"))[0]
-        # every sum on the path has a fixed order (K3's block form too),
-        # so runs from one seed agree bit for bit, and so does a resume
-        got, ref = resumed["train_losses"][-1], straight["train_losses"][-1]
-        if hist["train_losses"] != straight["train_losses"][:2]:
-            raise AssertionError(
-                f"phase 30's first 2 epochs' train losses "
-                f"{hist['train_losses']}, the uninterrupted run's "
-                f"{straight['train_losses'][:2]}: not bit for bit")
-        if got != ref:
-            raise AssertionError(f"resumed epoch-3 train loss {got}, "
-                                 f"uninterrupted {ref}: not bit for bit")
-        log(f"[zinc-cli] --mode test: metric {tested['test_acc']} (training's"
-            f" last {want}); --resume True --num_epochs 3 trained epoch 2 "
-            f"only: train loss {got}, uninterrupted 3 epochs {ref} (rel "
-            f"{abs(got - ref) / abs(ref):.3e}); phase 30's and the "
-            f"uninterrupted run's first 2 epochs' train losses "
-            f"{hist['train_losses']} / {straight['train_losses'][:2]}, equal "
-            f"{hist['train_losses'] == straight['train_losses'][:2]}")
+    # ---- phase 31: test and resume ------------------------------------
+    tested = run_cli(zinc_cli_argv(root, "--mode", "test"))[0]
+    want = hist["test_accs"][-1]
+    if not np.isclose(tested["test_acc"], want, rtol=1e-5, atol=0):
+        raise AssertionError(f"--mode test: metric {tested['test_acc']},"
+                             f" training's last {want}")
+    resumed = run_cli(zinc_cli_argv(root, "--resume", "True",
+                                     "--num_epochs", "3"))[0]
+    _d, recs = read_log(args)
+    if [r["step"] for r in recs if "train_loss" in r][-1] != 2 or len(
+            resumed["train_losses"]) != 1:
+        raise AssertionError("--resume did not continue at epoch 2")
+    straight = run_cli(zinc_cli_argv(root, "--num_epochs", "3",
+                                      "--results_folder", "straight"))[0]
+    # every sum on the path has a fixed order (K3's block form too),
+    # so runs from one seed agree bit for bit, and so does a resume
+    got, ref = resumed["train_losses"][-1], straight["train_losses"][-1]
+    if hist["train_losses"] != straight["train_losses"][:2]:
+        raise AssertionError(
+            f"phase 30's first 2 epochs' train losses "
+            f"{hist['train_losses']}, the uninterrupted run's "
+            f"{straight['train_losses'][:2]}: not bit for bit")
+    if got != ref:
+        raise AssertionError(f"resumed epoch-3 train loss {got}, "
+                             f"uninterrupted {ref}: not bit for bit")
+    log(f"[zinc-cli] --mode test: metric {tested['test_acc']} (training's"
+        f" last {want}); --resume True --num_epochs 3 trained epoch 2 "
+        f"only: train loss {got}, uninterrupted 3 epochs {ref} (rel "
+        f"{abs(got - ref) / abs(ref):.3e}); phase 30's and the "
+        f"uninterrupted run's first 2 epochs' train losses "
+        f"{hist['train_losses']} / {straight['train_losses'][:2]}, equal "
+        f"{hist['train_losses'] == straight['train_losses'][:2]}")
 
-        # ---- phase 32: isomorphism mode ---------------------------------
-        write_sr16622(root)
-        verdicts = {}
-        for model, want in (("GSN_sparse", 0.0), ("MPNN_sparse", 1.0)):
-            out = run_cli([
-                "--seed", "0", "--dataset", "SR_graphs",
-                "--dataset_name", "sr16622", "--root_folder", root,
-                "--cache_folder", os.path.join(root, "cache_sr"),
-                "--id_type", "complete_graph", "--k", "4",
-                "--id_scope", "local", "--id_embedding", "one_hot_encoder",
-                "--model_name", model, "--num_layers", "2", "--d_out", "64",
-                "--msg_kind", "general", "--bn", "False", "--readout", "sum",
-                "--final_projection", "False", "--jk_mlp", "True",
-                "--mode", "isomorphism_test", "--wandb", "False"])
-            if out["failure_percentage"] != want or out["pairs"] != 1:
-                raise AssertionError(f"isomorphism {model}: {out}")
-            verdicts[model] = out["failure_percentage"]
-        log(f"[zinc-cli] isomorphism on SR(16,6,2,2) (4x4 rook's graph, "
-            f"Shrikhande) on the card: failure {verdicts}")
-    return rows
+    # ---- phase 32: isomorphism mode ---------------------------------
+    write_sr16622(root)
+    verdicts = {}
+    for model, want in (("GSN_sparse", 0.0), ("MPNN_sparse", 1.0)):
+        out = run_cli([
+            "--seed", "0", "--dataset", "SR_graphs",
+            "--dataset_name", "sr16622", "--root_folder", root,
+            "--cache_folder", os.path.join(root, "cache_sr"),
+            "--id_type", "complete_graph", "--k", "4",
+            "--id_scope", "local", "--id_embedding", "one_hot_encoder",
+            "--model_name", model, "--num_layers", "2", "--d_out", "64",
+            "--msg_kind", "general", "--bn", "False", "--readout", "sum",
+            "--final_projection", "False", "--jk_mlp", "True",
+            "--mode", "isomorphism_test", "--wandb", "False"])
+        if out["failure_percentage"] != want or out["pairs"] != 1:
+            raise AssertionError(f"isomorphism {model}: {out}")
+        verdicts[model] = out["failure_percentage"]
+    log(f"[zinc-cli] isomorphism on SR(16,6,2,2) (4x4 rook's graph, "
+        f"Shrikhande) on the card: failure {verdicts}")
+    return rows, hist
 
 
 def sweep_layout(dev):
@@ -2881,6 +2924,373 @@ def k2_sweep_case(A, B, Pe, b1, recv_ptr, send, act, slots, tag):
     if not all(x is None or torch.equal(x, y) for x, y in zip(got, again)):
         raise AssertionError(f"{tag}: two calls differ")
     return 1
+
+
+def c3_phase(card, zinc, dgn):
+    """Phase 34 (see module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gsn_tpu_torch.nn.dgn import DGNNet
+    from gsn_tpu_torch.train.loop import Trainer
+    graphs, data, cfg, tcfg = zinc
+    L = cfg.num_layers
+    dgn_graphs, dgn_data = dgn
+    dcfg, dtcfg = dgn_main_config(dgn_graphs)
+    dcfg = dataclasses.replace(dcfg, aggregators=DGN_AGGS + ("var", "std"))
+    Ld = dcfg.num_layers
+    cases = (
+        # K3: each layer's per-edge messages averaged at their receivers
+        # and the L + 1 pools; K4: the backward of each
+        ("zinc-mean", dataclasses.replace(cfg, aggr="mean"), tcfg, graphs,
+         data, None, {"segment_sum_sorted": 2 * L + 1,
+                      "segment_broadcast": 2 * L + 1}, 2 * L + 1),
+        # phase 10's launches, and K3 (K4 backward) for the two receiver
+        # means each of var and std takes a layer
+        ("dgn-var-std", dcfg, dtcfg, dgn_graphs, dgn_data, DGNNet,
+         {"dgn_fused_fwd": Ld, "dgn_fused_bwd": Ld,
+          "segment_sum_sorted": Ld + 2 + 4 * Ld,
+          "segment_broadcast": 1 + 4 * Ld}, Ld + 2))
+    counters = kernel_counters()
+    for tag, c, tc, gs, d, model, per_step, k3_before in cases:
+        runs = []
+        for _ in range(2):
+            tr = Trainer(c, tc, gs, model=model(c) if model else None)
+            state, losses, _s, launches, _m = train_steps(
+                tr, tr.init_state(seed=0), d, C3_STEPS, counters)
+            expect_launches(launches, per_step, C3_STEPS, tag)
+            runs.append(losses)
+        if runs[0] != runs[1]:
+            raise AssertionError(f"{tag}: two runs from one seed gave "
+                                 f"{runs[0]} and {runs[1]}")
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+        tr.train_step(state, d)
+        torch.cuda.synchronize()
+        prof.stop()
+        names = {e.key for e in prof.key_averages()}
+        hits = sorted(k for k in names if "index_add" in k)
+        if hits:
+            raise AssertionError(f"{tag}: a step ran {hits}")
+        log(f"[c3] {tag}: two runs of {C3_STEPS} steps from seed 0, losses "
+            f"{runs[0]} and {runs[1]}: bit for bit; launches in "
+            f"{C3_STEPS} steps {launches} ({per_step} a step; K3 "
+            f"{per_step['segment_sum_sorted']} a step against {k3_before} on "
+            f"its add or no-var path); a profiled step ran {len(names)} ops "
+            f"and kernels, none index_add ({card})")
+
+
+def split_rows(tag, dt, act, shard, A, B, Pe, b1, g, timed, cpm, empty):
+    """Phase 35's rows of K1, K2 and K3 (dB) in ``act`` mode on ``dt``
+    data for one shard (its block of A and g, all of B): times, bounds
+    from the rows the functions must touch, launch floors, and K1 on
+    the same edges with the shard's senders compacted into B's first
+    rows (the single-space form of the same call), which must give the
+    same bits."""
+    from gsn_tpu_torch.nn.models import edge_segments
+    from gsn_tpu_torch.ops.cuda import slab_combine as k3
+    from gsn_tpu_torch.ops.cuda import slab_message as k12
+    seg = edge_segments(shard)
+    rp, send = seg.recv_ptr, seg.send
+    block, n, d = shard.num_node_slots, shard.num_real_edges, B.shape[1]
+    slots = shard.num_edge_slots
+    n_send_rows = B.shape[0]
+    n_recv = int((rp.diff() > 0).sum())
+    touched = torch.unique(send.long())
+    n_send = touched.numel()
+    remap = torch.full((n_send_rows,), -1, dtype=torch.int32,
+                       device=B.device)
+    remap[touched] = torch.arange(n_send, dtype=torch.int32,
+                                  device=B.device)
+    send_c, B_c = remap[send.long()], B[touched].contiguous()
+    out = k12.edge_message_fwd(A, B, Pe, b1, rp, send, act)
+    exact(k12.edge_message_fwd(A, B_c, Pe, b1, rp, send_c, act), out,
+          f"edge_message_fwd[{tag}] split vs compacted senders")
+    t = 2 if dt == torch.bfloat16 else 4
+    sq = act == "id_sq"
+    idx = 4 * (block + 1 + n) + 4 * d
+    gw = 4 * 2 * d if sq else t * d      # bytes of a g or moments row
+    data_rows = t * (n_recv + n_send + n) * d   # A, B and Pe rows read
+    fwd_b = bound(data_rows + n_recv * gw + idx, (7 if sq else 5) * n * d)
+    dh_t = 4 if sq else t
+    bwd_b = bound(data_rows + n_recv * gw + t * n_recv * d + dh_t * n * d
+                  + idx, (8 if sq else 5) * n * d)
+    dH, _ = k12.edge_message_bwd_recv(A, B, Pe, b1, g, rp, send, act, slots)
+    k3_form = k3.segment_sum_form(n_send_rows, n)
+    k3_b = bound(dh_t * n * d + t * n_send_rows * d
+                 + 4 * (n_send_rows + 1 + n), n * d)
+    src = "gsn_tpu_torch/csrc/"
+    rows = {}
+    for name, kernel, plain, (t_b, by), blocks, line, extra in (
+            (f"edge_message_fwd[{tag}]",
+             lambda: k12.edge_message_fwd(A, B, Pe, b1, rp, send, act),
+             lambda: k12.edge_message_fwd_plain(A, B, Pe, b1, rp, send, act),
+             fwd_b, k1_blocks(block), "slab_message.py:214",
+             {"compact_ms": time_ms(lambda: k12.edge_message_fwd(
+                 A, B_c, Pe, b1, rp, send_c, act), cpm)[0]}),
+            (f"edge_message_bwd_recv[{tag}]",
+             lambda: k12.edge_message_bwd_recv(A, B, Pe, b1, g, rp, send,
+                                               act, slots),
+             lambda: k12.edge_message_bwd_recv_plain(A, B, Pe, b1, g, rp,
+                                                     send, act, slots),
+             bwd_b, k2_blocks(block), "slab_message.py:240", {}),
+            (f"segment_sum_sorted[{tag} dB]",
+             lambda: k3.segment_sum_sorted(dH, seg.send_ptr, seg.send_perm,
+                                           dt),
+             lambda: k3.segment_sum_sorted_plain(dH, seg.send_ptr,
+                                                 seg.send_perm, dt),
+             k3_b, k3_blocks(k3_form, n_send_rows), "slab_combine.py:77",
+             {"form": k3_form})):
+        rows[name] = dict(
+            source=src + ("segment_sum.cu" if "segment" in name
+                          else "edge_message.cu"),
+            replaces=f"gsn_tpu/ops/pallas/{line}", bound_ms=t_b,
+            bound_by=by, floor_ms=launch_floor_ms(empty, cpm, blocks),
+            blocks=blocks, **extra, **timed(kernel, plain))
+    log(f"[num_send] {tag} shard 0: {n} edges, {n_recv} of {block} "
+        f"receivers with edges, {n_send} of {n_send_rows} sender rows "
+        f"touched; K1 with its senders compacted gives the same bits")
+    return rows
+
+
+def split_mode_phase(dev, timed, host_batch, cpm, empty):
+    """Phase 35 (see module docstring); returns its kernel rows."""
+    from gsn_tpu_torch.nn.models import edge_segments
+    from gsn_tpu_torch.ops.cuda import slab_combine as k3
+    from gsn_tpu_torch.ops.cuda import slab_message as k12
+    from gsn_tpu_torch.parallel import make_ep_batch
+    data = host_batch.to(dev)
+    shards = [s.to(dev) for s in make_ep_batch(host_batch, SPLIT_D)]
+    N, E = data.num_node_slots, data.num_edge_slots
+    block = N // SPLIT_D
+    whole = edge_segments(data)
+    gen = torch.Generator(device=dev).manual_seed(35)
+    log(f"[num_send] make_zinc_like(1024)'s batch ({N} node slots, "
+        f"{data.num_real_edges} edges) over {SPLIT_D} shards of {block} "
+        f"receiver rows: {[s.num_real_edges for s in shards]} edges")
+    rows = {}
+    for dt_name, act in SPLIT_MODES:
+        dt = torch.bfloat16 if dt_name == "bf16" else torch.float32
+        tag = f"num_send {dt_name} {act}"
+        A, B = (torch.randn(N, D, device=dev, generator=gen).to(dt)
+                for _ in range(2))
+        Pe = torch.randn(E, D, device=dev, generator=gen).to(dt)
+        b1 = torch.randn(D, device=dev, generator=gen)
+        g = torch.randn(N, 2 * D if act == "id_sq" else D, device=dev,
+                        generator=gen)
+        g = g if act == "id_sq" else g.to(dt)
+
+        def close(got, want, what):
+            if got.dtype == torch.bfloat16:
+                return bf16_check(got, want, what)
+            return max_err(got, want, FWD_RTOL, FWD_ATOL, what)
+
+        outs, e0, errs = [], 0, {"fwd": 0.0, "bwd": 0.0, "dB": 0.0}
+        ops = []
+        for r, shard in enumerate(shards):
+            seg = edge_segments(shard)
+            n, slots = shard.num_real_edges, shard.num_edge_slots
+            rr = slice(r * block, (r + 1) * block)
+            a, gr = A[rr], g[rr]
+            pe = torch.zeros(slots, D, dtype=dt, device=dev)
+            pe[:n] = Pe[e0:e0 + n]
+            ops.append((shard, a, pe, gr))
+            rp, send = seg.recv_ptr, seg.send
+            out = k12.edge_message_fwd(a, B, pe, b1, rp, send, act)
+            errs["fwd"] = max(errs["fwd"], close(
+                out, k12.edge_message_fwd_plain(a, B, pe, b1, rp, send, act),
+                f"edge_message_fwd[{tag}] shard {r}"))
+            dH, dA = k12.edge_message_bwd_recv(a, B, pe, b1, gr, rp, send,
+                                               act, slots)
+            dH_p, dA_p = k12.edge_message_bwd_recv_plain(
+                a, B, pe, b1, gr, rp, send, act, slots)
+            if act == "id_sq":
+                errs["bwd"] = max(errs["bwd"], max_err(
+                    dH, dH_p, FWD_RTOL, FWD_ATOL, f"[{tag}] dH"))
+            else:
+                exact(dH, dH_p, f"edge_message_bwd_recv[{tag}] dH")
+            errs["bwd"] = max(errs["bwd"], bf16_check(dA, dA_p, f"[{tag}] dA")
+                              if dA.dtype == torch.bfloat16
+                              else grad_check([dA], [dA_p], f"[{tag}] dA"))
+            dB = k3.segment_sum_sorted(dH, seg.send_ptr, seg.send_perm, dt)
+            if dB.shape != (N, D):
+                raise AssertionError(f"[{tag}] dB shape {tuple(dB.shape)}")
+            errs["dB"] = max(errs["dB"], close(
+                dB, k3.segment_sum_sorted_plain(dH, seg.send_ptr,
+                                                seg.send_perm, dt),
+                f"segment_sum_sorted[{tag} dB] shard {r}"))
+            outs.append(out)
+            e0 += n
+        exact(torch.cat(outs), k12.edge_message_fwd(
+            A, B, Pe, b1, whole.recv_ptr, whole.send, act),
+            f"edge_message_fwd[{tag}]: the shards stacked against the "
+            f"unpartitioned call")
+        shard, a, pe, gr = ops[0]
+        got = split_rows(tag, dt, act, shard, a, B, pe, b1, gr, timed, cpm,
+                         empty)
+        for name, err in zip(got, errs.values()):
+            got[name]["max_abs_err"] = err
+        for name, row in got.items():
+            log_row("num_send", name, row)
+        rows.update(got)
+        log(f"[num_send] {tag}: {SPLIT_D} shards against the plain "
+            f"versions (max abs err {errs}); their stacked K1 outputs equal "
+            f"the unpartitioned K1's bit for bit")
+    torch.cuda.synchronize()
+    return rows
+
+
+def parallel_phase(card, zinc, host_batch, single_losses, rows, root):
+    """Phase 36 (see module docstring); fills the launches of phase 35's
+    rows from the ep runs."""
+    import torch.distributed as dist
+
+    from gsn_tpu_torch.parallel import (ParallelTrainer, init_rank,
+                                        make_ep_batch, make_mesh)
+    graphs, data, cfg, tcfg = zinc
+    L = cfg.num_layers
+    init_rank(0, 1, "cuda", os.path.join(root, "rendezvous"))
+    try:
+        counters = kernel_counters()
+        k3 = counters["segment_sum_sorted"]
+        shards = {"dp": data,
+                  "ep": make_ep_batch(host_batch, 1, rank=0).to(data.x.device)}
+        per_step = {"edge_message_fwd": L, "edge_message_bwd_recv": L,
+                    "segment_sum_sorted": 2 * L + 1,
+                    "segment_broadcast": L + 1}
+        trainers = {}
+        for mode in ("dp", "ep"):
+            mesh = make_mesh(axis_names=(mode,))
+            tr = trainers[mode] = ParallelTrainer(cfg, tcfg, graphs,
+                                                  mesh=mesh, mode=mode)
+            state, losses, step_s, launches, _m = train_steps(
+                tr, tr.init_state(seed=0), shards[mode], STEPS, counters)
+            forms = dict(k3.forms)
+            expect_launches(launches, per_step, STEPS, f"zinc-{mode} path")
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"zinc-{mode}: loss did not fall: "
+                                     f"{losses}")
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(losses, single_losses))
+            if rel > FWD_RTOL:
+                raise AssertionError(f"zinc-{mode}: losses {losses}, the "
+                                     f"single-device trainer's "
+                                     f"{single_losses} (rel {rel})")
+            med = statistics.median(step_s[1:])
+            log(f"[zinc-{mode}] NCCL world size 1: losses {losses}; against"
+                f" the single-device Trainer's (phase 5) max rel {rel:.3e},"
+                f" bit for bit {losses == single_losses}; launches in "
+                f"{STEPS} steps {launches}; train step median "
+                f"{med * 1e3:.3f} ms over {STEPS - 1} steps (first "
+                f"{step_s[0] * 1e3:.1f} ms), "
+                f"{data.num_real_edges / med:.4e} real edges/s ({card})")
+            profile_steps(tr, state, shards[mode], med * 1e3, f"zinc-{mode}")
+        steps_in_turns(card, cfg, tcfg, graphs, shards, trainers)
+        ep_runs = {"f32 relu": (launches, forms, "zinc-ep")}
+        mesh = make_mesh(axis_names=("ep",))
+        # the ep path in bf16 and with the fused-BN message MLP (f32
+        # id_sq under ep): the split mode's other rows' launches
+        for tag, path, over, each, each_modes in (
+                ("bf16 relu", "zinc-ep-bf16", {"compute_dtype": "bfloat16"},
+                 per_step,
+                 {"edge_message_fwd": {"bf16": L},
+                  "edge_message_bwd_recv": {"bf16": L},
+                  "segment_sum_sorted": {"bf16->bf16": L, "bf16->f32": L + 1},
+                  "segment_broadcast": {"bf16": L + 1}}),
+                ("f32 id_sq", "zinc-ep-bnmlp", {"bn_mlp": True},
+                 {"edge_message_fwd": 2 * L, "edge_message_bwd_recv": 2 * L,
+                  "segment_sum_sorted": 3 * L + 1,
+                  "segment_broadcast": L + 1},
+                 {"edge_message_fwd": {"f32": L, "f32 id_sq": L},
+                  "edge_message_bwd_recv": {"f32": L, "f32 id_sq": L},
+                  "segment_sum_sorted": {"f32->f32": 3 * L + 1},
+                  "segment_broadcast": {"f32": L + 1}})):
+            tr = ParallelTrainer(dataclasses.replace(cfg, **over), tcfg,
+                                 graphs, mesh=mesh, mode="ep")
+            state, losses, _s, launches, modes = train_steps(
+                tr, tr.init_state(seed=0), shards["ep"], C3_STEPS, counters)
+            expect_launches(launches, each, C3_STEPS, f"zinc-ep {tag}",
+                            modes, each_modes)
+            ep_runs[tag] = (modes, dict(k3.forms), path)
+            log(f"[zinc-ep] {tag}: {C3_STEPS} steps, losses {losses}, "
+                f"launches by mode {modes}")
+        for tag, (on, forms, path) in ep_runs.items():
+            dt, act = tag.split()
+            mode = dt + (" id_sq" if act == "id_sq" else "")
+            for kernel in ("edge_message_fwd", "edge_message_bwd_recv"):
+                n = on[kernel]
+                rows[f"{kernel}[num_send {tag}]"].update(
+                    launches=n if isinstance(n, int) else n[mode], path=path)
+            # dB: K3's warp form (the pools take the block form)
+            rows[f"segment_sum_sorted[num_send {tag} dB]"].update(
+                launches=(on["segment_sum_sorted"]["bf16->bf16"]
+                          if dt == "bf16" else forms["warp"]), path=path)
+    finally:
+        dist.destroy_process_group()
+
+
+def steps_in_turns(card, cfg, tcfg, graphs, shards, trainers):
+    """Phase 36's host costs: one collective of the port at world size 1
+    (host time a call, 200 calls queued), and a step of one device, dp
+    and ep in turns (TURNS rounds, the median of the last TURNS - 2)."""
+    from gsn_tpu_torch.parallel import collectives
+    from gsn_tpu_torch.train.loop import Trainer
+    dev = shards["dp"].x.device
+    small = torch.randn(257, device=dev)
+    block = torch.randn(shards["dp"].num_node_slots // SPLIT_D, D,
+                        device=dev)
+    host_us = {}
+    for name, fn in (("all_reduce[257]",
+                      lambda: collectives.all_reduce(small, "dp")),
+                     (f"all_gather[{block.shape[0]}x{D}]",
+                      lambda: collectives.all_gather(block, "ep"))):
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        host_us[name] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+    runs = {"one device": (Trainer(cfg, tcfg, graphs), shards["dp"]),
+            "dp": (trainers["dp"], shards["dp"]),
+            "ep": (trainers["ep"], shards["ep"])}
+    states = {k: tr.init_state(seed=0) for k, (tr, _d) in runs.items()}
+    times = {k: [] for k in runs}
+    for _ in range(TURNS):
+        for k, (tr, data) in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train_step(states[k], data)
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    log(f"[parallel] host time a collective call at world size 1 (us): "
+        f"{host_us}; a train step in turns, median ms of {TURNS - 2}: "
+        f"{ {k: statistics.median(v[2:]) for k, v in times.items()} } "
+        f"({card})")
+
+
+def cli_parallel_phase(root, serial_hist):
+    """Phase 37 (see module docstring)."""
+    for mode in ("dp", "ep"):
+        t0 = time.perf_counter()
+        hist = run_cli(zinc_cli_argv(
+            root, "--parallel", mode, "--parallel_devices", "1",
+            "--num_epochs", "1", "--results_folder", f"parallel-{mode}"))[0]
+        wall = time.perf_counter() - t0
+        for key, vals in hist.items():
+            if len(vals) != 1 or not np.isfinite(vals).all():
+                raise AssertionError(f"--parallel {mode}: history {key} = "
+                                     f"{vals}")
+        got, want = hist["train_losses"][0], serial_hist["train_losses"][0]
+        rel = abs(got - want) / abs(want)
+        if rel > CLI_PARALLEL_RTOL:
+            raise AssertionError(f"--parallel {mode}: first epoch's train "
+                                 f"loss {got}, the serial run's {want}")
+        log(f"[zinc-cli-{mode}] --parallel {mode} --parallel_devices 1: one "
+            f"epoch in {wall:.3f} s (one spawned NCCL rank); train loss "
+            f"{got}, phase 30's serial first epoch {want} (rel {rel:.3e}, "
+            f"bit for bit {got == want}); history {hist}")
 
 
 def main():
@@ -3115,12 +3525,21 @@ def main():
     rows.update(bf16_phases(dev, card, timed, zinc, molhiv))
     rows.update(dgn_bf16_phases(dev, card, timed, dgn))
     rows.update(fused_bn_phases(dev, card, timed, zinc))
-    rows.update(cli_phases(dev, card, timed, cpm, empty, (G, N)))
+    with tempfile.TemporaryDirectory() as root:
+        cli_rows, cli_hist = cli_phases(dev, card, timed, cpm, empty, (G, N),
+                                        root)
+        rows.update(cli_rows)
 
-    # ---- phase 33: K1, K2 and K3 across widths -----------------------------
-    log(f"[sweep] K1, K2 and K3 at d in {SWEEP_D}, segment lengths "
-        f"{SWEEP_LENGTHS} and 300 of 0-4 rows: {width_sweep(dev)} cases "
-        f"equal their plain versions")
+        # ---- phase 33: K1, K2 and K3 across widths -------------------------
+        log(f"[sweep] K1, K2 and K3 at d in {SWEEP_D}, segment lengths "
+            f"{SWEEP_LENGTHS} and 300 of 0-4 rows: {width_sweep(dev)} "
+            f"cases equal their plain versions")
+
+        c3_phase(card, zinc, dgn)                                    # 34
+        rows.update(split_mode_phase(dev, timed, host_batch, cpm,
+                                     empty))                         # 35
+        parallel_phase(card, zinc, host_batch, losses, rows, root)   # 36
+        cli_parallel_phase(root, cli_hist)                           # 37
 
     # kernel_ms and bound_us repeat ms and bound_ms in the units the
     # port's kernel table uses

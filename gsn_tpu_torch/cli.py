@@ -9,9 +9,16 @@ Three modes over one split or 10-fold CV:
 Run: ``python -m gsn_tpu_torch.cli --dataset chemical --dataset_name ZINC
 ...`` with the reference package's flags.  It runs on the CUDA card
 (``--device_idx`` picks which) and raises when there is none;
-``--device cpu`` runs on the CPU.  The reference's multi-device flags
-(``--parallel dp|ep`` and the multi-process ones) raise
-``NotImplementedError`` until the port has those trainers.
+``--device cpu`` runs on the CPU.
+
+``--parallel dp|ep`` with ``--parallel_devices N`` prepares the data
+once, then spawns N ranks (``parallel.launch``: gloo ranks on the CPU,
+NCCL ranks on cards 0..N-1, N at most the cards there are) that train
+with ``parallel.ParallelTrainer``; only rank 0 writes the log and the
+checkpoints, and the call returns rank 0's results.  The reference's
+multi-process flags (``--coordinator_address``,
+``--num_procs_distributed``, ``--process_id``) raise
+``NotImplementedError`` until the port has that path.
 """
 
 from __future__ import annotations
@@ -174,14 +181,14 @@ def build_parser() -> argparse.ArgumentParser:
            "'tight' re-buckets per epoch (less padding on skewed data)")
     a("--device", type=str, default="default",
       help="default (the CUDA card; raises when there is none) | cpu")
-    # the reference package's multi-device execution: not ported yet,
-    # each raises NotImplementedError (ROADMAP.md A item 7)
+    # multi-device execution (gsn_tpu_torch.parallel); the multi-process
+    # flags are not ported yet and raise NotImplementedError
     a("--parallel", type=str, default="none",
       choices=["none", "dp", "ep"],
-      help="'dp' shards each batch's graphs across devices, 'ep' "
-           "edge-partitions each batch (not ported yet: raises)")
+      help="'dp' shards each batch's graphs across ranks, 'ep' "
+           "edge-partitions each batch")
     a("--parallel_devices", type=int, default=None,
-      help="mesh size of --parallel (not ported yet)")
+      help="ranks of --parallel (default: every card, or 1 on the CPU)")
     a("--coordinator_address", type=str, default=None,
       help="multi-process coordinator host:port (not ported yet: raises)")
     a("--num_procs_distributed", type=int, default=None,
@@ -268,18 +275,28 @@ def select_device(args: Dict) -> torch.device:
     return torch.device(f"cuda:{idx}")
 
 
-def check_single_device(args: Dict) -> None:
-    """The multi-device flags have no trainer in the port yet."""
+def check_single_process(args: Dict) -> None:
+    """The multi-process flags have no counterpart in the port yet."""
     par = args.get("parallel", "none") or "none"
-    multi = {k: args.get(k) for k in ("coordinator_address",
-                                      "num_procs_distributed", "process_id")
-             if args.get(k) is not None}
-    if par != "none" or multi:
+    multi = [k for k in ("coordinator_address", "num_procs_distributed",
+                         "process_id") if args.get(k) is not None]
+    if multi:
         what = [f"--parallel {par}"] if par != "none" else []
         what += [f"--{k}" for k in multi]
         raise NotImplementedError(
-            f"{', '.join(what)}: data- and edge-parallel and multi-process "
-            f"training are not ported yet (ROADMAP.md A item 7)")
+            f"{', '.join(what)}: multi-process training (separately "
+            f"launched processes joining a coordinator) is not ported yet "
+            f"(ROADMAP.md A item 1: gsn_tpu/parallel/distributed.py)")
+
+
+def parallel_ranks(args: Dict, device: torch.device) -> int:
+    """``--parallel_devices``, by default every card (1 on the CPU)."""
+    n = args.get("parallel_devices")
+    if n is None:
+        n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n < 1:
+        raise ValueError(f"--parallel_devices {n}")
+    return n
 
 
 def dataset_path(args: Dict) -> str:
@@ -374,12 +391,16 @@ def checkpoint_path(args: Dict, fold: int) -> str:
 
 def main(args: Dict):
     """Programmatic entry (mirrors reference main.main(args))."""
-    check_single_device(args)
+    check_single_process(args)
     device = select_device(args)
     np.random.seed(args["np_seed"])
     graphs, cfg = prepare(args)
+    par = args.get("parallel", "none") or "none"
 
     if args["mode"] == "isomorphism_test":
+        if par != "none":
+            raise ValueError("--mode isomorphism_test runs on one device; "
+                             "drop --parallel")
         pairs, fails, frac = run_isomorphism_test(
             graphs, cfg, seed=args["seed"], batch_size=args["batch_size"],
             eps=args["isomorphism_eps"], device=device)
@@ -389,14 +410,42 @@ def main(args: Dict):
         print(f"Failure Percentage: {100 * frac:.2f}%")
         return {"failure_percentage": frac, "pairs": pairs, "fails": fails}
 
+    if par != "none":
+        from .parallel import launch
+        return launch(_parallel_rank, parallel_ranks(args, device),
+                      device.type, args=(args, graphs, cfg, par))[0]
     tcfg = trainer_config(args)
+    return run_folds(args, graphs,
+                     lambda train: Trainer(cfg, tcfg, train, device=device))
+
+
+def _parallel_rank(rank: int, args: Dict, graphs: List[Dict],
+                   cfg: GSNConfig, mode: str):
+    """One rank of ``--parallel``: the folds with a ``ParallelTrainer``;
+    only rank 0 writes."""
+    from .parallel import ParallelTrainer, make_mesh
+    mesh = make_mesh(axis_names=(mode,))
+    np.random.seed(args["np_seed"])
+    tcfg = trainer_config(args)
+    return run_folds(
+        args, graphs,
+        lambda train: ParallelTrainer(cfg, tcfg, train, mesh=mesh,
+                                      mode=mode),
+        write=rank == 0)
+
+
+def run_folds(args: Dict, graphs: List[Dict], make_trainer,
+              write: bool = True):
+    """Train (or test) each fold with ``make_trainer(train split)``;
+    ``write``: this process writes the logs, checkpoints and summaries
+    (every process reads the checkpoints)."""
     fold_idxs = [-1] if args["onesplit"] else args["fold_idx"]
     perf_opt = np.argmin if args["regression"] else np.argmax
 
     results = []
     for fold in fold_idxs:
         train, test, val = fold_splits(args, graphs, fold)
-        trainer = Trainer(cfg, tcfg, train, device=device)
+        trainer = make_trainer(train)
         state = trainer.init_state(seed=args["seed"])
         ckpt = checkpoint_path(args, fold)
 
@@ -404,7 +453,9 @@ def main(args: Dict):
             state, _ = load_checkpoint(ckpt, state, trainer.scheduler,
                                        trainer.rng)
             loss, acc = trainer.evaluate(state, test)
-            print(f"Fold {fold}: test loss {loss:.4f}, metric {acc:.4f}")
+            if write:
+                print(f"Fold {fold}: test loss {loss:.4f}, "
+                      f"metric {acc:.4f}")
             results.append({"test_loss": loss, "test_acc": acc})
             continue
 
@@ -414,23 +465,28 @@ def main(args: Dict):
 
         # per-fold run logger (reference wandb realtime logging at
         # train_test_funcs.py:150-159; JSONL fallback without wandb)
-        logger = RunLogger(
-            run_dir=run_dir(args, fold),
-            use_wandb=args.get("wandb", False),
-            realtime=args.get("wandb_realtime", False),
-            project=args.get("wandb_project", "gsn_project"),
-            entity=args.get("wandb_entity", None),
-            config=args)
-        logger.watch(state.model)   # reference wandb.watch, main.py:296
+        logger = None
+        if write:
+            logger = RunLogger(
+                run_dir=run_dir(args, fold),
+                use_wandb=args.get("wandb", False),
+                realtime=args.get("wandb_realtime", False),
+                project=args.get("wandb_project", "gsn_project"),
+                entity=args.get("wandb_entity", None),
+                config=args)
+            logger.watch(state.model)   # reference wandb.watch, main.py:296
         state, hist = trainer.fit(state, train, test, graphs_val=val,
-                                  checkpoint_file=ckpt, logger=logger)
-        if hist["test_accs"]:
-            fold_perf = perf_opt(hist["test_accs"])
-            logger.set_summary(
-                last_test_acc=hist["test_accs"][-1],
-                best_test_acc=hist["test_accs"][int(fold_perf)],
-                best_epoch=int(fold_perf) * args["eval_frequency"])
-        logger.close()
+                                  checkpoint_file=ckpt if write else None,
+                                  logger=logger,
+                                  log_fn=print if write else None)
+        if logger is not None:
+            if hist["test_accs"]:
+                fold_perf = perf_opt(hist["test_accs"])
+                logger.set_summary(
+                    last_test_acc=hist["test_accs"][-1],
+                    best_test_acc=hist["test_accs"][int(fold_perf)],
+                    best_epoch=int(fold_perf) * args["eval_frequency"])
+            logger.close()
         results.append(hist)
 
     if args["mode"] == "test":
@@ -449,7 +505,8 @@ def main(args: Dict):
             "best_test_std": float(accs[:, best_idx].std()),
             "best_epoch": best_idx * args["eval_frequency"],
         }
-        print(json.dumps(agg))
+        if write:
+            print(json.dumps(agg))
     if args.get("return_scores"):
         return agg
     return results

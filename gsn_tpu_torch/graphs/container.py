@@ -22,6 +22,16 @@ layout** that the CUDA kernels walk directly:
   are deterministic segment reductions with no float atomics;
 - ``graph_ptr [G+1]``: node offsets of each graph (padding excluded);
 - ``in_degree [N]``: float32 receiver in-degree.
+
+An edge-partitioned shard (``parallel/ep.py::make_ep_batch``, the
+counterpart of ``gsn_tpu/parallel/ep.py``) is a ``GraphBatch`` with
+``ep_axis`` set: its node arrays are one block of the batch's node
+slots, ``edge_index`` row 0 holds each of its edges' receiver local to
+the block and row 1 the sender's global id (the partitioner has applied
+the flow), ``recv_ptr``/``in_degree`` cover the block, ``send_ptr`` and
+``send_perm`` the global sender space, and ``graph_ptr`` is clipped to
+the block (a graph may lie in two blocks); graph-level arrays are the
+whole batch's.
 """
 
 from __future__ import annotations
@@ -58,6 +68,7 @@ class GraphBatch:
     node_eig: Any = None            # [N, Dv] float32
     edge_eig: Any = None            # [E, Dv] float32, receiver-sorted
     flow: str = "source_to_target"  # which edge_index row is the receiver
+    ep_axis: Optional[str] = None   # mesh axis of an edge-partitioned shard
 
     @property
     def num_node_slots(self) -> int:
@@ -77,7 +88,10 @@ class GraphBatch:
 
     @property
     def select(self) -> int:
-        """Row of ``edge_index`` holding the receiver."""
+        """Row of ``edge_index`` holding the receiver (row 0 in an
+        edge-partitioned shard, whatever the flow)."""
+        if self.ep_axis is not None:
+            return 0
         return 0 if self.flow == "target_to_source" else 1
 
     def to(self, device) -> "GraphBatch":
@@ -93,6 +107,24 @@ class GraphBatch:
         return dataclasses.replace(
             self, **{f.name: conv(getattr(self, f.name))
                      for f in dataclasses.fields(self)})
+
+
+def mask_off(data: GraphBatch) -> GraphBatch:
+    """An all-padding view of a host (numpy) batch: no real node, edge
+    or graph, every mask False and every segment empty, so BN
+    statistics, messages, pools, the loss and the metrics see nothing of
+    it (the dummy shards of a parallel tail batch, reference
+    ``gsn_tpu/parallel/trainer.py::_mask_off``)."""
+    return dataclasses.replace(
+        data,
+        node_mask=np.zeros_like(data.node_mask),
+        edge_mask=np.zeros_like(data.edge_mask),
+        graph_mask=np.zeros_like(data.graph_mask),
+        recv_ptr=np.zeros_like(data.recv_ptr),
+        send_perm=data.send_perm[:0],
+        send_ptr=np.zeros_like(data.send_ptr),
+        graph_ptr=np.zeros_like(data.graph_ptr),
+        in_degree=np.zeros_like(data.in_degree))
 
 
 def _round_up(x: int, multiple: int) -> int:

@@ -20,8 +20,11 @@ present take ``dgn_fused`` (B8), weighted only ``weighted_gather`` (B5),
 max/min only ``segment_minmax`` (B6).  The per-edge weights are
 layer-invariant: ``build_agg_ctx`` computes them once per forward, and
 their node-sum denominators in one K3 pass (``node_sums``).  var/std and
-the softmax weights' segment max stay plain PyTorch segment ops, as they
-are XLA in the reference.
+the softmax weights' denominators are K3 sums over the batch's
+``recv_ptr`` too (``receiver_sum`` / ``receiver_mean``: one fixed order
+per receiver, as the reference's ``jax.ops.segment_sum``); the softmax
+weights' segment max stays a plain PyTorch ``scatter_reduce`` (a max is
+the same in any order).
 
 ``DGNConfig.compute_dtype="bfloat16"`` follows the reference's cast
 points (``gsn_tpu/nn/dgn.py:374-427, 485-488, 511-512``): node rows
@@ -56,7 +59,8 @@ from gsn_tpu_torch.ops.norm import MaskedBatchNorm
 from gsn_tpu_torch.ops.segment import (global_add_pool, global_mean_pool,
                                        masked_segment_max,
                                        masked_segment_mean,
-                                       masked_segment_sum)
+                                       masked_segment_sum, receiver_mean,
+                                       receiver_sum)
 from .embedding import ATOM_FEATURE_DIMS, DiscreteEmbedding
 from .init import init_parameters
 from .mlp import dense
@@ -77,9 +81,9 @@ def _masked(x, mask):
     return x if mask is None else torch.where(mask, x, torch.zeros_like(x))
 
 
-def _dir_weights(vf_col, dst, n, mask, signed: bool):
+def _dir_weights(vf_col, dst, seg_sum, signed: bool):
     """w_e = vf_e / (Σ_{e into dst} |vf_e| + EPS); |.| if not signed."""
-    denom = masked_segment_sum(vf_col.abs(), dst, n, mask)
+    denom = seg_sum(vf_col.abs())
     num = vf_col if signed else vf_col.abs()
     return num / (denom[dst] + EPS)
 
@@ -89,25 +93,40 @@ def _softmax_alpha(kind: str) -> float:
     return -float(kind[4:]) if kind.startswith("neg-") else float(kind)
 
 
+def _receiver_ops(dst, num_nodes, edge_mask, recv_ptr):
+    """(segment sum, segment mean) of per-edge rows at their receivers:
+    K3 over ``recv_ptr`` when it is given (the rows then the real edges
+    in receiver order), else masked ``index_add`` sums over ``dst``."""
+    if recv_ptr is not None:
+        return (lambda x: receiver_sum(x, recv_ptr),
+                lambda x: receiver_mean(x, recv_ptr))
+    return (lambda x: masked_segment_sum(x, dst, num_nodes, edge_mask),
+            lambda x: masked_segment_mean(x, dst, num_nodes, edge_mask))
+
+
 def dgn_aggregate(name: str, h_src: torch.Tensor,
                   vf: Optional[torch.Tensor], h_in: torch.Tensor,
                   dst: torch.Tensor, num_nodes: int,
-                  edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  edge_mask: Optional[torch.Tensor] = None,
+                  recv_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One aggregator as plain segment ops: ``h_src`` [E, d] gathered
     source rows, ``vf`` [E, Dv] the vector field, ``h_in`` [N, d], ``dst``
-    [E] receivers; ``edge_mask`` (None: every edge is real)."""
+    [E] receivers; ``edge_mask`` (None: every edge is real);
+    ``recv_ptr``: the batch's receiver offsets, whose K3 sums then serve
+    every segment sum."""
     em = edge_mask
+    seg_sum, seg_mean = _receiver_ops(dst, num_nodes, em, recv_ptr)
     if name == "mean":
-        return masked_segment_mean(h_src, dst, num_nodes, em)
+        return seg_mean(h_src)
     if name == "sum":
-        return masked_segment_sum(h_src, dst, num_nodes, em)
+        return seg_sum(h_src)
     if name == "max":
         return masked_segment_max(h_src, dst, num_nodes, em)
     if name == "min":
         return _segment_min(h_src, dst, num_nodes, em)
     if name in ("var", "std"):
-        m2 = masked_segment_mean(h_src * h_src, dst, num_nodes, em)
-        m = masked_segment_mean(h_src, dst, num_nodes, em)
+        m2 = seg_mean(h_src * h_src)
+        m = seg_mean(h_src)
         var = torch.relu(m2 - m * m)
         return torch.sqrt(var + EPS) if name == "std" else var
     if not name.startswith("dir"):
@@ -119,36 +138,37 @@ def dgn_aggregate(name: str, h_src: torch.Tensor,
     col = vf[:, int(head[3:])]
 
     def wsum(w):
-        return masked_segment_sum(h_src * _masked(w, em)[:, None], dst,
-                                  num_nodes, em)
+        return seg_sum(h_src * _masked(w, em)[:, None])
 
     if kind == "av":
-        return wsum(_dir_weights(col, dst, num_nodes, em, signed=False))
+        return wsum(_dir_weights(col, dst, seg_sum, signed=False))
     if kind in ("dx", "dx-no-abs"):
-        u = _masked(_dir_weights(col, dst, num_nodes, em, signed=True), em)
-        u_sum = masked_segment_sum(u, dst, num_nodes, em)
+        u = _masked(_dir_weights(col, dst, seg_sum, signed=True), em)
+        u_sum = seg_sum(u)
         out = wsum(u) - u_sum[:, None] * h_in
         return out.abs() if kind == "dx" else out
     if kind == "dx-balanced":
         front, back = torch.relu(col), torch.relu(-col)
-        df = masked_segment_sum(front.abs(), dst, num_nodes, em)
-        db = masked_segment_sum(back.abs(), dst, num_nodes, em)
+        df = seg_sum(_masked(front.abs(), em))
+        db = seg_sum(_masked(back.abs(), em))
         u = (front / (df[dst] + EPS) + back / (db[dst] + EPS)) / 2.0
         u = _masked(u, em)
-        u_sum = masked_segment_sum(u, dst, num_nodes, em)
+        u_sum = seg_sum(u)
         return (wsum(u) - u_sum[:, None] * h_in).abs()
-    return wsum(softmax_weight(name, vf, dst, num_nodes, em))
+    return wsum(softmax_weight(name, vf, dst, num_nodes, em, recv_ptr))
 
 
-def softmax_weight(name: str, vf, dst, num_nodes, edge_mask=None):
-    """Per-edge weight of a 'dir{i}-{alpha}' softmax aggregator (a
-    scalar segment max, so plain segment ops)."""
+def softmax_weight(name: str, vf, dst, num_nodes, edge_mask=None,
+                   recv_ptr=None):
+    """Per-edge weight of a 'dir{i}-{alpha}' softmax aggregator: a
+    scalar segment max (``scatter_reduce``) and a segment sum (K3 over
+    ``recv_ptr`` when given, as in ``dgn_aggregate``)."""
     head, kind = name.split("-", 1)
     logits = _softmax_alpha(kind) * vf[:, int(head[3:])].abs()
     seg_max = masked_segment_max(logits, dst, num_nodes, edge_mask)
     ex = _masked(torch.exp(logits - seg_max[dst]), edge_mask)
-    denom = masked_segment_sum(ex, dst, num_nodes, edge_mask)
-    return ex / (denom[dst] + EPS)
+    seg_sum, _ = _receiver_ops(dst, num_nodes, edge_mask, recv_ptr)
+    return ex / (seg_sum(ex)[dst] + EPS)
 
 
 def node_sums(cols: List[torch.Tensor], seg: EdgeSegments) -> torch.Tensor:
@@ -249,7 +269,7 @@ def build_agg_ctx(aggregators: Sequence[str], data: GraphBatch,
                  + torch.relu(-col) / (sums_e[:, slots[1]] + EPS)) / 2.0
             post = _dx_post((df / (df + EPS) + db / (db + EPS)) / 2.0, True)
         else:
-            w = softmax_weight(a, vf, dst, n)
+            w = softmax_weight(a, vf, dst, n, recv_ptr=seg.recv_ptr)
         kernel_idx.append(i)
         kernel_w.append(w)
         posts.append(post)
@@ -315,7 +335,8 @@ class DGNLayerSimple(nn.Module):
                  avg_d: Dict[str, float], dropout: float = 0.0,
                  graph_norm: bool = False, batch_norm: bool = True,
                  residual: bool = True, posttrans_layers: int = 1,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 bn_axis_name: Optional[str] = None):
         super().__init__()
         self.aggregators = tuple(aggregators)
         self.scalers = tuple(scalers)
@@ -326,7 +347,7 @@ class DGNLayerSimple(nn.Module):
             len(self.aggregators) * len(self.scalers) * in_dim, out_dim,
             out_dim, posttrans_layers, dtype)
         if batch_norm:
-            self.bn = MaskedBatchNorm(out_dim)
+            self.bn = MaskedBatchNorm(out_dim, axis_name=bn_axis_name)
         self.dropout = NodeDropout(dropout)
 
     def forward(self, h: torch.Tensor, data: GraphBatch,
@@ -357,7 +378,8 @@ class DGNLayerSimple(nn.Module):
                     # f32 rows: the segment sums (var/std's E[h^2]-E[h]^2
                     # most of all) must not accumulate in bf16
                     h_src = h.float()[ctx.src]
-                parts[i] = dgn_aggregate(a, h_src, ctx.vf, h_in, ctx.dst, n)
+                parts[i] = dgn_aggregate(a, h_src, ctx.vf, h_in, ctx.dst, n,
+                                         recv_ptr=ctx.seg.recv_ptr)
         agg = torch.cat(parts, dim=1)   # f32 parts in either dtype
         if len(self.scalers) > 1:
             agg = torch.cat([dgn_scale(s, agg, ctx.deg, self.avg_d)
@@ -376,11 +398,12 @@ class DGNLayerSimple(nn.Module):
 
 @dataclasses.dataclass
 class DGNConfig:
-    """The reference package's ``DGNConfig`` fields, less those of
-    paths not ported yet (``bn_axis_name`` for data-parallel BN),
+    """The reference package's ``DGNConfig`` fields, less
     ``dropout_rng`` (the masks come from the trainer's
     ``torch.Generator``) and the unused ``edge_feat`` / ``edge_dim``.
-    ``compute_dtype``: None (f32) or ``"bfloat16"``."""
+    ``compute_dtype``: None (f32) or ``"bfloat16"``; ``bn_axis_name``:
+    the mesh axis the layers' BN statistics are summed over (set by the
+    data-parallel trainers)."""
     hidden_dim: int = 70
     out_dim: int = 70
     num_layers: int = 4
@@ -399,6 +422,7 @@ class DGNConfig:
     posttrans_layers: int = 1
     out_features: int = 1
     compute_dtype: Optional[str] = None
+    bn_axis_name: Optional[str] = None
 
 
 class DGNNet(nn.Module):
@@ -423,7 +447,7 @@ class DGNNet(nn.Module):
             setattr(self, f"layer_{i}", DGNLayerSimple(
                 c.hidden_dim, out_dim, c.aggregators, c.scalers, avg_d,
                 c.dropout, c.graph_norm, c.batch_norm, c.residual,
-                c.posttrans_layers, cdt))
+                c.posttrans_layers, cdt, c.bn_axis_name))
         widths = [c.out_dim, c.out_dim // 2, c.out_dim // 4, c.out_features]
         for l in range(3):
             setattr(self, f"readout_fc_{l}",
@@ -433,9 +457,14 @@ class DGNNet(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         c = self.cfg
+        if data.ep_axis is not None:
+            raise NotImplementedError("DGN runs data-parallel, not "
+                                      "edge-partitioned (as in the "
+                                      "reference)")
         nm = data.node_mask
         h = self.embedding_h(data.x)
-        h = dropout(h, c.in_feat_dropout, self.training, generator)
+        h = dropout(h, c.in_feat_dropout, self.training, generator,
+                    node_rows=True)
         if c.pos_enc_dim > 0:
             if data.node_eig is None:
                 raise ValueError("pos_enc_dim > 0 needs node_eig")

@@ -13,6 +13,11 @@ Kinds ported so far:
 
 The other kinds of the reference package (``zero_encoder``, ``linear``,
 ``mlp``, the one-hot OGB encoders) raise until a later slice needs them.
+
+A table lookup's backward sums each table row's gradient rows in one
+fixed order (``ops.segment.table_lookup``: a one-hot product):
+``nn.Embedding``'s backward accumulates them with float atomics on the
+card, which made two runs of one seed part.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from gsn_tpu_torch.ops.segment import table_lookup
 
 # ogb.utils.features allowable-feature vocabulary sizes
 ATOM_FEATURE_DIMS = [119, 4, 12, 12, 10, 6, 6, 2, 2]
@@ -53,7 +60,7 @@ class MultiEmbedding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _as_2d(x).long()
-        outs = [getattr(self, f"embed_{i}")(x[:, i])
+        outs = [table_lookup(getattr(self, f"embed_{i}").weight, x[:, i])
                 for i in range(self.num_columns)]
         if self.aggr == "concat":
             return torch.cat(outs, dim=1)

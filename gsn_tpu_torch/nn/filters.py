@@ -30,12 +30,24 @@ rounded once to bf16) while the bias becomes ``(b1 − mean)·s + bias``;
 the relu pass then runs on those.  In eval the running statistics fold
 in.  In f32, ``bn_mlp`` messages stay on the per-edge path.
 
-Per-edge messages are summed at their receivers through the batch's
-receiver-sorted segment layout (``add_pool`` over ``recv_ptr``: K3
-forward, K4 backward), each receiver's messages in one fixed order: the
-reference sums them with a segment sum (``gsn_tpu/nn/filters.py:581-
+Per-edge messages are summed (``aggr="add"``) or averaged
+(``aggr="mean"``) at their receivers through the batch's receiver-sorted
+segment layout (``receiver_sum`` / ``receiver_mean`` over ``recv_ptr``:
+K3 forward, K4 backward), each receiver's messages in one fixed order:
+the reference sums them with a segment sum (``gsn_tpu/nn/filters.py:581-
 586``), and a float-atomic ``index_add`` here made two runs of one seed
 part within an epoch on the card.
+
+Under edge partitioning (``ep_axis``, the batch a shard of
+``parallel/ep.py::make_ep_batch``) the node rows are the shard's block,
+the receivers local and the senders global: the sender side crosses the
+ranks once per layer through an all-gather (``gsn_tpu/nn/filters.py:
+139-160, 228-229, 305-319, 436-453, 512-534``) — for the ``general``
+kind's kernel path only the projected B rows, so K1/K2 run with B in
+the gathered sender space (the ``num_send_nodes`` mode) while A stays
+local; for per-edge messages B and the sender rows of x.  ``bn_mlp``
+messages then take the fused-BN kernel path in f32 too, as in the
+reference, where the per-edge path would gather d_in-wide rows.
 """
 
 from __future__ import annotations
@@ -47,9 +59,11 @@ from torch import nn
 
 from gsn_tpu_torch.ops.cuda.slab_message import (ACTS, EdgeSegments,
                                                  edge_message_aggregate)
-from gsn_tpu_torch.ops.cuda.slab_pool import add_pool
 from gsn_tpu_torch.ops.norm import MaskedBatchNorm
-from gsn_tpu_torch.ops.segment import masked_segment_mean, masked_segment_sum
+from gsn_tpu_torch.ops.segment import (masked_segment_mean,
+                                       masked_segment_sum, receiver_mean,
+                                       receiver_sum)
+from gsn_tpu_torch.parallel.collectives import all_gather
 from .mlp import MLP, choose_activation, dense
 
 
@@ -64,14 +78,16 @@ class EdgeMessageMLP(nn.Module):
     ``node_parts``: ``(width, mode)`` per node-level input, mode ``recv``,
     ``send`` or ``both`` (projected twice, gathered at both endpoints).
     ``edge_parts``: width per edge-level input.  ``dtype``: the compute
-    dtype of the dense layers (each input is cast to it).
+    dtype of the dense layers (each input is cast to it).  ``axis_name``:
+    the mesh axis its BN statistics are summed over.
     """
 
     def __init__(self, node_parts: Sequence[Tuple[int, str]],
                  edge_parts: Sequence[int], d_out: int,
                  d_hidden: Sequence[int], activation: str = "elu",
                  batch_norm: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 axis_name: Optional[str] = None):
         super().__init__()
         self.dtype = dtype
         self.widths = list(d_hidden) + [d_out]
@@ -97,7 +113,7 @@ class EdgeMessageMLP(nn.Module):
             li += 1
         self.dense_0_bias = nn.Parameter(torch.zeros(d1))
         if len(self.widths) > 1 and batch_norm:
-            self.bn_0 = MaskedBatchNorm(d1)
+            self.bn_0 = MaskedBatchNorm(d1, axis_name=axis_name)
         for i in range(1, len(self.widths)):
             d_prev, d = self.widths[i - 1], self.widths[i]
             if i == len(self.widths) - 1:
@@ -107,7 +123,8 @@ class EdgeMessageMLP(nn.Module):
             else:
                 setattr(self, f"dense_{i}", nn.Linear(d_prev, d))
                 if batch_norm:
-                    setattr(self, f"bn_{i}", MaskedBatchNorm(d))
+                    setattr(self, f"bn_{i}",
+                            MaskedBatchNorm(d, axis_name=axis_name))
 
     @property
     def fusable(self) -> bool:
@@ -115,8 +132,14 @@ class EdgeMessageMLP(nn.Module):
         relu/identity activation; batch norm inside the MLP only in bf16
         (the reference's routing: its f32 fused-BN pass lost to the
         per-edge path)."""
+        return self.fusable_under(ep=False)
+
+    def fusable_under(self, ep: bool) -> bool:
+        """``fusable``, and under edge partitioning also batch norm in
+        f32 (reference ``filters.py:355-363``)."""
         return (len(self.widths) <= 2 and self.activation in ACTS
-                and (not self.batch_norm or self.dtype == torch.bfloat16))
+                and (not self.batch_norm or self.dtype == torch.bfloat16
+                     or ep))
 
     def _fold_bn(self, A, B, pe, bias, seg, in_degree):
         """BN of the pre-activation H = A[recv] + B[send] + Pe + bias
@@ -139,9 +162,12 @@ class EdgeMessageMLP(nn.Module):
 
     def forward(self, node_parts, edge_parts, recv, send, edge_mask=None,
                 seg: Optional[EdgeSegments] = None,
-                in_degree: Optional[torch.Tensor] = None) -> torch.Tensor:
+                in_degree: Optional[torch.Tensor] = None,
+                ep_axis: Optional[str] = None) -> torch.Tensor:
         """``seg`` given: the fused kernel path, returning the aggregated
-        [N, d_out]; otherwise per-edge messages [E, d_out]."""
+        [N, d_out]; otherwise per-edge messages [E, d_out].  ``ep_axis``:
+        the send-side rows B are all-gathered over it (global sender
+        ids)."""
         dt = self.dtype
         A = B = pe = None   # node-level recv-/send-side sums, edge sum
         for arr, projs in zip(node_parts, self.node_proj):
@@ -155,9 +181,11 @@ class EdgeMessageMLP(nn.Module):
             p = dense(getattr(self, f"dense_0_p{li}"), arr, dt)
             pe = p if pe is None else pe + p
         bias = self.dense_0_bias
+        if ep_axis is not None and B is not None:
+            B = all_gather(B, ep_axis)
 
         if seg is not None:
-            if not self.fusable:
+            if not self.fusable_under(ep_axis is not None):
                 raise ValueError("this message MLP has no fused path")
             # a single-dense MLP has no hidden activation (reference
             # models_misc.mlp applies act between layers only)
@@ -218,7 +246,8 @@ class GSNLayer(nn.Module):
                  aggr: str = "add", flow: str = "target_to_source",
                  activation_mlp: str = "elu", bn_mlp: bool = False,
                  train_eps: bool = False,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 bn_axis_name: Optional[str] = None):
         super().__init__()
         if msg_kind not in ("general", "ogb"):
             raise NotImplementedError(
@@ -241,7 +270,7 @@ class GSNLayer(nn.Module):
             if train_eps:
                 self.eps = nn.Parameter(torch.zeros(()))
             self.update_fn = MLP(d_self, d_up, tuple(d_h), activation_mlp,
-                                 bn_mlp, compute_dtype)
+                                 bn_mlp, compute_dtype, bn_axis_name)
             return
         node_parts = [(d_in, "both")]
         edge_parts = []
@@ -255,26 +284,32 @@ class GSNLayer(nn.Module):
         d_msg_out = d_msg if d_msg is not None else d_in
         self.msg_fn = EdgeMessageMLP(node_parts, edge_parts, d_msg_out,
                                      tuple(d_h), activation_mlp, bn_mlp,
-                                     compute_dtype)
+                                     compute_dtype, bn_axis_name)
         self.update_fn = MLP(d_in + d_msg_out, d_up, tuple(d_h),
-                             activation_mlp, bn_mlp, compute_dtype)
+                             activation_mlp, bn_mlp, compute_dtype,
+                             bn_axis_name)
 
     def forward(self, x, edge_index, identifiers=None, degrees=None,
                 edge_features=None, node_mask=None, edge_mask=None,
-                seg: Optional[EdgeSegments] = None, in_degree=None):
+                seg: Optional[EdgeSegments] = None, in_degree=None,
+                ep_axis: Optional[str] = None):
         """``seg``/``in_degree``: the batch's segment layout; the fused
         kernel path runs when it is given and the layer is eligible
-        (add aggregation and a fusable message MLP)."""
+        (add aggregation and a fusable message MLP).  ``ep_axis``: the
+        batch is an edge-partitioned shard (``edge_index`` row 0 the
+        local receivers, row 1 the global senders)."""
         if self.degree_as_tag:
             deg = degrees if degrees.dim() > 1 else degrees[:, None]
             deg = deg.to(x.dtype)
             x = torch.cat([x, deg], -1) if self.retain_features else deg
         n_nodes = x.shape[0]
-        select = 0 if self.flow == "target_to_source" else 1
+        # the partitioner's convention: row 0 the receiver, flow applied
+        select = (0 if ep_axis is not None or self.flow == "target_to_source"
+                  else 1)
         recv, send = edge_index[select], edge_index[1 - select]
         if self.msg_kind == "ogb":
             return self._ogb(x, recv, send, identifiers, edge_features,
-                             node_mask, edge_mask, seg)
+                             node_mask, edge_mask, seg, ep_axis)
 
         node_parts = [x]
         edge_parts = []
@@ -287,9 +322,10 @@ class GSNLayer(nn.Module):
         if self.use_edge_features:
             edge_parts.append(edge_features)
         msg_fn = self.msg_fn
-        fused = seg is not None and self.aggr == "add" and msg_fn.fusable
+        fused = (seg is not None and self.aggr == "add"
+                 and msg_fn.fusable_under(ep_axis is not None))
         out = msg_fn(node_parts, edge_parts, recv, send, edge_mask,
-                     seg if fused else None, in_degree)
+                     seg if fused else None, in_degree, ep_axis)
         # the fused path's aggregate stays in the compute dtype; per-edge
         # messages are summed in f32 (reference filters.py:385-394)
         agg = out if fused else self._aggregate(out.float(), recv, n_nodes,
@@ -300,15 +336,17 @@ class GSNLayer(nn.Module):
     def _aggregate(self, msgs, recv, n_nodes, edge_mask, seg=None):
         """Sum (or mean) of the per-edge messages at their receivers;
         with ``seg``, a sorted segment sum over its ``recv_ptr`` (the
-        padding edges at the tail lie outside every segment)."""
-        if self.aggr == "add" and seg is not None:
-            return add_pool(msgs, seg.recv_ptr)
+        padding edges at the tail lie outside every segment), else a
+        masked ``index_add``."""
+        if seg is not None:
+            return (receiver_sum(msgs, seg.recv_ptr) if self.aggr == "add"
+                    else receiver_mean(msgs, seg.recv_ptr))
         if self.aggr == "add":
             return masked_segment_sum(msgs, recv, n_nodes, edge_mask)
         return masked_segment_mean(msgs, recv, n_nodes, edge_mask)
 
     def _ogb(self, x, recv, send, identifiers, edge_features, node_mask,
-             edge_mask, seg):
+             edge_mask, seg, ep_axis=None):
         """The ``ogb`` kind (reference ``gsn_tpu/nn/filters.py:485-559``).
         With ``seg`` and add aggregation the message runs K1/K2 (the
         reference's slab path: ``pe = ids + e`` first, then the sender
@@ -337,17 +375,24 @@ class GSNLayer(nn.Module):
                 pe = pe.expand(-1, dm)
             kdt = self.compute_dtype or torch.float32
             b1 = torch.zeros(dm, dtype=torch.float32, device=x.device)
+            B = self_msg.to(kdt)
+            if ep_axis is not None:
+                B = all_gather(B, ep_axis)
             agg = edge_message_aggregate(
-                None, self_msg.to(kdt),
-                pe.to(kdt) if pe is not None else None, b1, seg, "relu")
+                None, B, pe.to(kdt) if pe is not None else None, b1, seg,
+                "relu")
         else:
-            m = x[send]
+            def full(a):   # the sender rows of every shard under ep
+                return a if ep_axis is None else all_gather(a, ep_axis)
+
+            m = full(x)[send]
             if ids is not None:
-                m = m + (ids if self.id_scope == "local" else ids[send])
+                m = m + (ids if self.id_scope == "local"
+                         else full(ids)[send])
             if ef is not None:
                 m = m + ef
             agg = self._aggregate(torch.relu(m), recv, x.shape[0],
-                                  edge_mask)
+                                  edge_mask, seg)
         # (1+ε) and the self message in the aggregate's dtype
         update_in = self_msg.to(agg.dtype)
         if hasattr(self, "eps"):

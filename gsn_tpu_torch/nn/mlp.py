@@ -42,11 +42,13 @@ class MLP(nn.Module):
     """Linear stack: hidden widths ``d_hidden`` then ``d_out`` (the last
     layer has no activation/BN).  Layers are named ``dense_i`` and
     ``bn_i`` as in the reference package.  ``dtype``: the compute dtype
-    of every layer (flax ``MLP(dtype=)``); BN keeps f32 statistics."""
+    of every layer (flax ``MLP(dtype=)``); BN keeps f32 statistics, summed
+    over the ranks of mesh axis ``axis_name`` when one is given."""
 
     def __init__(self, d_in: int, d_out: int, d_hidden: Sequence[int] = (),
                  activation: str = "elu", batch_norm: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 axis_name: Optional[str] = None):
         super().__init__()
         self.num_hidden = len(d_hidden)
         self.batch_norm = batch_norm
@@ -56,7 +58,8 @@ class MLP(nn.Module):
         for i, d in enumerate(d_hidden):
             setattr(self, f"dense_{i}", nn.Linear(widths[i], d))
             if batch_norm:
-                setattr(self, f"bn_{i}", MaskedBatchNorm(d))
+                setattr(self, f"bn_{i}",
+                        MaskedBatchNorm(d, axis_name=axis_name))
         setattr(self, f"dense_{self.num_hidden}",
                 nn.Linear(widths[-1], d_out))
 

@@ -17,12 +17,21 @@ is ``nn/dgn.py``.)
 Dropout draws its masks from the ``torch.Generator`` the caller passes
 to ``forward`` (the trainer's seeded generator on the batch's device),
 so a seed fixes them.  They are not the reference's masks: JAX's
-threefry and PyTorch's generators give different bits.
+threefry and PyTorch's generators give different bits.  An
+edge-partitioned rank passes ``DropoutStreams``: node rows draw from its
+own stream, graph-level rows (replicated on every rank) from one that
+all ranks share, the counterpart of the reference's
+``fold_in(key, axis_index(ep_axis))`` for node dropout only
+(``gsn_tpu/nn/models.py:53-75``).
+
+On an edge-partitioned shard (``GraphBatch.ep_axis``) the pools sum the
+ranks' partial per-graph sums, the layers all-gather their sender side,
+and BN statistics are summed over ``cfg.bn_axis_name``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -39,31 +48,47 @@ from .init import init_parameters
 from .mlp import MLP, choose_activation
 
 
+class DropoutStreams(NamedTuple):
+    """An edge-partitioned rank's dropout generators: ``graph`` seeded
+    alike on every rank, ``node`` this rank's own."""
+    graph: torch.Generator
+    node: torch.Generator
+
+
+def _stream(generator, node_rows: bool):
+    if isinstance(generator, DropoutStreams):
+        return generator.node if node_rows else generator.graph
+    return generator
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator=None, node_rows: bool = False) -> torch.Tensor:
     """Inverted dropout: keep each element with probability 1 - rate and
-    scale it by 1/(1 - rate); identity outside training or at rate 0."""
+    scale it by 1/(1 - rate); identity outside training or at rate 0.
+    ``generator``: a ``torch.Generator``, or ``DropoutStreams`` whose
+    node stream serves ``node_rows`` and whose graph stream the rest."""
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+    mask = torch.empty_like(x).bernoulli_(
+        keep, generator=_stream(generator, node_rows))
     return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
 
 
 class NodeDropout(nn.Module):
     """Dropout over node rows (reference ``gsn_tpu/nn/models.py``
-    ``NodeDropout``).  The reference's edge-partition fold and its
-    ``rbg`` bit generator belong to its sharded TPU path; here the mask
-    comes from the generator passed in."""
+    ``NodeDropout``): under edge partitioning its masks come from the
+    rank's own stream of ``DropoutStreams``, so the ranks' blocks draw
+    different masks.  The reference's ``rbg`` bit generator belongs to
+    its TPU path; here the mask comes from the generator passed in."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
-        return dropout(x, self.rate, self.training, generator)
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        return dropout(x, self.rate, self.training, generator,
+                       node_rows=True)
 
 
 def _pool_fn(readout: str):
@@ -77,13 +102,14 @@ def _pool_fn(readout: str):
 def _make_pool(readout: str, data: GraphBatch,
                compute_dtype: Optional[torch.dtype] = None):
     """Node-level pooling closure over the batch's graph offsets (the
-    pool kernel path; padding nodes lie outside every graph).  With a
-    compute dtype the node rows are rounded to it first, as on the
-    reference's slab layout; the pooled rows are f32."""
+    pool kernel path; padding nodes lie outside every graph), summed
+    over the ranks of an edge-partitioned shard.  With a compute dtype
+    the node rows are rounded to it first, as on the reference's slab
+    layout; the pooled rows are f32."""
     fn = _pool_fn(readout)
     if compute_dtype is None:
-        return lambda x: fn(x, data.graph_ptr)
-    return lambda x: fn(x.to(compute_dtype), data.graph_ptr)
+        return lambda x: fn(x, data.graph_ptr, data.ep_axis)
+    return lambda x: fn(x.to(compute_dtype), data.graph_ptr, data.ep_axis)
 
 
 def compute_dtype_of(cfg) -> Optional[torch.dtype]:
@@ -165,9 +191,11 @@ class GNNSubstructures(nn.Module):
                 degree_as_tag=c.degree_as_tag[i], d_degree=d_deg,
                 retain_features=c.retain_features[i], aggr=c.aggr,
                 flow=c.flow, activation_mlp=c.activation_mlp,
-                bn_mlp=c.bn_mlp, compute_dtype=cdt))
+                bn_mlp=c.bn_mlp, compute_dtype=cdt,
+                bn_axis_name=c.bn_axis_name))
             if c.bn[i]:
-                setattr(self, f"bn_{i}", MaskedBatchNorm(c.d_out[i]))
+                setattr(self, f"bn_{i}", MaskedBatchNorm(
+                    c.d_out[i], axis_name=c.bn_axis_name))
             widths.append(c.d_out[i])
         for i, w in enumerate(widths):
             if not c.final_projection[i]:
@@ -217,7 +245,7 @@ class GNNSubstructures(nn.Module):
                 ids_i = ids_i.to(cdt) if ids_i is not None else None
                 ef_i = ef_i.to(cdt) if ef_i is not None else None
             x = conv(x, data.edge_index, ids_i, degrees, ef_i, nm, em,
-                     seg, data.in_degree)
+                     seg, data.in_degree, data.ep_axis)
             if c.bn[i]:
                 x = getattr(self, f"bn_{i}")(x, nm)
             x = self.act(x)
@@ -299,9 +327,10 @@ class GNN_OGB(nn.Module):
                 retain_features=c.retain_features[i], aggr=c.aggr,
                 flow=c.flow, activation_mlp=c.activation_mlp,
                 bn_mlp=c.bn_mlp, train_eps=c.train_eps[i],
-                compute_dtype=cdt))
+                compute_dtype=cdt, bn_axis_name=c.bn_axis_name))
             if c.bn[i]:
-                setattr(self, f"bn_{i}", MaskedBatchNorm(c.d_out[i]))
+                setattr(self, f"bn_{i}", MaskedBatchNorm(
+                    c.d_out[i], axis_name=c.bn_axis_name))
             if c.vn and i < L - 1:
                 setattr(self, f"mlp_vn_{i}", MLP(
                     d_x, c.d_out_vn[i], tuple(c.d_h[i]), c.activation_mlp,
@@ -357,13 +386,15 @@ class GNN_OGB(nn.Module):
                 h = h + broadcast_graph_to_nodes(vn, data.graph_ptr,
                                                  n_nodes)
                 x_interm[i] = h
-            x = conv(h, data.edge_index, ids_i, degrees, ef_i, nm, em, seg)
+            x = conv(h, data.edge_index, ids_i, degrees, ef_i, nm, em, seg,
+                     ep_axis=data.ep_axis)
             if c.bn[i]:
                 x = getattr(self, f"bn_{i}")(x, nm)
             # reference :242-245: no activation on the last conv layer
             if i < L - 1:
                 x = self.act(x)
-            x = dropout(x, c.dropout_features[i], self.training, generator)
+            x = dropout(x, c.dropout_features[i], self.training, generator,
+                        node_rows=True)
             if c.residual:
                 x = x + x_interm[-1]
             x_interm.append(x)

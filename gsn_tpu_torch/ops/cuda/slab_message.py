@@ -69,6 +69,33 @@ def _pre_activation(A, B, Pe, b1, recv, send):
     return h + b1
 
 
+def _sender_range(send: torch.Tensor):
+    """(smallest, largest) sender id of ``send``, or None when it is
+    empty.  Read back once per tensor and kept on it, so a batch's
+    segments pay one device read however many kernels they feed (the
+    port never writes into a ``send`` tensor)."""
+    cached = getattr(send, "_gsn_sender_range", None)
+    if cached is None:
+        cached = (tuple(int(v) for v in torch.aminmax(send))
+                  if send.numel() else ())
+        send._gsn_sender_range = cached
+    return cached or None
+
+
+def check_senders(what: str, B: torch.Tensor, send: torch.Tensor,
+                  send_ptr: Optional[torch.Tensor] = None) -> None:
+    """Raise unless every id of ``send`` is a row of B and, when given,
+    ``send_ptr`` holds B.shape[0] + 1 offsets."""
+    n_send = B.shape[0]
+    if send_ptr is not None and send_ptr.numel() - 1 != n_send:
+        raise ValueError(f"{what}: send_ptr has {send_ptr.numel() - 1} "
+                         f"segments, B has {n_send} rows")
+    rng = _sender_range(send)
+    if rng is not None and (rng[0] < 0 or rng[1] >= n_send):
+        raise ValueError(f"{what}: sender ids span [{rng[0]}, {rng[1]}], "
+                         f"B has {n_send} rows")
+
+
 def _check_act(act: str) -> None:
     if act not in ACT_CODES:
         raise ValueError(f"edge message activation {act!r}: the kernels "
@@ -86,6 +113,7 @@ def edge_message_fwd_plain(A, B, Pe, b1, recv_ptr, send, act="relu"):
     rounded to it, summed in f32, the sum rounded once); id_sq the f32
     [N, 2d] sums of [H, H²]."""
     _check_act(act)
+    check_senders("edge_message_fwd", B, send)
     recv = receivers(recv_ptr)
     h = _pre_activation(A, B, Pe, b1, recv, send)
     if act == "relu":
@@ -106,6 +134,7 @@ def edge_message_bwd_recv_plain(A, B, Pe, b1, g, recv_ptr, send,
     rounded once); id_sq from the f32 [N, 2d] g, dH f32 and dA rounded
     once to B's dtype."""
     _check_act(act)
+    check_senders("edge_message_bwd_recv", B, send)
     recv = receivers(recv_ptr)
     d = B.shape[1]
     dh = g.to(_moment_dtype(act, B.dtype))[recv]
@@ -145,6 +174,7 @@ def _check_cuda(what, A, B, Pe, b1, g, recv_ptr, send, act):
         raise ValueError(f"{what}: b1 has shape {tuple(b1.shape)}")
     if Pe is not None and Pe.shape[0] < send.numel():
         raise ValueError(f"{what}: Pe has fewer rows than edges")
+    check_senders(what, B, send)
 
 
 def _suffix(dtype) -> str:
@@ -231,6 +261,7 @@ class EdgeMessageAggregate(torch.autograd.Function):
         A = A.contiguous() if A is not None else None
         B = B.contiguous()
         Pe = Pe.contiguous() if Pe is not None else None
+        check_senders("edge_message_aggregate", B, seg.send, seg.send_ptr)
         ctx.save_for_backward(A, B, Pe, b1)
         ctx.seg, ctx.act = seg, act
         return edge_message_fwd(A, B, Pe, b1, seg.recv_ptr, seg.send, act)

@@ -8,7 +8,12 @@ unpadded BatchNorm1d semantics:
   *unbiased* batch variance (torch BatchNorm semantics);
 - running statistics update only in training mode;
 - a bf16 input (the bf16 compute dtype) gets f32 statistics and f32
-  arithmetic, and the output is rounded back to bf16.
+  arithmetic, and the output is rounded back to bf16;
+- ``axis_name`` (data or edge parallelism): the masked moments
+  ``(n, Σx, Σx²)`` are summed over the ranks of that mesh axis before
+  the mean and variance (``gsn_tpu/ops/norm.py:84-86``), on both the
+  ``x`` path and the fused-BN ``moments`` path, so every rank normalizes
+  with the statistics of the whole batch.
 """
 
 from __future__ import annotations
@@ -18,14 +23,17 @@ from typing import Optional
 import torch
 from torch import nn
 
+from gsn_tpu_torch.parallel.collectives import all_reduce
+
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm1d over rows with an optional row-validity mask."""
 
     def __init__(self, num_features: int, momentum: float = 0.1,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, axis_name: Optional[str] = None):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.axis_name = axis_name
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -57,6 +65,12 @@ class MaskedBatchNorm(nn.Module):
                 n = m.sum()
                 sum_x = (xf * m).sum(0)
                 sum_x2 = (xf.square() * m).sum(0)
+            if self.axis_name is not None:
+                # one collective for the three moments
+                d = sum_x.shape[0]
+                both = all_reduce(torch.cat([n.reshape(1), sum_x, sum_x2]),
+                                  self.axis_name)
+                n, sum_x, sum_x2 = both[0], both[1:d + 1], both[d + 1:]
             n = torch.clamp(n, min=1.0)
             mean = sum_x / n
             var = torch.clamp(sum_x2 / n - mean.square(), min=0.0)

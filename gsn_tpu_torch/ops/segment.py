@@ -3,9 +3,19 @@
 
 ``global_add_pool`` / ``global_mean_pool`` and the virtual node's
 ``broadcast_graph_to_nodes`` route through the pool kernels
-(``ops/cuda/slab_pool.py``) over the batch's ``graph_ptr``; the masked
-segment sums serve the message layers' unfused aggregation when no
-segment layout is given.
+(``ops/cuda/slab_pool.py``) over the batch's ``graph_ptr``.  Receiver
+sums of per-edge rows (the mean aggregation, the DGN ``var``/``std``
+aggregators and softmax weights) are K3 over the batch's ``recv_ptr``
+(``receiver_sum`` / ``receiver_mean``): the real edges are stably
+receiver-sorted, padding edges last, so each receiver's rows are summed
+in one fixed order, as the reference's ``jax.ops.segment_sum`` is on its
+chip.  The masked ``index_add`` sums serve only callers that have no
+segment layout.
+
+Under edge partitioning (``axis``: the mesh axis of the node blocks) a
+pool sums its block's partial per-graph sums, and its node counts, over
+the ranks (``gsn_tpu/ops/segment.py:100-140``): a graph whose nodes lie
+in two blocks gets each block's part once.
 """
 
 from __future__ import annotations
@@ -14,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from gsn_tpu_torch.parallel.collectives import all_reduce
 from .cuda.slab_pool import add_pool, graph_broadcast
 
 
@@ -39,6 +50,51 @@ def masked_segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
     denom = masked_segment_sum(ones, segment_ids, num_segments, mask)
     denom = torch.where(denom == 0, torch.ones_like(denom), denom)
     return total / denom.reshape((-1,) + (1,) * (data.dim() - 1))
+
+
+def receiver_sum(data: torch.Tensor, recv_ptr: torch.Tensor
+                 ) -> torch.Tensor:
+    """f32 [N, ...] sums of the per-edge rows ``data`` [E, ...] (f32 or
+    bf16; the first ``recv_ptr[-1]`` rows are the real edges in receiver
+    order, any rows after them padding) over the CSR segments
+    ``recv_ptr`` [N+1]: K3 forward and K4 backward on the card (the pool
+    pair, ``add_pool``), their plain versions on the CPU."""
+    flat = data.reshape(data.shape[0], -1)
+    out = add_pool(flat, recv_ptr)
+    return out.reshape((out.shape[0],) + tuple(data.shape[1:]))
+
+
+def receiver_mean(data: torch.Tensor, recv_ptr: torch.Tensor
+                  ) -> torch.Tensor:
+    """``receiver_sum`` over the in-degree ``recv_ptr.diff()``, clamped
+    to 1 (the reference's empty-segment guard, ``GSN_sparse.py:147``)."""
+    total = receiver_sum(data, recv_ptr)
+    denom = torch.clamp(recv_ptr.diff().to(torch.float32), min=1.0)
+    return total / denom.reshape((-1,) + (1,) * (data.dim() - 1))
+
+
+class _TableLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.num_rows = table.shape[0]
+        return torch.nn.functional.embedding(idx, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        one_hot = g.new_zeros(idx.numel(), ctx.num_rows)
+        one_hot.scatter_(1, idx[:, None], 1.0)
+        return one_hot.t() @ g, None
+
+
+def table_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` (an embedding lookup; ``idx`` int64) whose backward
+    is the product ``one_hot(idx)ᵀ · g``: each table row's gradient rows
+    summed in a fixed order, where ``nn.Embedding``'s backward adds them
+    with float atomics on the card.  The tables are small vocabularies
+    (at most a few hundred rows), so the one-hot matrix is too."""
+    return _TableLookup.apply(table, idx)
 
 
 def masked_segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -70,20 +126,25 @@ def broadcast_graph_to_nodes(vn: torch.Tensor, graph_ptr: torch.Tensor,
     return graph_broadcast(vn, graph_ptr, num_nodes)
 
 
-def global_add_pool(x: torch.Tensor, graph_ptr: torch.Tensor
-                    ) -> torch.Tensor:
+def global_add_pool(x: torch.Tensor, graph_ptr: torch.Tensor,
+                    axis: Optional[str] = None) -> torch.Tensor:
     """Per-graph sum readout (reference global_add_pool_sparse) through
     the pool kernel over the batch's ``graph_ptr`` [num_graphs+1]
     (padding nodes lie outside every graph's range, so no mask is
-    needed): f32 rows, or bf16 rows summed in f32; f32 out."""
-    return add_pool(x, graph_ptr)
+    needed): f32 rows, or bf16 rows summed in f32; f32 out.  ``axis``:
+    the partial sums of the ranks' node blocks are summed over it."""
+    out = add_pool(x, graph_ptr)
+    return out if axis is None else all_reduce(out, axis)
 
 
-def global_mean_pool(x: torch.Tensor, graph_ptr: torch.Tensor
-                     ) -> torch.Tensor:
+def global_mean_pool(x: torch.Tensor, graph_ptr: torch.Tensor,
+                     axis: Optional[str] = None) -> torch.Tensor:
     """Per-graph mean readout with empty-graph zero-guard (reference
     global_mean_pool_sparse, ``utils_graph_learning.py:32-41``); f32 out
-    from f32 or bf16 rows, as ``global_add_pool``."""
+    from f32 or bf16 rows, as ``global_add_pool``.  ``axis``: sums and
+    node counts are summed over the ranks before the division."""
     counts = graph_ptr.diff().to(torch.float32)
+    if axis is not None:
+        counts = all_reduce(counts, axis)
     denom = torch.where(counts == 0, torch.ones_like(counts), counts)
-    return add_pool(x, graph_ptr) / denom[:, None]
+    return global_add_pool(x, graph_ptr, axis) / denom[:, None]

@@ -3,7 +3,7 @@ reference train_test_funcs.py:37-46,161-166).
 
 A checkpoint is one ``torch.save`` file holding the model's
 ``state_dict`` (parameters and BN running statistics), the optimizer's,
-the scheduler state, the dropout generator's state, the host shuffle
+the scheduler state, the dropout generators' states, the host shuffle
 stream's state and the epoch.  It is written to ``<path>.tmp`` and then
 moved over ``path``, so a reader never sees half a file.
 
@@ -38,6 +38,8 @@ def save_checkpoint(path: str, state, scheduler,
         "optimizer": state.optimizer.state_dict(),
         "scheduler": scheduler.state_dict() if scheduler is not None else None,
         "dropout_gen": state.dropout_gen.get_state(),
+        "node_gen": (state.node_gen.get_state()
+                     if state.node_gen is not None else None),
         "host_rng": _rng_state(rng) if rng is not None else None,
     }
     tmp = path + ".tmp"
@@ -56,6 +58,8 @@ def load_checkpoint(path: str, state, scheduler=None,
     state.model.load_state_dict(payload["model"])
     state.optimizer.load_state_dict(payload["optimizer"])
     state.dropout_gen.set_state(payload["dropout_gen"].cpu())
+    if state.node_gen is not None and payload.get("node_gen") is not None:
+        state.node_gen.set_state(payload["node_gen"].cpu())
     if scheduler is not None and payload["scheduler"] is not None:
         scheduler.load_state_dict(payload["scheduler"])
     if rng is not None and payload["host_rng"] is not None:

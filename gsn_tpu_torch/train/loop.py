@@ -31,7 +31,7 @@ from gsn_tpu_torch.graphs.batching import (epoch_caps, infer_y_spec,
                                            tight_epoch_caps)
 from gsn_tpu_torch.graphs.container import GraphBatch
 from gsn_tpu_torch.nn.init import init_parameters
-from gsn_tpu_torch.nn.models import build_model
+from gsn_tpu_torch.nn.models import DropoutStreams, build_model
 from .checkpoint import save_checkpoint
 from .metrics import LOSSES, PREDICTION_FNS, roc_auc_score
 from .optim import ReduceLROnPlateau, StepLR, make_optimizer, make_scheduler
@@ -64,6 +64,16 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     dropout_gen: torch.Generator   # dropout masks, on the model's device
     epoch: int = 0
+    # an edge-partitioned rank's own stream for node rows (dropout_gen is
+    # then the stream all ranks share); None off that path
+    node_gen: Optional[torch.Generator] = None
+
+    @property
+    def generators(self):
+        """What the model's ``forward`` takes for its dropout masks."""
+        if self.node_gen is None:
+            return self.dropout_gen
+        return DropoutStreams(self.dropout_gen, self.node_gen)
 
 
 @dataclasses.dataclass
@@ -164,11 +174,39 @@ class Trainer:
         for group in opt.param_groups:
             group["lr"] = self.scheduler.lr if lr is None else lr
         opt.zero_grad(set_to_none=True)
-        loss = self.loss_fn(model(data, state.dropout_gen), data.y,
-                            data.graph_mask)
-        loss.backward()
+        loss = self._step_loss(model(data, state.generators), data)
+        self._backward(loss, model)
         opt.step()
         return state, loss.detach()
+
+    def _step_loss(self, y_hat, data: GraphBatch) -> torch.Tensor:
+        """The batch's loss (the parallel trainer's is global)."""
+        return self.loss_fn(y_hat, data.y, data.graph_mask)
+
+    def _backward(self, loss: torch.Tensor, model) -> None:
+        """Fill the parameters' gradients (the parallel trainer also sums
+        them over the ranks)."""
+        loss.backward()
+
+    def _eval_counts(self, y_hat, data: GraphBatch):
+        """(graphs, metric sum) of one eval batch (global totals under
+        the parallel trainer)."""
+        n = int(data.graph_mask.sum())
+        acc = (float(self.pred_fn(y_hat, data.y, data.graph_mask))
+               if self.pred_fn is not None else 0.0)
+        return n, acc
+
+    def _eval_pack(self, y_hat, data: GraphBatch):
+        """(y_hat, y, graph_mask) for evaluator metrics on the whole
+        split (every rank's rows under data parallelism)."""
+        return y_hat, data.y, data.graph_mask
+
+    def _train_batches(self, graphs: List[Dict]) -> List[GraphBatch]:
+        """One epoch's (shuffled) host batches."""
+        return list(iterate_batches(
+            graphs, self.tcfg.batch_size, shuffle=self.tcfg.shuffle,
+            rng=self.rng, caps=self.caps, y_shape=self.y_shape,
+            y_dtype=self.y_dtype, flow=self.flow))
 
     def train_epoch(self, state: TrainState, graphs: List[Dict]):
         """One epoch of ``num_iters`` steps (default: every batch once;
@@ -176,10 +214,7 @@ class Trainer:
         loss) and leaves the epoch's host batching, copy and step times
         in ``epoch_stats``."""
         t0 = time.perf_counter()
-        batches = list(iterate_batches(
-            graphs, self.tcfg.batch_size, shuffle=self.tcfg.shuffle,
-            rng=self.rng, caps=self.caps, y_shape=self.y_shape,
-            y_dtype=self.y_dtype, flow=self.flow))
+        batches = self._train_batches(graphs)
         build_s = time.perf_counter() - t0
         n_iters = self.tcfg.num_iters or len(batches)
         seq = []
@@ -264,17 +299,15 @@ class Trainer:
         y_true_all, y_pred_all = [], []
         for data in self._eval_plan(graphs, n_iters):
             y_hat = model(data)
-            n = int(data.graph_mask.sum())
-            total_loss += float(self.loss_fn(y_hat, data.y,
-                                             data.graph_mask)) * n
-            if self.pred_fn is not None:
-                total_acc += float(self.pred_fn(y_hat, data.y,
-                                                data.graph_mask))
+            n, acc = self._eval_counts(y_hat, data)
+            total_loss += float(self._step_loss(y_hat, data)) * n
+            total_acc += acc
             total_n += n
             if self.tcfg.evaluator is not None:
-                mask = data.graph_mask.cpu().numpy()
-                y_true_all.append(data.y.cpu().numpy()[mask])
-                y_pred_all.append(y_hat.cpu().numpy()[mask])
+                y_hat, y, mask = (t.cpu().numpy()
+                                  for t in self._eval_pack(y_hat, data))
+                y_true_all.append(y[mask])
+                y_pred_all.append(y_hat[mask])
         avg_loss = total_loss / max(total_n, 1)
         if self.tcfg.evaluator == "rocauc":
             return avg_loss, roc_auc_score(np.concatenate(y_true_all),

@@ -368,14 +368,19 @@ def test_cli_zinc_flags_train_with_val_and_resume(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (("--parallel", "dp"), "--parallel dp"),
-    (("--parallel", "ep", "--parallel_devices", "2"), "--parallel ep"),
+    (("--parallel", "dp", "--process_id", "0"), "--parallel dp"),
+    (("--parallel", "ep", "--parallel_devices", "2",
+      "--coordinator_address", "localhost:9955"), "--parallel ep"),
     (("--coordinator_address", "localhost:9955"), "--coordinator_address"),
     (("--num_procs_distributed", "2", "--process_id", "0"), "--process_id"),
 ])
 def test_cli_multi_device_flags_raise(tmp_path, flags, match):
+    """The multi-process flags raise, alone or beside ``--parallel``
+    (which runs on its own: tests/test_torch_parallel.py), naming the
+    ROADMAP item that ports them."""
     make_tu_dataset(str(tmp_path))
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError,
+                       match=f"{match}.*ROADMAP.md A item 1"):
         run(tu_argv(tmp_path, *flags))
     assert not (tmp_path / "cache").exists()
 

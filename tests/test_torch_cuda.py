@@ -807,3 +807,114 @@ def test_segment_sum_sorted_takes_the_chosen_form(dev, n_seg, length,
                 k3.segment_sum_sorted_plain(x.abs(), ptr), ptr.diff())
     for _ in range(3):
         assert torch.equal(got, k3.segment_sum_sorted(x, ptr))
+
+
+# ---------------------------------------------------------------------------
+# the split sender space (edge partitioning) and repeatable receiver sums
+# ---------------------------------------------------------------------------
+
+def ep_shards(dev, D=4):
+    """``make_zinc_like(256)``'s batch and its D edge-partitioned shards
+    on the card."""
+    from gsn_tpu_torch.data.synthetic import make_zinc_like
+    from gsn_tpu_torch.graphs.batching import iterate_batches
+    from gsn_tpu_torch.parallel import make_ep_batch
+    graphs, _ = make_zinc_like(256)
+    data = next(iterate_batches(graphs, 256, y_dtype=np.float32))
+    return data.to(dev), [s.to(dev) for s in make_ep_batch(data, D)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("act", ["relu", "id_sq"])
+def test_edge_message_split_sender_space(dev, dtype, act):
+    """K1, K2 and K3 (dB into the N sender rows) with B in the gathered
+    sender space of D=4 edge-partitioned shards (A, g and the output
+    over a shard's 1/4 of the rows): each shard against the plain
+    versions, and the shards' stacked K1 outputs equal the unpartitioned
+    K1's bit for bit."""
+    from gsn_tpu_torch.nn.models import edge_segments
+    data, shards = ep_shards(dev)
+    N, d = data.num_node_slots, 128
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    gen = torch.Generator(device=dev).manual_seed(2)
+    A, B = (torch.randn(N, d, device=dev, generator=gen).to(dt)
+            for _ in range(2))
+    Pe = torch.randn(data.num_edge_slots, d, device=dev,
+                     generator=gen).to(dt)
+    b1 = torch.randn(d, device=dev, generator=gen)
+    width = 2 * d if act == "id_sq" else d
+    g = torch.randn(N, width, device=dev, generator=gen)
+    g = g if act == "id_sq" else g.to(dt)
+    close = (lambda a, b: torch.testing.assert_close(a, b, **FWD)) \
+        if dt == torch.float32 or act == "id_sq" else bf16_close
+    block, e0, outs = N // len(shards), 0, []
+    for r, shard in enumerate(shards):
+        seg = edge_segments(shard)
+        n = shard.num_real_edges
+        rows = slice(r * block, (r + 1) * block)
+        a, pe, gr = A[rows], Pe[e0:e0 + n], g[rows]
+        out = k12.edge_message_fwd(a, B, pe, b1, seg.recv_ptr, seg.send,
+                                   act)
+        close(out, k12.edge_message_fwd_plain(a, B, pe, b1, seg.recv_ptr,
+                                              seg.send, act))
+        dH, dA = k12.edge_message_bwd_recv(a, B, pe, b1, gr, seg.recv_ptr,
+                                           seg.send, act, n + 7)
+        dH_p, dA_p = k12.edge_message_bwd_recv_plain(
+            a, B, pe, b1, gr, seg.recv_ptr, seg.send, act, n + 7)
+        if act == "id_sq":
+            torch.testing.assert_close(dH, dH_p, **FWD)
+        else:
+            assert torch.equal(dH, dH_p)
+        (close if dt == torch.float32 else bf16_close)(dA, dA_p)
+        dB = k3.segment_sum_sorted(dH, seg.send_ptr, seg.send_perm, dt)
+        dB_p = k3.segment_sum_sorted_plain(dH, seg.send_ptr, seg.send_perm,
+                                           dt)
+        assert dB.shape == (N, d)
+        (close if dt == torch.float32 else bf16_close)(dB, dB_p)
+        outs.append(out)
+        e0 += n
+    whole = edge_segments(data)
+    assert torch.equal(torch.cat(outs), k12.edge_message_fwd(
+        A, B, Pe, b1, whole.recv_ptr, whole.send, act))
+
+
+def test_receiver_sums_repeat_bit_for_bit(dev):
+    """Two runs of 3 train steps from one seed give the same losses and
+    weights bit for bit: a zinc model with ``aggr="mean"`` and a DGN
+    model with ``var`` and ``std`` (their receiver sums are K3 over
+    ``recv_ptr``, one order per receiver)."""
+    from gsn_tpu_torch.config import GSNConfig
+    from gsn_tpu_torch.data.synthetic import make_dgn_like, make_zinc_like
+    from gsn_tpu_torch.graphs.batching import iterate_batches
+    from gsn_tpu_torch.nn.dgn import DGNConfig, DGNNet, compute_avg_d
+    from gsn_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    graphs, d_id = make_zinc_like(128)
+    zinc = GSNConfig(
+        model_name="GSN_edge_sparse", num_layers=2, d_out=64,
+        out_features=1, msg_kind="general", id_scope="global",
+        bn_mlp=False, id_embedding="one_hot_encoder",
+        input_node_encoder="embedding", edge_encoder="embedding",
+        readout="sum", in_features=1, d_in_node_encoder=[28],
+        d_in_edge_encoder=[4], d_in_id=d_id, aggr="mean")
+    dgn_graphs = make_dgn_like(128)
+    dgn_cfg = DGNConfig(hidden_dim=32, out_dim=32, num_layers=2,
+                        aggregators=("mean", "max", "var", "std",
+                                     "dir0-av"),
+                        avg_d=compute_avg_d(dgn_graphs), dropout=0.0)
+    tc = TrainerConfig(lr=1e-3, batch_size=128, loss_fn="L1Loss",
+                       scheduler="None")
+    for cfg, gs, model in ((zinc, graphs, None),
+                           (dgn_cfg, dgn_graphs, DGNNet(dgn_cfg))):
+        runs = []
+        for _ in range(2):
+            tr = Trainer(cfg, tc, gs, device=dev, model=model)
+            st = tr.init_state(seed=0)
+            data = tr.to_device(next(iterate_batches(
+                gs, 128, y_dtype=np.float32, flow=tr.flow)))
+            losses = [float(tr.train_step(st, data)[1]) for _ in range(3)]
+            runs.append((losses, [p.detach().clone()
+                                  for p in st.model.parameters()]))
+        assert runs[0][0] == runs[1][0]
+        assert all(torch.equal(a, b) for a, b in zip(runs[0][1],
+                                                     runs[1][1]))

@@ -195,20 +195,33 @@ def _imports(path):
             yield node.module
 
 
-def test_port_imports_no_jax_or_reference_package():
-    bad = []
+def _port_sources():
     for root, _dirs, files in os.walk(PKG):
         for f in files:
             if f.endswith(".py"):
-                path = os.path.join(root, f)
-                for mod in _imports(path):
-                    if mod.split(".")[0] in FORBIDDEN:
-                        bad.append(f"{os.path.relpath(path, REPO)}: {mod}")
+                yield os.path.join(root, f)
+
+
+def test_port_imports_no_jax_or_reference_package():
+    bad = []
+    for path in _port_sources():
+        for mod in _imports(path):
+            if mod.split(".")[0] in FORBIDDEN:
+                bad.append(f"{os.path.relpath(path, REPO)}: {mod}")
     for script in ("chip_smoke.py", "kernel_turns.py"):
         for mod in _imports(os.path.join(REPO, script)):
             if mod.split(".")[0] in FORBIDDEN:
                 bad.append(f"{script}: {mod}")
     assert not bad, bad
+
+
+def test_import_scan_covers_the_parallel_package():
+    """The scan above reads every module of ``gsn_tpu_torch/parallel``."""
+    scanned = {os.path.relpath(p, PKG) for p in _port_sources()}
+    want = {os.path.join("parallel", f) for f in (
+        "__init__.py", "collectives.py", "mesh.py", "dp.py", "ep.py",
+        "trainer.py")}
+    assert want <= scanned, want - scanned
 
 
 def test_port_imports_with_jax_poisoned():
