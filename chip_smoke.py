@@ -186,8 +186,9 @@ Phases (any failure is an uncaught exception and a nonzero exit):
     and the Shrikhande graph, ``write_sr16622``) on the card: GSN with
     edge-level K3/K4 counts fails 0% of the pairs, the MPNN 100%.
 33. K1, K2 and K3 against their plain versions across widths
-    (SWEEP_D: 2, 6, 37, 75, 150, 298) on f32 and bf16: K3 in both forms,
-    with and without ``perm``, into f32 and bf16, over segments of
+    (SWEEP_D: 1, 2, 6, 37, 75, 150, 298, 689) on f32 and bf16: K3 in
+    both forms, with and without ``perm``, into f32 and bf16, over
+    segments of
     SWEEP_LENGTHS (empty ones, 1 to 2,000 rows) and 300 of 0-4 rows,
     starting 13 rows in; each call repeated must give the same bits; K1
     and K2 in every mode (relu, identity, id_sq; with and without A and
@@ -228,6 +229,42 @@ Phases (any failure is an uncaught exception and a nonzero exit):
     ``--parallel_devices 1`` (one spawned NCCL rank) for one epoch of
     phase 30's data and flags: a finite history, and the first epoch's
     train loss within CLI_PARALLEL_RTOL of phase 30's.
+38. The gin path's data and kernels: ``write_imdb_dataset`` writes
+    IMDB_GRAPHS IMDB-BINARY-like ego-networks (one node tag, ten folds)
+    in the TU layout; ``cli.prepare`` counts them (``complete_graph``
+    k=5, local, non-induced; the host seconds cold and from the cache
+    are logged) and encodes them.  On one train batch of IMDB_BATCH
+    graphs, K1 and K2 in the gin message's identity form (no A side, a
+    zero b1; a node part with B the rows, an edge part with a zero B and
+    Pe the rows) at the layer-0 widths (x: 1; the one-hot ids with their
+    central column) and IMDB_D, against their plain versions (K1 at the
+    f32 tolerances, K2's dH bit for bit), timed beside one PyTorch call
+    of the same function (``torch.sparse.mm`` of the CSR receiver
+    adjacency with B, ``index_add`` of Pe, ``index_select`` of g), with
+    bounds and the launch floor of K1's grid.  The forms the path runs
+    are rows ``edge_message_fwd[gin ...]`` / ``edge_message_bwd_recv[gin
+    ...]``; the others go on log lines.
+39. README.md's IMDBBINARY command (``--model_name GSN_sparse --msg_kind
+    gin``) through ``cli.main``, fold 0, 2 epochs of 50 steps: a small
+    gin model on the card against the CPU first; then a finite history,
+    launches exactly (a train step: K1 5 = layer 0's node and edge
+    parts and one part a later layer, K2 3, K3 8 = 3 dB and 5 pools, K4
+    4; an eval step: K1 5, K3 5; K1/K2 also by row width), each epoch's
+    seconds, median step and host-batching share; STEPS steps on one
+    batch (median, edges/s), a profiled step (busy, idle share) and one
+    ``train/profiling.py::step_stats`` line.
+40. The directional CLI: ``write_molhiv_dataset`` writes DGN_CLI_GRAPHS
+    molhiv-like molecules as OGB raw files with an 80/10/10 split, and
+    ``cli_directional.main`` runs scripts/dgn_molhiv_10_runs.py's flags
+    (hidden 60, 4 layers, the seven aggregators, cycle_graph k=6 local
+    directions, dropout 0.3) for 2 epochs: a finite best-val tuple,
+    launches exactly (a train step: K5/K6 fused 4 each, K3 6, K4 1; an
+    eval step: K5 4, K3 2), each epoch's seconds; K5/K6 ``<fused>`` at
+    the path's d=60 against their plain versions and timed (rows
+    ``dgn_fused_fwd[d=60 K=...]``), STEPS steps and a profiled step on
+    one batch; then ``--parallel dp --parallel_devices 1`` (one spawned
+    NCCL rank) for one epoch: its train loss within CLI_PARALLEL_RTOL of
+    the serial run's first epoch (bit for bit logged).
 
 Then it prints three lines: ``{"kernels": [...]}`` (each kernel's
 checks, times, bound and its launches on the path named in its
@@ -292,10 +329,11 @@ HOLD_TRIES = 5
 # K4's stress widths: below a float4, odd, the paths' 70, 128 and 300,
 # and 130 (rows that are not whole float4s past 128)
 K4_STRESS_D = (1, 3, 33, 70, 128, 130, 300)
-# phase 33's widths for K1-K3 (one pair of elements, three pairs,
-# odd, 75 pairs, zinc-cli's 150, two column tiles of pairs) and segment
+# phase 33's widths for K1-K3 (one element: the gin path's layer-0 x,
+# one pair of elements, three pairs, odd, 75 pairs, zinc-cli's 150, two
+# column tiles of pairs, and the gin path's odd id width) and segment
 # lengths (empty ones, chunk edges at 31-33 and 64, long ones to 2,000)
-SWEEP_D = (2, 6, 37, 75, 150, 298)
+SWEEP_D = (1, 2, 6, 37, 75, 150, 298, 689)
 SWEEP_LENGTHS = (0, 1, 2, 3, 4, 5, 0, 7, 8, 9, 16, 31, 32, 33, 0, 64, 100,
                  257, 1000, 2000)
 # f32 tolerances (tests/test_mxu_integration.py:48,79-84)
@@ -2618,21 +2656,10 @@ def cli_path(card, root, tag, per_train, per_eval, forms, *extra):
     n_train = -(-ZINC_SIZES[0] // 128)
     n_eval = sum(-(-n // 128) for n in ZINC_SIZES)
     epochs = args["num_epochs"]
-    want = {}
-    for per, n in ((per_train, n_train), (per_eval, n_eval)):
-        for k, ms in per.items():
-            for m, c in ms.items():
-                want.setdefault(k, {}).setdefault(m, 0)
-                want[k][m] += c * n * epochs
-    want_forms = {}
-    for per, n in zip(forms, (n_train, n_eval)):
-        for f, c in per.items():
-            want_forms[f] = want_forms.get(f, 0) + c * n * epochs
-    if modes != want or k3_forms != want_forms:
-        raise AssertionError(f"{tag}: launches by mode {modes}, K3's by "
-                             f"form {k3_forms}, expected {want} and "
-                             f"{want_forms} ({epochs} epochs of {n_train} "
-                             f"train and {n_eval} eval steps)")
+    expect_cli_launches(tag, {**modes, "K3 forms": k3_forms},
+                        {**per_train, "K3 forms": forms[0]},
+                        {**per_eval, "K3 forms": forms[1]},
+                        n_train * epochs, n_eval * epochs)
     log(f"[{tag}] cli.main {wall:.3f} s: {epochs} epochs of {n_train} "
         f"train steps and {n_eval} eval steps; launches by mode {modes} "
         f"= a train step {per_train}, an eval step {per_eval}; K3 by form "
@@ -3293,12 +3320,476 @@ def cli_parallel_phase(root, serial_hist):
             f"bit for bit {got == want}); history {hist}")
 
 
+# phases 38-39: the README's IMDBBINARY command (gin)
+IMDB_GRAPHS = 1000
+IMDB_D = 64
+IMDB_BATCH = 32
+
+
+def imdb_argv(root, *extra):
+    """README.md's IMDBBINARY command (``--model_name GSN_sparse
+    --msg_kind gin``, local ``complete_graph`` k=5 counts) on the
+    synthetic IMDB set under ``root``: fold 0, 2 epochs of 50 steps,
+    JSONL logging, on the card."""
+    argv = ["--seed", "0", "--dataset", "social",
+            "--dataset_name", "IMDBBINARY", "--root_folder", root,
+            "--cache_folder", os.path.join(root, "cache_imdb"),
+            "--id_type", "complete_graph", "--induced", "False", "--k", "5",
+            "--id_scope", "local", "--id_encoding", "one_hot_unique",
+            "--id_embedding", "one_hot_encoder",
+            "--model_name", "GSN_sparse", "--msg_kind", "gin",
+            "--num_layers", "4", "--d_out", str(IMDB_D),
+            "--final_projection", "True", "--readout", "mean",
+            "--batch_size", str(IMDB_BATCH), "--num_epochs", "2",
+            "--num_iters", "50", "--lr", "1e-3", "--decay_steps", "10",
+            "--decay_rate", "0.5", "--mode", "train", "--fold_idx", "0",
+            "--wandb", "False"]
+    return argv + list(extra)
+
+
+def gin_rows(timed, data, d, part, gen, floor):
+    """K1 and K2 as the gin message runs them (identity, no A side, a
+    zero b1) at width ``d`` over the batch's edges: a node part (B the
+    rows, no Pe) or an edge part (a zero B, Pe the edge rows).  Each
+    against its plain version (K1 at the f32 tolerances, K2's dH, a copy
+    of g, bit for bit), timed beside one PyTorch call of the same
+    function: for K1 the CSR receiver adjacency times B
+    (``torch.sparse.mm``) for a node part and ``index_add`` of Pe for an
+    edge part, for K2 ``index_select`` of g at the edges' receivers (the
+    real edges' rows of dH); bounds from the bytes the function moves
+    (B at the senders with edges, Pe at the real edges, every output
+    row; K2: g at the receivers with edges and every dH slot).  Returns
+    the (fwd, bwd) rows."""
+    from gsn_tpu_torch.nn.models import edge_segments
+    from gsn_tpu_torch.ops.cuda import slab_message as k12
+    dev = data.x.device
+    N, E, e_real = data.num_node_slots, data.num_edge_slots, \
+        data.num_real_edges
+    seg = edge_segments(data)
+    rp, send = seg.recv_ptr, seg.send
+    n_recv = int((rp.diff() > 0).sum())
+    n_send = int((seg.send_ptr.diff() > 0).sum())
+    if part == "node":
+        B, Pe = torch.randn(N, d, device=dev, generator=gen), None
+    else:
+        B = torch.zeros(N, d, device=dev)
+        Pe = torch.randn(E, d, device=dev, generator=gen)
+    b1 = torch.zeros(d, device=dev)
+    g = torch.randn(N, d, device=dev, generator=gen)
+    tag = f"gin {part} f32 d={d}"
+    want = k12.edge_message_fwd_plain(None, B, Pe, b1, rp, send, "identity")
+    err_f = max_err(k12.edge_message_fwd(None, B, Pe, b1, rp, send,
+                                         "identity"),
+                    want, FWD_RTOL, FWD_ATOL, f"edge_message_fwd[{tag}]")
+    dH, dA = k12.edge_message_bwd_recv(None, B, Pe, b1, g, rp, send,
+                                       "identity", E)
+    dH_p, _ = k12.edge_message_bwd_recv_plain(None, B, Pe, b1, g, rp, send,
+                                              "identity", E)
+    exact(dH, dH_p, f"edge_message_bwd_recv[{tag}] dH")
+    if dA is not None:
+        raise AssertionError("gin K2 returned dA with no A side")
+    recv_l = k12.receivers(rp)
+    if part == "node":
+        adj = torch.sparse_csr_tensor(
+            rp, send, torch.ones(e_real, device=dev), size=(N, N))
+
+        def library():
+            return torch.sparse.mm(adj, B)
+    else:
+        zeros_nd = torch.zeros(N, d, device=dev)
+        pe_real = Pe[:e_real]
+
+        def library():
+            return torch.index_add(zeros_nd, 0, recv_l, pe_real)
+    max_err(library(), want, FWD_RTOL, FWD_ATOL, f"library [{tag}]")
+    exact(torch.index_select(g, 0, recv_l), dH_p[:e_real],
+          f"library index_select [{tag}]")
+    idx = 4 * (d + N + 1 + e_real)
+    fwd_b = bound(4 * (n_send * d + N * d
+                       + (e_real * d if Pe is not None else 0)) + idx,
+                  (2 + (Pe is not None)) * e_real * d)
+    bwd_b = bound(4 * (n_recv * d + E * d) + 4 * (N + 1 + e_real), 0)
+    fwd = timed(lambda: k12.edge_message_fwd(None, B, Pe, b1, rp, send,
+                                             "identity"),
+                lambda: k12.edge_message_fwd_plain(None, B, Pe, b1, rp, send,
+                                                   "identity"), library)
+    bwd = timed(lambda: k12.edge_message_bwd_recv(None, B, Pe, b1, g, rp,
+                                                  send, "identity", E),
+                lambda: k12.edge_message_bwd_recv_plain(
+                    None, B, Pe, b1, g, rp, send, "identity", E),
+                lambda: torch.index_select(g, 0, recv_l))
+    src = "gsn_tpu_torch/csrc/edge_message.cu"
+    out = []
+    for row, (t_b, by), err, line in ((fwd, fwd_b, err_f, "214"),
+                                      (bwd, bwd_b, 0.0, "240")):
+        out.append(dict(source=src,
+                        replaces=f"gsn_tpu/ops/pallas/slab_message.py:{line}",
+                        max_abs_err=err, bound_ms=t_b, bound_by=by,
+                        floor_ms=floor[0], blocks=floor[1], **row))
+    return out
+
+
+def card_vs_cpu(cfg, batch, loss_fn, what, seed=1):
+    """A model of ``cfg`` (weights from ``seed``) on the card against the
+    same on the CPU, in train mode on ``batch``: the prediction at the
+    f32 tolerances and every gradient at the gradient tolerance; returns
+    the max abs error."""
+    from gsn_tpu_torch.nn.models import build_model
+    ref = build_model(cfg, torch.Generator().manual_seed(seed))
+    preds, grads = {}, {}
+    for where in ("cpu", "cuda"):
+        m = build_model(cfg)
+        m.load_state_dict(ref.state_dict())
+        m = m.to(where).train()
+        b = batch.to(where)
+        y_hat = m(b)
+        loss_fn(y_hat, b.y, b.graph_mask).backward()
+        preds[where] = y_hat.detach().cpu()
+        grads[where] = [p.grad.detach().cpu() for p in m.parameters()]
+    err = max_err(preds["cuda"], preds["cpu"], FWD_RTOL, FWD_ATOL,
+                  f"{what} prediction (card vs CPU)")
+    return max(err, grad_check(grads["cuda"], grads["cpu"],
+                               f"{what} gradients (card vs CPU)"))
+
+
+def expect_cli_launches(tag, got, per_train, per_eval, n_train, n_eval):
+    """``got`` (launches by kernel and key) must be exactly ``per_train``
+    a train step times ``n_train`` plus ``per_eval`` an eval step times
+    ``n_eval``."""
+    want = {}
+    for per, n in ((per_train, n_train), (per_eval, n_eval)):
+        for k, ms in per.items():
+            for m, c in ms.items():
+                want.setdefault(k, {}).setdefault(m, 0)
+                want[k][m] += c * n
+    got = {k: {m: c for m, c in v.items() if c} for k, v in got.items()}
+    got = {k: v for k, v in got.items() if v}
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, expected {want} "
+                             f"({n_train} train and {n_eval} eval steps)")
+
+
+def gin_phases(dev, card, timed, cpm, empty, root):
+    """Phases 38-39 (see module docstring), their data written under
+    ``root``; returns the gin path's kernel rows."""
+    from gsn_tpu_torch import cli
+    from gsn_tpu_torch.data.synthetic import write_imdb_dataset
+    from gsn_tpu_torch.graphs.batching import iterate_batches
+    from gsn_tpu_torch.train.metrics import cross_entropy_loss
+    from gsn_tpu_torch.train.profiling import step_stats
+
+    # ---- phase 38: the data, and K1/K2 at the gin path's shapes ----------
+    t0 = time.perf_counter()
+    write_imdb_dataset(root, IMDB_GRAPHS, seed=0)
+    wrote = time.perf_counter() - t0
+    args = vars(cli.build_parser().parse_args(imdb_argv(root)))
+    times = []
+    for _ in range(2):   # cold (counting), then from the cache
+        t0 = time.perf_counter()
+        graphs, cfg = cli.prepare(args)
+        times.append(time.perf_counter() - t0)
+    train, test, _val = cli.fold_splits(args, graphs, 0)
+    n_nodes = [g["x"].shape[0] for g in graphs]
+    n_edges = [g["edge_index"].shape[1] // 2 for g in graphs]
+    d_x = graphs[0]["x"].shape[1]
+    d_id = sum(cfg.d_in_id)
+    trainer = cli.Trainer(cfg, cli.trainer_config(args), train)
+    data = trainer._eval_batches(train, 1)[0].to(dev)
+    N, E = data.num_node_slots, data.num_edge_slots
+    log(f"[imdb-gin] data: {len(graphs)} ego-networks written in "
+        f"{wrote:.3f} s ({np.mean(n_nodes):.2f} nodes, "
+        f"{np.mean(n_edges):.2f} undirected edges a graph on average, "
+        f"{min(n_nodes)}-{max(n_nodes)} nodes); prepare (complete_graph "
+        f"k=5 local counts, one process, and the encoding) cold "
+        f"{times[0]:.3f} s, from its cache {times[1]:.3f} s; x width "
+        f"{d_x}, id vocabulary {cfg.d_in_id} (one-hot {d_id}, {d_id + 1} "
+        f"with the central column); fold 0: {len(train)} train, "
+        f"{len(test)} test; one train batch of {IMDB_BATCH} graphs: nodes "
+        f"{int(data.node_mask.sum())}/{N}, edges {data.num_real_edges}/{E}")
+    if d_x != 1:
+        raise AssertionError(f"IMDB x width {d_x}, expected one node tag")
+    gen = torch.Generator(device=dev).manual_seed(38)
+    floor = (launch_floor_ms(empty, cpm, k1_blocks(N)), k1_blocks(N))
+    widths = {"x": d_x, "ids": d_id + 1, "hidden": IMDB_D}
+    # on the path: K1 on layer 0's node part (x) and edge part (ids), and
+    # on layers 1-3's node part; K2 on layers 1-3 only (layer 0's parts
+    # take no gradient: x is the input, the ids are one-hot constants)
+    on_path = {("fwd", "node", d_x), ("fwd", "edge", d_id + 1),
+               ("fwd", "node", IMDB_D), ("bwd", "node", IMDB_D)}
+    rows, logged = {}, 0
+    for d in sorted(set(widths.values())):
+        for part in ("node", "edge"):
+            fwd, bwd = gin_rows(timed, data, d, part, gen, floor)
+            for kind, name, row in (("fwd", "edge_message_fwd", fwd),
+                                    ("bwd", "edge_message_bwd_recv", bwd)):
+                key = f"{name}[gin {part} f32 d={d}]"
+                if (kind, part, d) in on_path:
+                    rows[key] = row
+                else:
+                    log_row("imdb-gin", key, row)
+                    logged += 1
+    log(f"[imdb-gin] K1/K2 identity at d in {widths} (node and edge "
+        f"parts): {len(rows)} rows on the path, {logged} on log lines")
+
+    # ---- phase 39: the README's IMDBBINARY command through cli.main -------
+    small_cfg = dataclasses.replace(cfg, num_layers=2, d_out=16)
+    small = next(iterate_batches(train[:16], 16))
+    err = card_vs_cpu(small_cfg, small, cross_entropy_loss, "small gin")
+    log(f"[imdb-gin] small gin model (d=16, 2 layers) on the card vs the "
+        f"CPU: max abs err {err}")
+    from gsn_tpu_torch.ops.cuda import build
+    counters = kernel_counters()
+    for fn in counters.values():
+        build.reset(fn)
+    t0 = time.perf_counter()
+    hist = run_cli(imdb_argv(root))[0]
+    wall = time.perf_counter() - t0
+    modes = {n: dict(fn.modes) for n, fn in counters.items()}
+    k12w = {n: dict(counters[n].widths)
+            for n in ("edge_message_fwd", "edge_message_bwd_recv")}
+    k3_forms = dict(counters["segment_sum_sorted"].forms)
+    for key, vals in hist.items():
+        if vals and not np.isfinite(vals).all():
+            raise AssertionError(f"imdb-gin: history {key} = {vals}")
+    if len(hist["train_losses"]) != 2:
+        raise AssertionError(f"imdb-gin: {hist}")
+    L = 4
+    n_train = 2 * 50
+    n_eval = 2 * (-(-len(train) // IMDB_BATCH) + -(-len(test) // IMDB_BATCH))
+    # a train step: K1 5 (layer 0's two parts, one part a layer after),
+    # K2 3 and K3 dB 3 (layers 1-3), K3 5 pools (every layer's rows and
+    # the input's, mean readout), K4 4 (the pools' backward but the
+    # input's); an eval step: K1 5, K3 5
+    expect_cli_launches(
+        "imdb-gin", modes,
+        {"edge_message_fwd": {"f32": L + 1},
+         "edge_message_bwd_recv": {"f32": L - 1},
+         "segment_sum_sorted": {"f32->f32": (L - 1) + (L + 1)},
+         "segment_broadcast": {"f32": L}},
+        {"edge_message_fwd": {"f32": L + 1},
+         "segment_sum_sorted": {"f32->f32": L + 1}}, n_train, n_eval)
+    expect_cli_launches(
+        "imdb-gin K1/K2 by width", k12w,
+        {"edge_message_fwd": {("f32", d_x): 1, ("f32", d_id + 1): 1,
+                              ("f32", IMDB_D): L - 1},
+         "edge_message_bwd_recv": {("f32", IMDB_D): L - 1}},
+        {"edge_message_fwd": {("f32", d_x): 1, ("f32", d_id + 1): 1,
+                              ("f32", IMDB_D): L - 1}}, n_train, n_eval)
+    for key, row in rows.items():
+        name, rest = key.split("[")
+        d = int(rest.rstrip("]").split("d=")[1])
+        row.update(launches=k12w[name][("f32", d)], path="imdb-gin")
+    log(f"[imdb-gin] cli.main {wall:.3f} s: 2 epochs of 50 train steps "
+        f"and {n_eval // 2} eval steps each; launches by mode {modes}; "
+        f"K1/K2 by width {k12w}; K3 by form {k3_forms}")
+    _d, recs = read_log(args, fold=0)
+    for r in (r for r in recs if "train_loss" in r):
+        log(f"[imdb-gin] epoch {r['step']}: train {r['train_loss']:.6f} "
+            f"acc {r['train_acc']:.4f} test {r['test_loss']:.6f} acc "
+            f"{r['test_acc']:.4f} lr {r['lr']}; epoch {r['epoch_s']:.4f} s "
+            f"({r['steps']} steps, median step "
+            f"{r['step_median_s'] * 1e3:.3f} ms, host batching "
+            f"{r['host_batch_s'] / r['epoch_s']:.4f} of the epoch); "
+            f"evaluation {r['eval_s']:.4f} s ({card})")
+    state = trainer.init_state(seed=0)
+    state, losses, step_s, launches, _ = train_steps(
+        trainer, state, data, STEPS, counters)
+    med = statistics.median(step_s[1:])
+    log(f"[imdb-gin] {STEPS} steps on one batch: median "
+        f"{med * 1e3:.3f} ms, {data.num_real_edges / med:.4e} real "
+        f"edges/s, losses {losses[0]:.5f} -> {losses[-1]:.5f} ({card})")
+    profile_steps(trainer, state, data, med * 1e3, "imdb-gin")
+    stats = step_stats(lambda: trainer.train_step(state, data)[1],
+                       num_edges=data.num_real_edges)
+    log(f"[imdb-gin] step_stats (train/profiling.py; utilisation of the "
+        f"H100 SXM f32 peak, 67 TFLOP/s): {stats} ({card})")
+    return rows
+
+
+def dgn_fused_rows(timed, data, aggs, d, tag):
+    """K5/K6 ``<fused>`` (B8) at width ``d`` on ``data``'s edges, with the
+    weight columns ``build_agg_ctx`` gives ``aggs`` and node rows after
+    relu (about half zeros, so maxima tie): the forward's sums, maxima
+    and tie counts and the backward (with and without dW) against their
+    plain versions, timed with bounds as phase 8's.  Returns the (fwd,
+    bwd) rows."""
+    from gsn_tpu_torch.nn.dgn import build_agg_ctx
+    from gsn_tpu_torch.nn.models import edge_segments
+    from gsn_tpu_torch.ops.cuda import slab_weighted as b58
+    dev = data.x.device
+    N, e_real = data.num_node_slots, data.num_real_edges
+    seg = edge_segments(data)
+    rp, send = seg.recv_ptr, seg.send
+    W = build_agg_ctx(aggs, data, N).W
+    K = W.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(40)
+    B = torch.relu(torch.randn(N, d, device=dev, generator=gen))
+    g_w = torch.randn(N, K * d, device=dev, generator=gen)
+    g_mm = torch.randn(N, 2 * d, device=dev, generator=gen)
+    out, mm, cnt = b58.dgn_fused_fwd(B, W, rp, send)
+    out_p, mm_p, cnt_p = b58.dgn_fused_fwd_plain(B, W, rp, send)
+    err_f = max(max_err(out, out_p, FWD_RTOL, FWD_ATOL, f"{tag} fwd out"),
+                max_err(mm, mm_p, FWD_RTOL, FWD_ATOL, f"{tag} fwd mm"))
+    exact(cnt, cnt_p, f"{tag} tie counts")
+    err_b = 0.0
+    for need_dw in (False, True):
+        got = b58.dgn_fused_bwd(B, W, g_w, mm, cnt, g_mm, rp, send, need_dw)
+        want = b58.dgn_fused_bwd_plain(B, W, g_w, mm_p, cnt_p, g_mm, rp,
+                                       send, need_dw)
+        err_b = max(err_b, grad_check(got[:1 + need_dw], want[:1 + need_dw],
+                                      f"{tag} bwd[dW={need_dw}]"))
+    n_recv = int((rp.diff() > 0).sum())
+    n_send = int((seg.send_ptr.diff() > 0).sum())
+    f32 = 4
+    walk = f32 * (n_send * d + N + 1 + e_real)
+    kd, mm_w = K * d, 2 * d
+    fwd_b = bound(walk + f32 * (e_real * K + N * kd + 2 * N * mm_w),
+                  (2 * K + 2) * d * e_real)
+    bwd_b = bound(walk + f32 * (e_real * K + n_recv * (kd + 3 * mm_w)
+                                + e_real * d), (2 * K + 4) * d * e_real)
+    src = "gsn_tpu_torch/csrc/dgn_aggregate.cu"
+    fwd = dict(source=src, replaces="gsn_tpu/ops/pallas/slab_weighted.py:294",
+               folds="gsn_tpu/ops/pallas/slab_combine.py:119",
+               max_abs_err=err_f, bound_ms=fwd_b[0], bound_by=fwd_b[1], K=K,
+               **timed(lambda: b58.dgn_fused_fwd(B, W, rp, send),
+                       lambda: b58.dgn_fused_fwd_plain(B, W, rp, send)))
+    bwd = dict(source=src, replaces="gsn_tpu/ops/pallas/slab_weighted.py:315",
+               max_abs_err=err_b, bound_ms=bwd_b[0], bound_by=bwd_b[1], K=K,
+               **timed(lambda: b58.dgn_fused_bwd(B, W, g_w, mm, cnt, g_mm,
+                                                 rp, send),
+                       lambda: b58.dgn_fused_bwd_plain(
+                           B, W, g_w, mm_p, cnt_p, g_mm, rp, send)))
+    return fwd, bwd
+
+
+# phase 40: scripts/dgn_molhiv_10_runs.py's flags, verbatim, on a
+# molhiv-like set of DGN_CLI_GRAPHS molecules split 80/10/10, 2 epochs
+DGN_CLI_GRAPHS = 12000
+DGN_CLI_D = 60
+
+
+def dgn_cli_argv(root, *extra):
+    flags = [
+        "--weight_decay", "3e-6", "--L", "4", "--type_net", "simple",
+        "--hidden_dim", "60", "--out_dim", "60", "--residual", "True",
+        "--edge_feat", "False", "--readout", "mean",
+        "--in_feat_dropout", "0.0", "--dropout", "0.3",
+        "--graph_norm", "False", "--batch_norm", "True",
+        "--aggregators", "mean max min dir0-av dir1-av dir2-av dir3-av",
+        "--scalers", "identity", "--dataset", "ogbg-molhiv",
+        "--epochs", "2", "--init_lr", "0.01",
+        "--lr_reduce_factor", "0.5", "--lr_schedule_patience", "20",
+        "--min_lr", "0.0001", "--id_scope", "local", "--k", "6",
+        "--id_type", "cycle_graph", "--directions", "subgraphs",
+        "--data_root", root, "--cache_folder",
+        os.path.join(root, "cache_dgn"), "--seed", "1",
+        "--print_epoch_interval", "1"]
+    return flags + list(extra)
+
+
+def dgn_cli_phase(dev, card, timed, root):
+    """Phase 40 (see module docstring); returns its K5/K6 rows."""
+    from gsn_tpu_torch import cli_directional as dcli
+    from gsn_tpu_torch.data.synthetic import write_molhiv_dataset
+    from gsn_tpu_torch.ops.cuda import build
+    t0 = time.perf_counter()
+    write_molhiv_dataset(root, DGN_CLI_GRAPHS, seed=0)
+    wrote = time.perf_counter() - t0
+    argv = dgn_cli_argv(root)
+    args = vars(dcli.build_parser().parse_args(argv))
+    t0 = time.perf_counter()
+    train, val, test, _tasks = dcli.prepare(dict(args))
+    prep = time.perf_counter() - t0
+    log(f"[dgn-cli] data: {DGN_CLI_GRAPHS} molecules written in "
+        f"{wrote:.3f} s; prepare (cycle_graph k=6 local counts, "
+        f"{args['num_processes']} threads, encoding, vector fields) cold "
+        f"{prep:.3f} s; {len(train)} train, {len(val)} val, {len(test)} "
+        f"test")
+    counters = kernel_counters()
+    for fn in counters.values():
+        build.reset(fn)
+    hist = []
+    t0 = time.perf_counter()
+    best = dcli.main(dict(args), history=hist)
+    wall = time.perf_counter() - t0
+    if best is None or not np.isfinite(best[1:]).all():
+        raise AssertionError(f"dgn-cli: best-val {best}")
+    launches = {n: fn.launches for n, fn in counters.items()}
+    L = args["L"]
+    n_train = 2 * -(-len(train) // args["batch_size"])
+    n_eval = 2 * (-(-len(val) // args["batch_size"])
+                  + -(-len(test) // args["batch_size"]))
+    # a train step: K5/K6 fused L each, K3 L+2 (the node sums of
+    # build_agg_ctx, the mean readout, each layer's dB), K4 1 (the
+    # readout's backward); an eval step: K5 L, K3 2
+    expect_cli_launches(
+        "dgn-cli", {n: {"all": c} for n, c in launches.items()},
+        {"dgn_fused_fwd": {"all": L}, "dgn_fused_bwd": {"all": L},
+         "segment_sum_sorted": {"all": L + 2},
+         "segment_broadcast": {"all": 1}},
+        {"dgn_fused_fwd": {"all": L}, "segment_sum_sorted": {"all": 2}},
+        n_train, n_eval)
+    log(f"[dgn-cli] cli_directional.main {wall:.3f} s: best-val "
+        f"(epoch, val ROC, test ROC) {best}; launches {launches} = "
+        f"{n_train} train and {n_eval} eval steps")
+    for r in hist:
+        log(f"[dgn-cli] epoch {r['epoch']}: train loss {r['train_loss']:.6f}"
+            f" val ROC {r['val_roc']:.4f} test ROC {r['test_roc']:.4f} lr "
+            f"{r['lr']}; epoch {r['epoch_s']:.4f} s ({r['steps']} steps, "
+            f"median step {r['step_median_s'] * 1e3:.3f} ms, host batching "
+            f"{r['host_batch_s'] / r['epoch_s']:.4f} of the epoch) ({card})")
+    # the path's trainer on one train batch: K5/K6 rows at its shapes,
+    # then timed and profiled steps
+    cfg = dcli.model_config(args, dcli.compute_avg_d(train), 1)
+    trainer = dcli.Trainer(cfg, dcli.trainer_config(args), train,
+                           model=dcli.DGNNet(cfg))
+    data = trainer._eval_batches(train, 1)[0].to(dev)
+    fwd, bwd = dgn_fused_rows(timed, data, cfg.aggregators, DGN_CLI_D,
+                              "dgn-cli dgn_fused")
+    K = fwd["K"]
+    rows = {}
+    for name, row in ((f"dgn_fused_fwd[d={DGN_CLI_D} K={K}]", fwd),
+                      (f"dgn_fused_bwd[d={DGN_CLI_D} K={K}]", bwd)):
+        row.update(launches=launches[name.split("[")[0]], path="dgn-cli")
+        rows[name] = row
+    state = trainer.init_state(seed=1)
+    state, losses, step_s, _l, _m = train_steps(trainer, state, data, STEPS,
+                                                counters)
+    med = statistics.median(step_s[1:])
+    log(f"[dgn-cli] one batch of {args['batch_size']} graphs (nodes "
+        f"{int(data.node_mask.sum())}/{data.num_node_slots}, edges "
+        f"{data.num_real_edges}/{data.num_edge_slots}, K={K}): {STEPS} "
+        f"steps, median {med * 1e3:.3f} ms, "
+        f"{data.num_real_edges / med:.4e} real edges/s ({card})")
+    profile_steps(trainer, state, data, med * 1e3, "dgn-cli")
+
+    # --parallel dp on one spawned NCCL rank against the serial run
+    par_hist = []
+    t0 = time.perf_counter()
+    best_p = dcli.main(dict(vars(dcli.build_parser().parse_args(
+        dgn_cli_argv(root, "--epochs", "1", "--parallel", "dp",
+                     "--parallel_devices", "1")))), history=par_hist)
+    wall = time.perf_counter() - t0
+    got, want = par_hist[0]["train_loss"], hist[0]["train_loss"]
+    rel = abs(got - want) / abs(want)
+    if best_p is None or rel > CLI_PARALLEL_RTOL:
+        raise AssertionError(f"dgn-cli --parallel dp: first epoch's train "
+                             f"loss {got}, the serial run's {want}")
+    log(f"[dgn-cli-dp] --parallel dp --parallel_devices 1: one epoch in "
+        f"{wall:.3f} s (one spawned NCCL rank); train loss {got}, the "
+        f"serial first epoch {want} (rel {rel:.3e}, bit for bit "
+        f"{got == want}; rank 0 draws the serial trainer's dropout "
+        f"stream, and its BN and loss sums run over one rank); best-val "
+        f"{best_p}")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from gsn_tpu_torch.graphs.batching import iterate_batches
-    from gsn_tpu_torch.nn.models import build_model, edge_segments
+    from gsn_tpu_torch.nn.models import edge_segments
     from gsn_tpu_torch.ops.cuda import build
     from gsn_tpu_torch.ops.cuda import slab_combine as k3
     from gsn_tpu_torch.ops.cuda import slab_message as k12
@@ -3475,22 +3966,7 @@ def main():
     # ---- phase 4: whole model, card vs CPU, on a small batch -------------
     small = next(iterate_batches(graphs[:64], 64, y_shape=(),
                                  y_dtype=np.float32))
-    models, preds, grads = {}, {}, {}
-    ref = build_model(cfg, torch.Generator().manual_seed(1))
-    for where in ("cpu", "cuda"):
-        m = build_model(cfg)
-        m.load_state_dict(ref.state_dict())
-        m = m.to(where).train()
-        b = small.to(where)
-        y_hat = m(b)
-        l1_loss(y_hat, b.y, b.graph_mask).backward()
-        preds[where] = y_hat.detach().cpu()
-        grads[where] = [p.grad.detach().cpu() for p in m.parameters()]
-        models[where] = m
-    model_err = max_err(preds["cuda"], preds["cpu"], FWD_RTOL, FWD_ATOL,
-                        "model prediction (card vs CPU)")
-    model_err = max(model_err, grad_check(grads["cuda"], grads["cpu"],
-                                          "model gradients (card vs CPU)"))
+    model_err = card_vs_cpu(cfg, small, l1_loss, "model")
     log(f"[smoke] model on the card vs the CPU: max abs err {model_err}")
 
     # ---- phase 5: the main path --------------------------------------------
@@ -3540,6 +4016,8 @@ def main():
                                      empty))                         # 35
         parallel_phase(card, zinc, host_batch, losses, rows, root)   # 36
         cli_parallel_phase(root, cli_hist)                           # 37
+        rows.update(gin_phases(dev, card, timed, cpm, empty, root))  # 38-39
+        rows.update(dgn_cli_phase(dev, card, timed, root))           # 40
 
     # kernel_ms and bound_us repeat ms and bound_ms in the units the
     # port's kernel table uses

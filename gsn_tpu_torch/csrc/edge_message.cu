@@ -105,7 +105,8 @@ edge_message_fwd_kernel(const T* __restrict__ A,
   const int e_end = __shfl_sync(mask, first, nr, LANES);
   const int width = SQ ? 2 * d : d;
 
-  for (int t0 = 0; t0 < d; t0 += TW) {
+  // the grid's y blocks take the column tiles of a row in turn
+  for (int t0 = blockIdx.y * TW; t0 < d; t0 += gridDim.y * TW) {
     const int tc = min(TW, d - t0);
     float bias[P];
     tile_load<V, NG, LANES>(b1 + t0, tc, lane, bias);
@@ -210,7 +211,7 @@ edge_message_bwd_recv_kernel(const T* __restrict__ A,
   const int e_end = __shfl_sync(mask, first, nr, LANES);
   const int gw = SQ ? 2 * d : d;     // g's row
 
-  for (int t0 = 0; t0 < d; t0 += TW) {
+  for (int t0 = blockIdx.y * TW; t0 < d; t0 += gridDim.y * TW) {
     const int tc = min(TW, d - t0);
     float bias[P];
     if (RECOMPUTE)
@@ -321,6 +322,12 @@ inline int group_rows(int n_rows) {
   return rpg;
 }
 
+// The column tiles of a row of d elements at tw a tile: the grid's y
+// extent, so each tile of a wide row (d=689 is eight tiles of one element
+// a lane) walks the row's edges in a block of its own rather than after
+// the tile before it.  The tiles share no sums, so the bits are the same.
+inline int column_tiles(int d, int tw) { return (d + tw - 1) / tw; }
+
 template <typename T>
 int launch_fwd(const T* A, const T* B, const T* Pe, const float* b1,
                const int32_t* recv_ptr, const int32_t* send, void* out,
@@ -341,7 +348,8 @@ int launch_fwd(const T* A, const T* B, const T* Pe, const float* b1,
   tile_switch<T>(vec, d, [&](auto v, auto ng, auto l) {
     constexpr int V = decltype(v)::value, NG = decltype(ng)::value;
     constexpr int LANES = decltype(l)::value;
-    const dim3 grid(row_blocks((n_rows + rpg - 1) / rpg, LANES));
+    const dim3 grid(row_blocks((n_rows + rpg - 1) / rpg, LANES),
+                    column_tiles(d, LANES * NG * V));
     act_switch(act, [&](auto ac) {
       constexpr int ACT = decltype(ac)::value;
       GSN_BOOL_SWITCH(has_a, HA, [&] {
@@ -377,7 +385,8 @@ int launch_bwd_recv(const T* A, const T* B, const T* Pe, const float* b1,
   tile_switch<T>(vec, d, [&](auto v, auto ng, auto l) {
     constexpr int V = decltype(v)::value, NG = decltype(ng)::value;
     constexpr int LANES = decltype(l)::value;
-    const dim3 grid(row_blocks((n_rows + rpg - 1) / rpg, LANES));
+    const dim3 grid(row_blocks((n_rows + rpg - 1) / rpg, LANES),
+                    column_tiles(d, LANES * NG * V));
     act_switch(act, [&](auto ac) {
       constexpr int ACT = decltype(ac)::value;
       GSN_BOOL_SWITCH(has_a, HA, [&] {

@@ -11,7 +11,8 @@
 // not fit: a d=150 row is 600 bytes of f32 (8-byte aligned) or 300 of
 // bf16 (4-byte aligned).  NG is 1 when one access covers d, else kTileNG,
 // so the paths' widths (128, 150, 300) take one tile; a width beyond the
-// tile loops over tiles, each of which walks the rows again.  The
+// tile takes several, each of which walks the rows again: K3 loops over
+// them, K1 and K2 give each its own blocks (the grid's y extent).  The
 // sums keep each element's row order, so a tile gives the same bits as
 // a walk over one column at a time.  Loads go through Words, raw 32-bit
 // words converted to f32 only after a window's loads have all issued.

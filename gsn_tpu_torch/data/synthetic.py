@@ -12,12 +12,16 @@ vector field, local-scope cycle counts for k=3..6.
 
 ``write_zinc_dataset`` writes such molecules in the ZINC loader's on-disk
 layout, so the CLI's whole data path (loader, counting, cache,
-splits) runs on them; ``write_sr16622`` writes the two strongly regular
-graphs of SR(16,6,2,2) for the isomorphism mode.
+splits) runs on them; ``write_molhiv_dataset`` writes molhiv-like
+molecules as OGB's raw csv.gz files with one train/val/test split;
+``write_imdb_dataset`` writes IMDB-BINARY-like ego-networks in the TU
+text layout with ten folds; ``write_sr16622`` writes the two strongly
+regular graphs of SR(16,6,2,2) for the isomorphism mode.
 """
 
 from __future__ import annotations
 
+import gzip
 import os
 import pickle
 
@@ -26,6 +30,7 @@ import numpy as np
 from .directional import assemble_directions
 from .encoding import encode
 from .pipeline import generate_dataset
+from .splits import stratified_kfold_indices
 from gsn_tpu_torch.graphs.patterns import cycle_graph, write_graph6
 
 
@@ -134,6 +139,115 @@ def write_zinc_dataset(root, sizes=(10000, 1000, 1000), seed=0):
                    np.arange(offset, offset + num), fmt="%d")
         offset += num
     return base
+
+
+# OGB's molhiv vocabularies: 9 atom fields, 3 bond fields
+MOLHIV_ATOM_DIMS = [119, 4, 12, 12, 10, 6, 6, 2, 2]
+MOLHIV_BOND_DIMS = [5, 6, 2]
+
+
+def write_molhiv_dataset(root, num_graphs=12000, seed=0,
+                         fractions=(0.8, 0.1, 0.1)):
+    """``num_graphs`` molhiv-like molecules (``make_molhiv_like``'s chains
+    and chords, 9 atom and 3 bond fields, a binary label) as the raw
+    csv.gz files of an OGB graph-property dataset
+    (``data/loaders.py::load_ogb_data``: each undirected bond once) under
+    ``<root>/ogbg-molhiv/ogbg_molhiv/raw``, and one split,
+    ``<root>/ogbg-molhiv/10fold_idx/{train,val,test}_idx-1.txt``, of
+    ``fractions`` of a seeded permutation.  Returns the dataset
+    directory ``<root>/ogbg-molhiv`` (the directional CLI's
+    ``--data_root`` is ``root``; the GSN CLI's ``--root_folder`` is
+    ``root``'s parent when ``root`` ends in ``ogb``)."""
+    base = os.path.join(root, "ogbg-molhiv")
+    raw = os.path.join(base, "ogbg_molhiv", "raw")
+    os.makedirs(raw, exist_ok=True)
+    os.makedirs(os.path.join(base, "10fold_idx"), exist_ok=True)
+    graphs = _molecule_graphs(num_graphs, seed, MOLHIV_ATOM_DIMS,
+                              MOLHIV_BOND_DIMS)
+    files = {name: [] for name in ("edge", "edge-feat", "node-feat",
+                                   "num-node-list", "num-edge-list",
+                                   "graph-label")}
+    for g in graphs:
+        src, dst = g["edge_index"]
+        half = src < dst
+        files["edge"].append(np.stack([src[half], dst[half]], 1))
+        files["edge-feat"].append(g["edge_features"][half])
+        files["node-feat"].append(g["x"])
+        files["num-node-list"].append([[g["x"].shape[0]]])
+        files["num-edge-list"].append([[int(half.sum())]])
+        files["graph-label"].append([[int(g["y"])]])
+    for name, parts in files.items():
+        rows = np.concatenate([np.asarray(p) for p in parts])
+        with gzip.open(os.path.join(raw, f"{name}.csv.gz"), "wt",
+                       compresslevel=1) as f:
+            f.write("".join(",".join(map(str, r)) + "\n" for r in rows))
+    order = np.random.RandomState(seed).permutation(num_graphs)
+    n_train = int(round(fractions[0] * num_graphs))
+    n_val = int(round(fractions[1] * num_graphs))
+    for split, idx in (("train", order[:n_train]),
+                       ("val", order[n_train:n_train + n_val]),
+                       ("test", order[n_train + n_val:])):
+        np.savetxt(os.path.join(base, "10fold_idx", f"{split}_idx-1.txt"),
+                   np.sort(idx), fmt="%d")
+    return base
+
+
+def make_imdb_like(num_graphs=1000, seed=0):
+    """IMDB-BINARY-shaped ego-networks as (nodes, undirected edges,
+    label): node 0 (the ego) is linked to every other node, and the
+    others are grouped into about (n-1)/5.2 "movies" of 3 to 11 actors,
+    each a clique.  Sizes are 12 plus a gamma draw of mean 8.2 (at most
+    136; the largest draw is set to 136, IMDB-BINARY's largest graph),
+    so a set of 1,000 has IMDB-BINARY's scale: about 19.8 nodes and 96
+    undirected edges a graph.  Labels alternate, and class 1's movies
+    hold one actor more at most."""
+    rng = np.random.RandomState(seed)
+    sizes = 12 + np.minimum(rng.gamma(1.0, 8.2, num_graphs).astype(int),
+                            124)
+    sizes[np.argmax(sizes)] = 136
+    out = []
+    for i, n in enumerate(sizes):
+        label = i % 2
+        edges = {(0, v) for v in range(1, n)}
+        alters = np.arange(1, n)
+        for _ in range(max(1, int(round((n - 1) / 5.2)))):
+            cast = rng.choice(alters, min(n - 1, rng.randint(3, 12 + label)),
+                              replace=False)
+            edges.update((int(min(a, b)), int(max(a, b)))
+                         for a in cast for b in cast if a < b)
+        out.append((int(n), sorted(edges), label))
+    return out
+
+
+def write_imdb_dataset(root, num_graphs=1000, seed=0, name="IMDBBINARY"):
+    """``make_imdb_like`` in the TU text layout the GSN CLI reads for
+    ``--dataset social --dataset_name <name>``
+    (``data/loaders.py::load_tu_data``; one node tag, so one input
+    column) under ``<root>/social/<name>``, with the ten stratified folds
+    ``10fold_idx/{train,test}_idx-{1..10}.txt``
+    (``data/splits.py::separate_data_given_split``).  Returns the
+    dataset directory."""
+    path = os.path.join(root, "social", name)
+    os.makedirs(os.path.join(path, "10fold_idx"), exist_ok=True)
+    graphs = make_imdb_like(num_graphs, seed)
+    lines = [str(len(graphs))]
+    for n, edges, label in graphs:
+        adj = [[] for _ in range(n)]
+        for u, v in edges:
+            adj[u].append(v)
+            adj[v].append(u)
+        lines.append(f"{n} {label}")
+        lines += [f"0 {len(nb)} " + " ".join(map(str, nb)) for nb in adj]
+    with open(os.path.join(path, f"{name}.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    labels = np.array([label for _n, _e, label in graphs])
+    for fold, (train, test) in enumerate(
+            stratified_kfold_indices(labels, 10, seed)):
+        for split, idx in (("train", train), ("test", test)):
+            np.savetxt(os.path.join(path, "10fold_idx",
+                                    f"{split}_idx-{fold + 1}.txt"),
+                       idx, fmt="%d")
+    return path
 
 
 def rook_and_shrikhande():

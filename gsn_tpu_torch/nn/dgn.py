@@ -400,7 +400,8 @@ class DGNLayerSimple(nn.Module):
 class DGNConfig:
     """The reference package's ``DGNConfig`` fields, less
     ``dropout_rng`` (the masks come from the trainer's
-    ``torch.Generator``) and the unused ``edge_feat`` / ``edge_dim``.
+    ``torch.Generator``).  ``edge_feat`` and ``edge_dim`` are carried for
+    the directional CLI; ``DGNNet`` reads neither, as in the reference.
     ``compute_dtype``: None (f32) or ``"bfloat16"``; ``bn_axis_name``:
     the mesh axis the layers' BN statistics are summed over (set by the
     data-parallel trainers)."""
@@ -414,6 +415,8 @@ class DGNConfig:
     avg_d: Optional[Dict[str, float]] = None
     readout: str = "mean"
     residual: bool = True
+    edge_feat: bool = False
+    edge_dim: int = 0
     in_feat_dropout: float = 0.0
     dropout: float = 0.3
     graph_norm: bool = False

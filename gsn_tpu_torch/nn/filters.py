@@ -1,18 +1,25 @@
 """GSN / MPNN message-passing layer (counterpart of
 ``gsn_tpu/nn/filters.py``).
 
-Ported so far:
+Message kinds:
 
 - ``general`` (reference ``GSN_sparse.py:157-176``): per-edge
   ``m = MLP(cat(x_i, x_j, ids, e))``, update ``MLP(cat(x, Σ_j m))``;
+- ``gin`` (reference ``GSN_sparse.py:103-111``, ``gsn_tpu/nn/
+  filters.py:396-483``): ``m = cat(x_j, id, e)``, update
+  ``MLP((1+ε)·cat(x, id_ii, e_ii) + Σ_j m)``, where local-scope ids and
+  edge features get a dummy self-loop feature from ``CentralEncoder``.
+  The sum of concatenations is the concatenation of per-part sums: one
+  K1/K2 call a part in identity mode with no A side and a zero ``b1``,
+  ``B = x`` (and the ids at global scope) for a node part, and a zero
+  B with ``Pe`` the edge-level rows (local ids, edge features) for an
+  edge part;
 - ``ogb`` (reference ``GSN_edge_sparse_ogb.py:119-129``):
   ``m = relu(x_j + id + e)``, self message ``x + id`` (global scope)
   else ``x``, update ``MLP((1+ε)·self + Σ_j m)``.  The message is K1/K2's
   ``act(A[recv] + B[send] + Pe + b1)`` with no A side, ``B = x`` (plus
   the ids at global scope), ``Pe`` the sum of the edge-level ids and
   edge features, and a constant zero ``b1``.
-
-The ``gin`` kind raises until a later slice ports it.
 
 ``compute_dtype=torch.bfloat16`` mirrors the reference's bf16 mode
 (``gsn_tpu/nn/filters.py:95-145, 203-221, 526-574``): every dense layer
@@ -52,6 +59,7 @@ reference, where the per-edge path would gather d_in-wide rows.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -64,7 +72,15 @@ from gsn_tpu_torch.ops.segment import (masked_segment_mean,
                                        masked_segment_sum, receiver_mean,
                                        receiver_sum)
 from gsn_tpu_torch.parallel.collectives import all_gather
+from .embedding import CentralEncoder
 from .mlp import MLP, choose_activation, dense
+
+
+def _cat_promoted(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``cat(parts, -1)`` in their promoted dtype, as ``jnp.concatenate``
+    promotes."""
+    dtype = functools.reduce(torch.promote_types, [p.dtype for p in parts])
+    return torch.cat([p.to(dtype) for p in parts], -1)
 
 
 class EdgeMessageMLP(nn.Module):
@@ -229,13 +245,16 @@ class EdgeMessageMLP(nn.Module):
 
 
 class GSNLayer(nn.Module):
-    """One GSN/MPNN layer of the ``general`` or ``ogb`` kind.
+    """One GSN/MPNN layer of the ``general``, ``gin`` or ``ogb`` kind.
 
     ``d_in``: node feature width; ``d_id`` / ``d_ef`` / ``d_degree``: the
     encoded identifier, edge feature and degree widths (used when the
-    layer consumes them); ``train_eps``: the ogb kind's learned ε
-    (parameter ``eps``, initially 0), else ε = 0; ``compute_dtype``:
-    None (f32) or ``torch.bfloat16``."""
+    layer consumes them); ``train_eps``: the gin and ogb kinds' learned ε
+    (parameter ``eps``, initially 0), else ε = 0;
+    ``id_embedding_kind`` / ``edge_embedding_kind`` / ``extend_dims``:
+    the gin kind's ``CentralEncoder`` of the ids (``central_id``) and
+    edge features (``central_ef``); ``compute_dtype``: None (f32) or
+    ``torch.bfloat16``."""
 
     def __init__(self, d_in: int, d_up: int, d_msg: Optional[int] = None,
                  d_h: Sequence[int] = (), msg_kind: str = "general",
@@ -246,12 +265,14 @@ class GSNLayer(nn.Module):
                  aggr: str = "add", flow: str = "target_to_source",
                  activation_mlp: str = "elu", bn_mlp: bool = False,
                  train_eps: bool = False,
+                 id_embedding_kind: str = "one_hot_encoder",
+                 edge_embedding_kind: str = "one_hot_encoder",
+                 extend_dims: bool = True,
                  compute_dtype: Optional[torch.dtype] = None,
                  bn_axis_name: Optional[str] = None):
         super().__init__()
-        if msg_kind not in ("general", "ogb"):
-            raise NotImplementedError(
-                f"message kind {msg_kind!r} is not ported yet")
+        if msg_kind not in ("general", "gin", "ogb"):
+            raise NotImplementedError(f"msg kind {msg_kind!r}")
         if aggr not in ("add", "mean"):
             raise NotImplementedError(f"aggregation {aggr!r}")
         self.msg_kind = msg_kind
@@ -263,10 +284,25 @@ class GSNLayer(nn.Module):
         self.compute_dtype = compute_dtype
         if degree_as_tag:
             d_in = d_in + d_degree if retain_features else d_degree
-        if msg_kind == "ogb":
-            # x + ids broadcasts to the wider of the two (global scope)
-            d_self = (max(d_in, d_id) if use_ids and id_scope == "global"
-                      else d_in)
+        if msg_kind in ("gin", "ogb"):
+            if msg_kind == "ogb":
+                # x + ids broadcasts to the wider of the two (global scope)
+                d_self = (max(d_in, d_id)
+                          if use_ids and id_scope == "global" else d_in)
+            else:
+                # the self message cat(x, id_ii, e_ii)
+                d_self = d_in
+                if use_ids:
+                    if id_scope == "local":
+                        self.central_id = CentralEncoder(
+                            id_embedding_kind, d_id, extend_dims)
+                        d_self += self.central_id.d_out
+                    else:
+                        d_self += d_id
+                if use_edge_features:
+                    self.central_ef = CentralEncoder(
+                        edge_embedding_kind, d_ef, extend_dims)
+                    d_self += self.central_ef.d_out
             if train_eps:
                 self.eps = nn.Parameter(torch.zeros(()))
             self.update_fn = MLP(d_self, d_up, tuple(d_h), activation_mlp,
@@ -309,6 +345,9 @@ class GSNLayer(nn.Module):
         recv, send = edge_index[select], edge_index[1 - select]
         if self.msg_kind == "ogb":
             return self._ogb(x, recv, send, identifiers, edge_features,
+                             node_mask, edge_mask, seg, ep_axis)
+        if self.msg_kind == "gin":
+            return self._gin(x, recv, send, identifiers, edge_features,
                              node_mask, edge_mask, seg, ep_axis)
 
         node_parts = [x]
@@ -393,6 +432,63 @@ class GSNLayer(nn.Module):
                 m = m + ef
             agg = self._aggregate(torch.relu(m), recv, x.shape[0],
                                   edge_mask, seg)
+        # (1+ε) and the self message in the aggregate's dtype
+        update_in = self_msg.to(agg.dtype)
+        if hasattr(self, "eps"):
+            update_in = (1.0 + self.eps).to(agg.dtype) * update_in
+        return self.update_fn(update_in + agg, node_mask)
+
+    def _gin(self, x, recv, send, identifiers, edge_features, node_mask,
+             edge_mask, seg, ep_axis=None):
+        """The ``gin`` kind (reference ``gsn_tpu/nn/filters.py:396-483``).
+        The parts in order: x, the ids (node-level at global scope,
+        edge-level with their central row at local scope), the edge
+        features (edge-level, with their central row).  With ``seg``
+        and add aggregation each part is one K1/K2 call in the compute
+        dtype; otherwise the per-edge ``cat(x_j, ids, e)`` is summed at
+        the receivers."""
+        n_nodes = x.shape[0]
+        self_parts = [x]
+        parts = [(x, "node")]
+        if self.use_ids:
+            ids = identifiers.to(torch.float32)
+            if self.id_scope == "local":
+                id_ii, ids = self.central_id(ids, n_nodes)
+                self_parts.append(id_ii)
+                parts.append((ids, "edge"))
+            else:
+                self_parts.append(ids)
+                parts.append((ids, "node"))
+        if self.use_edge_features:
+            ef_ii, ef = self.central_ef(edge_features, n_nodes)
+            self_parts.append(ef_ii)
+            parts.append((ef, "edge"))
+        self_msg = _cat_promoted(self_parts)
+
+        def full(a):   # the sender rows of every shard under ep
+            return a if ep_axis is None else all_gather(a, ep_axis)
+
+        if seg is not None and self.aggr == "add":
+            kdt = self.compute_dtype or torch.float32
+            n_send = seg.send_ptr.numel() - 1
+            agg_parts = []
+            for arr, level in parts:
+                dm = arr.shape[-1]
+                b1 = torch.zeros(dm, dtype=torch.float32, device=x.device)
+                if level == "node":
+                    B, Pe = full(arr.to(kdt)), None
+                else:
+                    # an edge part: a constant zero sender side
+                    B = torch.zeros(n_send, dm, dtype=kdt, device=x.device)
+                    Pe = arr.to(kdt)
+                agg_parts.append(edge_message_aggregate(
+                    None, B, Pe, b1, seg, "identity"))
+            agg = torch.cat(agg_parts, -1)
+        else:
+            msgs = _cat_promoted([full(arr)[send] if level == "node"
+                                  else arr for arr, level in parts])
+            agg = self._aggregate(msgs, recv, n_nodes, edge_mask,
+                                  seg).to(msgs.dtype)
         # (1+ε) and the self message in the aggregate's dtype
         update_in = self_msg.to(agg.dtype)
         if hasattr(self, "eps"):

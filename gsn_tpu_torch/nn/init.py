@@ -32,8 +32,9 @@ def init_parameters(model: nn.Module,
 
     ``nn.Linear``: lecun-normal weight (fan-in = in_features), zero bias.
     ``nn.Embedding``: xavier-uniform table (zeros where the owner set
-    ``zeros_init``).  Loose bias parameters (``*_bias``) and the ogb
-    layer's learned ``eps``: zeros.
+    ``zeros_init``).  Loose bias parameters (``*_bias``) and the ogb and
+    gin layers' learned ``eps``: zeros.  A ``CentralEncoder``'s
+    ``central`` row [1, d]: xavier-uniform.
     Batch-norm affine and running statistics: ones / zeros."""
     for module in model.modules():
         if isinstance(module, nn.Linear):
@@ -52,3 +53,6 @@ def init_parameters(model: nn.Module,
         for name, p in module.named_parameters(recurse=False):
             if name.endswith("_bias") or name == "eps":
                 p.zero_()
+            elif name == "central":
+                lim = math.sqrt(6.0 / sum(p.shape))
+                p.uniform_(-lim, lim, generator=generator)

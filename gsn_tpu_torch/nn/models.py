@@ -1,23 +1,25 @@
 """Model assemblies (counterpart of ``gsn_tpu/nn/models.py``).
 
-Ported so far: ``GNNSubstructures`` (reference
+``GNNSubstructures`` (reference
 ``models_graph_classification.py:15-247``) for the sparse GSN/MPNN model
-names, ``GNN_OGB`` (reference
+names, with random features or without, ``GNN_OGB`` (reference
 ``models_graph_classification_ogb_original.py:17-268``, with or without
-the virtual node) for the ``*_edge_sparse_ogb`` names, and
-``NodeDropout``; each in f32 or with ``compute_dtype="bfloat16"``.  In
+the virtual node) for the ``*_edge_sparse_ogb`` names,
+``MLPSubstructures`` (reference ``models_graph_classification_mlp.py``)
+for the ``MLP`` name, and ``NodeDropout``; each in f32 or with
+``compute_dtype="bfloat16"``.  In
 bf16, as in the reference (``gsn_tpu/nn/models.py:87-114, 154-157,
 194-201, 276-289, 320-328, 385-390``), node rows, ids, edge features
 and the virtual node travel in bf16 from the encoders on, pooled rows
 and the head are f32, BN statistics f32, and the parameters stay f32
-(the master copy the optimizer updates).  ``MLPSubstructures`` and
-random features raise until a later slice ports them.  (The DGN model
-is ``nn/dgn.py``.)
+(the master copy the optimizer updates).  (The DGN model is
+``nn/dgn.py``.)
 
-Dropout draws its masks from the ``torch.Generator`` the caller passes
-to ``forward`` (the trainer's seeded generator on the batch's device),
-so a seed fixes them.  They are not the reference's masks: JAX's
-threefry and PyTorch's generators give different bits.  An
+Dropout draws its masks, and random features their uniform [0, 1)
+columns, from the ``torch.Generator`` the caller passes to ``forward``
+(the trainer's seeded generator on the batch's device), so a seed fixes
+them.  They are not the reference's draws: JAX's threefry and PyTorch's
+generators give different bits.  An
 edge-partitioned rank passes ``DropoutStreams``: node rows draw from its
 own stream, graph-level rows (replicated on every rank) from one that
 all ranks share, the counterpart of the reference's
@@ -143,41 +145,39 @@ class GNNSubstructures(nn.Module):
     def __init__(self, cfg: GSNConfig):
         super().__init__()
         c = self.cfg = cfg
-        if c.random_features:
-            raise NotImplementedError("random_features is not ported yet")
         cdt = self.cdt = compute_dtype_of(c)
         L = len(c.d_out)
         self.act = choose_activation(c.activation)
+        enc = _encoder_factory(c)
         self.use_degrees = any(c.degree_as_tag)
         if self.use_degrees:
-            self.degree_encoder = DiscreteEmbedding(
-                c.degree_embedding, 1, c.d_degree, c.d_out_degree_embedding,
-                aggr=c.multi_embedding_aggr)
-        self.input_node_encoder = DiscreteEmbedding(
+            self.degree_encoder = enc(c.degree_embedding, 1, c.d_degree,
+                                      c.d_out_degree_embedding)
+        self.input_node_encoder = enc(
             c.input_node_encoder, c.in_features, c.d_in_node_encoder,
-            c.d_out_node_encoder, aggr=c.multi_embedding_aggr,
-            features_scope=c.features_scope)
+            c.d_out_node_encoder, features_scope=c.features_scope)
         num_id_enc = L if c.inject_ids else 1
         num_ef_enc = L if c.inject_edge_features else 1
         d_id = 0
         if c.uses_ids:
             for j in range(num_id_enc):
-                setattr(self, f"id_encoder_{j}", DiscreteEmbedding(
+                setattr(self, f"id_encoder_{j}", enc(
                     c.id_embedding, len(c.d_in_id), c.d_in_id,
-                    c.d_out_id_embedding, aggr=c.multi_embedding_aggr))
+                    c.d_out_id_embedding))
             d_id = self.id_encoder_0.d_out
         d_ef = []
         if c.uses_edge_features:
             for j in range(num_ef_enc):
-                enc = DiscreteEmbedding(
-                    c.edge_encoder, c.in_edge_features, c.d_in_edge_encoder,
-                    c.d_out_edge_encoder[j], aggr=c.multi_embedding_aggr,
-                    features_scope=c.features_scope)
-                setattr(self, f"edge_encoder_{j}", enc)
-                d_ef.append(enc.d_out)
+                e = enc(c.edge_encoder, c.in_edge_features,
+                        c.d_in_edge_encoder, c.d_out_edge_encoder[j],
+                        features_scope=c.features_scope)
+                setattr(self, f"edge_encoder_{j}", e)
+                d_ef.append(e.d_out)
         d_deg = self.degree_encoder.d_out if self.use_degrees else 0
 
-        widths = [self.input_node_encoder.d_out]
+        # random features: d_out[0] uniform columns after the encoder
+        widths = [self.input_node_encoder.d_out
+                  + (c.d_out[0] if c.random_features else 0)]
         for i in range(L):
             use_ids = ((i > 0 and c.inject_ids) or i == 0) and c.uses_ids
             use_efs = (((i > 0 and c.inject_edge_features) or i == 0)
@@ -191,7 +191,10 @@ class GNNSubstructures(nn.Module):
                 degree_as_tag=c.degree_as_tag[i], d_degree=d_deg,
                 retain_features=c.retain_features[i], aggr=c.aggr,
                 flow=c.flow, activation_mlp=c.activation_mlp,
-                bn_mlp=c.bn_mlp, compute_dtype=cdt,
+                bn_mlp=c.bn_mlp, train_eps=c.train_eps[i],
+                id_embedding_kind=c.id_embedding,
+                edge_embedding_kind=c.edge_encoder,
+                extend_dims=c.extend_dims, compute_dtype=cdt,
                 bn_axis_name=c.bn_axis_name))
             if c.bn[i]:
                 setattr(self, f"bn_{i}", MaskedBatchNorm(
@@ -209,8 +212,10 @@ class GNNSubstructures(nn.Module):
             setattr(self, f"lin_proj_{i}", proj)
 
     def forward(self, data: GraphBatch,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``noise``: the random features [N, d_out[0]] to use in place
+        of a draw from ``generator`` (with ``random_features``)."""
         c = self.cfg
         if data.flow != c.flow:
             raise ValueError(f"batch built for flow {data.flow!r}, model "
@@ -220,9 +225,15 @@ class GNNSubstructures(nn.Module):
         cdt = self.cdt
         pool = _make_pool(c.readout, data, cdt)
         seg = edge_segments(data)
-        degrees = (self.degree_encoder(data.degrees)
+        degrees = (self.degree_encoder(data.degrees, nm)
                    if self.use_degrees else None)
-        x = self.input_node_encoder(data.x)
+        x = self.input_node_encoder(data.x, nm)
+        if c.random_features:
+            # reference :212-214: uniform [0, 1) columns drawn each call
+            if noise is None:
+                noise = torch.rand(x.shape[0], c.d_out[0], device=x.device,
+                                   generator=_stream(generator, True))
+            x = torch.cat([x, noise.to(x.dtype)], dim=1)
         if cdt is not None:
             # node rows travel in the compute dtype from here on
             x = x.to(cdt)
@@ -233,13 +244,14 @@ class GNNSubstructures(nn.Module):
             if conv.use_ids:
                 ids_i = getattr(self, "id_encoder_"
                                 f"{i if c.inject_ids else 0}")(
-                                    data.identifiers)
+                                    data.identifiers,
+                                    em if c.id_scope == "local" else nm)
             if conv.use_edge_features:
                 if data.edge_features is None:
                     raise ValueError(f"{c.model_name} needs edge features")
                 ef_i = getattr(self, "edge_encoder_"
                                f"{i if c.inject_edge_features else 0}")(
-                                   data.edge_features)
+                                   data.edge_features, em)
             if cdt is not None:
                 # encoder outputs travel in the compute dtype
                 ids_i = ids_i.to(cdt) if ids_i is not None else None
@@ -285,28 +297,26 @@ class GNN_OGB(nn.Module):
         cdt = self.cdt = compute_dtype_of(c)
         L = len(c.d_out)
         self.act = choose_activation(c.activation)
+        enc = _encoder_factory(c)
         self.use_degrees = any(c.degree_as_tag)
         if self.use_degrees:
-            self.degree_encoder = DiscreteEmbedding(
-                c.degree_embedding, 1, c.d_degree, c.d_out_degree_embedding,
-                aggr=c.multi_embedding_aggr)
-        self.input_node_encoder = DiscreteEmbedding(
+            self.degree_encoder = enc(c.degree_embedding, 1, c.d_degree,
+                                      c.d_out_degree_embedding)
+        self.input_node_encoder = enc(
             c.input_node_encoder, c.in_features, c.d_in_node_encoder,
-            c.d_out_node_encoder, aggr=c.multi_embedding_aggr,
-            features_scope=c.features_scope)
+            c.d_out_node_encoder, features_scope=c.features_scope)
         with_ids = c.model_name == "GSN_edge_sparse_ogb"
         d_id = 0
         if with_ids:
             for j in range(L if c.inject_ids else 1):
-                setattr(self, f"id_encoder_{j}", DiscreteEmbedding(
+                setattr(self, f"id_encoder_{j}", enc(
                     c.id_embedding, len(c.d_in_id), c.d_in_id,
-                    c.d_out_id_embedding, aggr=c.multi_embedding_aggr))
+                    c.d_out_id_embedding))
             d_id = self.id_encoder_0.d_out
         for j in range(L):
-            setattr(self, f"edge_encoder_{j}", DiscreteEmbedding(
+            setattr(self, f"edge_encoder_{j}", enc(
                 c.edge_encoder, c.in_edge_features, c.d_in_edge_encoder,
-                c.d_out_edge_encoder[j], aggr=c.multi_embedding_aggr,
-                features_scope=c.features_scope))
+                c.d_out_edge_encoder[j], features_scope=c.features_scope))
         d_deg = self.degree_encoder.d_out if self.use_degrees else 0
         if c.vn:
             # zeros-init embedding of a single category (reference :77-86)
@@ -354,9 +364,9 @@ class GNN_OGB(nn.Module):
         # rows are already in it (gsn_tpu/nn/models.py:385-387)
         vn_pool = _make_pool(c.vn_pooling, data)
         seg = edge_segments(data)
-        degrees = (self.degree_encoder(data.degrees)
+        degrees = (self.degree_encoder(data.degrees, nm)
                    if self.use_degrees else None)
-        x = self.input_node_encoder(data.x)
+        x = self.input_node_encoder(data.x, nm)
         n_nodes = x.shape[0]
         if cdt is not None:
             # activations (x, vn) travel in the compute dtype
@@ -374,10 +384,11 @@ class GNN_OGB(nn.Module):
             if conv.use_ids:
                 ids_i = getattr(self, "id_encoder_"
                                 f"{i if c.inject_ids else 0}")(
-                                    data.identifiers)
+                                    data.identifiers,
+                                    em if c.id_scope == "local" else nm)
             if data.edge_features is not None:
                 ef_i = getattr(self, f"edge_encoder_{i}")(
-                    data.edge_features)
+                    data.edge_features, em)
             if cdt is not None:
                 ids_i = ids_i.to(cdt) if ids_i is not None else None
                 ef_i = ef_i.to(cdt) if ef_i is not None else None
@@ -413,6 +424,68 @@ class GNN_OGB(nn.Module):
         return self.lin_proj(pool(prediction))
 
 
+class MLPSubstructures(nn.Module):
+    """The linear baseline with no message passing (reference
+    ``models_graph_classification_mlp.py:13-176``, ``gsn_tpu/nn/
+    models.py:403-450``): one edge MLP ``edge_mlp`` over ``cat(x_i, x_j,
+    ids[, e])`` (the ids once per edge at local scope, at both endpoints
+    at global scope), pooled per graph over the real edges, dropout and
+    the ``head``.  The real edges are receiver-sorted, so each graph's
+    edges are one contiguous range (from ``recv_ptr`` at the graph's
+    first node): the pool is the pool kernel over those ranges.  It
+    computes in f32 whatever the compute dtype, as the reference's."""
+
+    def __init__(self, cfg: GSNConfig):
+        super().__init__()
+        c = self.cfg = cfg
+        enc = _encoder_factory(c)
+        self.input_node_encoder = enc(
+            c.input_node_encoder, c.in_features, c.d_in_node_encoder,
+            c.d_out_node_encoder)
+        self.id_encoder = enc(c.id_embedding, len(c.d_in_id), c.d_in_id,
+                              c.d_out_id_embedding)
+        d_x, d_id = self.input_node_encoder.d_out, self.id_encoder.d_out
+        d_in = 2 * d_x + (d_id if c.id_scope == "local" else 2 * d_id)
+        if c.uses_edge_features:
+            self.edge_encoder = enc(c.edge_encoder, c.in_edge_features,
+                                    c.d_in_edge_encoder,
+                                    c.d_out_edge_encoder[0])
+            d_in += self.edge_encoder.d_out
+        self.edge_mlp = MLP(d_in, c.d_out[0], tuple(c.d_h[0]),
+                            c.activation_mlp, c.bn_mlp)
+        self.head = nn.Linear(c.d_out[0], c.out_features)
+
+    def forward(self, data: GraphBatch,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        c = self.cfg
+        nm, em = data.node_mask, data.edge_mask
+        x = self.input_node_encoder(data.x, nm)
+        ids = self.id_encoder(data.identifiers,
+                              em if c.id_scope == "local" else nm)
+        recv, send = data.edge_index[0], data.edge_index[1]
+        parts = [x[recv], x[send]]
+        parts += ([ids] if c.id_scope == "local" else [ids[recv], ids[send]])
+        if data.edge_features is not None and c.uses_edge_features:
+            parts.append(self.edge_encoder(data.edge_features, em))
+        h = self.edge_mlp(torch.cat(parts, -1), em)
+        # each graph's real edges: from its first node's first edge
+        edge_ptr = data.recv_ptr[data.graph_ptr.long()].contiguous()
+        hg = _pool_fn(c.readout)(h, edge_ptr)
+        hg = dropout(hg, c.dropout_features[0], self.training, generator)
+        return self.head(hg)
+
+
+def _encoder_factory(c):
+    """``DiscreteEmbedding`` with the config's shared knobs."""
+    def enc(kind, d_in_features, d_in_encoder, d_out_encoder, **kw):
+        return DiscreteEmbedding(
+            kind, d_in_features, d_in_encoder, d_out_encoder,
+            aggr=c.multi_embedding_aggr, activation_mlp=c.activation_mlp,
+            bn_mlp=c.bn_mlp, **kw)
+    return enc
+
+
 SPARSE_MODELS = {"GSN_sparse", "GSN_edge_sparse", "MPNN_sparse",
                  "MPNN_edge_sparse"}
 OGB_MODELS = {"GSN_edge_sparse_ogb", "MPNN_edge_sparse_ogb"}
@@ -425,10 +498,11 @@ def build_model(cfg: GSNConfig,
     cfg = cfg.finalize()
     if cfg.model_name in OGB_MODELS:
         model = GNN_OGB(cfg)
+    elif cfg.model_name == "MLP":
+        model = MLPSubstructures(cfg)
     elif cfg.model_name in SPARSE_MODELS:
         model = GNNSubstructures(cfg)
     else:
-        raise NotImplementedError(
-            f"model {cfg.model_name!r} is not ported yet")
+        raise NotImplementedError(f"model {cfg.model_name!r}")
     init_parameters(model, generator)
     return model

@@ -252,25 +252,31 @@ def require(what, device, *tensors, dtype=None) -> None:
 def counted(fn):
     """Give a kernel wrapper its launch counts: ``launches`` in all,
     ``modes``, launches by mode (the data dtypes, e.g. ``"bf16"`` or
-    ``"bf16->f32"``), and ``forms``, launches by the kernel's form where
-    it has several (K3's ``"warp"`` and ``"block"``)."""
+    ``"bf16->f32"``), ``forms``, launches by the kernel's form where
+    it has several (K3's ``"warp"`` and ``"block"``), and ``widths``,
+    launches by (mode, row width) where the wrapper gives the width
+    (K1, K2)."""
     reset(fn)
     return fn
 
 
 def reset(fn) -> None:
     """Zero the launch counts of a ``counted`` wrapper."""
-    fn.launches, fn.modes, fn.forms = 0, {}, {}
+    fn.launches, fn.modes, fn.forms, fn.widths = 0, {}, {}, {}
 
 
-def count(fn, mode: str, form: str = "") -> None:
+def count(fn, mode: str, form: str = "", width: int = 0) -> None:
     """One launch of ``fn``'s kernel in ``mode`` (and ``form``, where the
-    kernel has several); wrappers call it where they launch, and nowhere
+    kernel has several, and on rows of ``width`` elements, where the
+    wrapper gives it); wrappers call it where they launch, and nowhere
     else."""
     fn.launches += 1
     fn.modes[mode] = fn.modes.get(mode, 0) + 1
     if form:
         fn.forms[form] = fn.forms.get(form, 0) + 1
+    if width:
+        key = (mode, width)
+        fn.widths[key] = fn.widths.get(key, 0) + 1
 
 
 def ptr(t) -> int:

@@ -213,7 +213,7 @@ def edge_message_fwd(A: Optional[torch.Tensor], B: torch.Tensor,
             ACT_CODES[act], int(A is not None), int(Pe is not None),
             build.stream_ptr(B.device))
     build.check(rc, "edge_message_fwd")
-    build.count(edge_message_fwd, _mode(act, B.dtype))
+    build.count(edge_message_fwd, _mode(act, B.dtype), width=d)
     return out
 
 
@@ -246,7 +246,7 @@ def edge_message_bwd_recv(A, B, Pe, b1, g, recv_ptr, send, act="relu",
             build.ptr(dA), n_rows, d, ACT_CODES[act], int(A is not None),
             int(Pe is not None), build.stream_ptr(g.device))
     build.check(rc, "edge_message_bwd_recv")
-    build.count(edge_message_bwd_recv, _mode(act, B.dtype))
+    build.count(edge_message_bwd_recv, _mode(act, B.dtype), width=d)
     return dH, dA
 
 

@@ -115,16 +115,23 @@ def _rank_main(rank, world_size, device, init_file, out_dir, timeout_s,
         dist.destroy_process_group()
 
 
-def launch(fn: Callable, num_ranks: int, device="cpu",
+def launch(fn: Callable, num_ranks: int, device=None,
            args: Sequence = (), timeout_s: float = DEFAULT_TIMEOUT_S
            ) -> List[Any]:
     """Run ``fn(rank, *args)`` in ``num_ranks`` spawned processes joined
     in one group (gloo on the CPU, NCCL on cards 0..num_ranks-1) and
     return each rank's result, in rank order (``torch.save``-able
-    values).  The group meets through a ``file://`` rendezvous in a new
+    values).  ``device``: ``"cpu"`` or ``"cuda"``; by default the cards,
+    and with no card the call raises rather than run on the CPU.  The
+    group meets through a ``file://`` rendezvous in a new
     temporary directory, so concurrent launches never share a port.  Ranks that have not ended after
     ``timeout_s`` seconds are killed and the call raises; so does a rank
     that raises."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("launch: no CUDA device is available; pass "
+                               "device='cpu' to run the ranks on the CPU")
+        device = "cuda"
     device = torch.device(device)
     backend_for(device)
     if device.type == "cuda" and num_ranks > torch.cuda.device_count():

@@ -13,7 +13,13 @@ follow the flax parameter paths, so the map is by name:
 - ``.../scale`` (``MaskedBatchNorm``) -> ``....weight``;
 - ``batch_stats .../mean`` and ``.../var`` -> ``....running_mean`` and
   ``....running_var``;
-- any other leaf (``dense_0_bias``, ``dense_1_bias``) keeps its name.
+- any other leaf (``dense_0_bias``, ``dense_1_bias``, the gin and ogb
+  layers' ``eps``, ``CentralEncoder``'s ``central``) keeps its name.
+
+The encoders' submodules carry the flax names (``MultiEmbedding_0``,
+``Dense_0`` of the ``linear`` kind, ``MLP_0`` of the ``mlp`` kind), as
+do ``MLPSubstructures``' (``input_node_encoder``, ``id_encoder``,
+``edge_encoder``, ``edge_mlp``, ``head``).
 
 A flax leaf with no counterpart in the model, a model entry with no flax
 leaf, and a shape mismatch all raise.

@@ -29,15 +29,18 @@ Builds the kernel's source from ``OTHER_CSRC_DIR`` (another commit's
   molhiv, DGN and zinc-cli.
 - ``k1``: K1 (``edge_message.cu``'s forward) in every mode the paths
   run: relu (and identity) at zinc's d=128 on f32 and bf16 data, id_sq
-  at d=128 on both, the ogb form (no A) at molhiv's d=300, and relu and
-  id_sq at zinc-cli's d=150 on both; the paths are zinc, zinc-bf16,
-  zinc-bf16-bnmlp, molhiv and zinc-cli-bf16.
+  at d=128 on both, the ogb form (no A) at molhiv's d=300, relu and
+  id_sq at zinc-cli's d=150 on both, and the gin form (identity, no A,
+  zero b1; a node part, or an edge part with a zero B) on an IMDB batch
+  at the imdb-gin path's widths (1, 64 and the ids' 689); the paths are
+  zinc, zinc-bf16, zinc-bf16-bnmlp, molhiv, zinc-cli-bf16 and
+  imdb-gin.
 - ``k2``: K2 (``edge_message.cu``'s backward) in every mode the paths
   run, each on its path's batch: relu at zinc's d=128 on f32 and bf16
   data, id_sq bf16 at d=128, the ogb form (relu, no A, Pe, zero b1) at
-  molhiv's d=300 on f32 and bf16, and relu and id_sq bf16 at zinc-cli's
-  d=150; the paths are zinc, zinc-bf16, zinc-bf16-bnmlp, molhiv,
-  molhiv-bf16 and zinc-cli-bf16.
+  molhiv's d=300 on f32 and bf16, relu and id_sq bf16 at zinc-cli's
+  d=150, and the gin form as k1's; the paths are zinc, zinc-bf16,
+  zinc-bf16-bnmlp, molhiv, molhiv-bf16, zinc-cli-bf16 and imdb-gin.
 
 Then:
 
@@ -173,6 +176,40 @@ def zinc_cli_path(dev, root, *extra):
     return make, data
 
 
+def imdb_gin_path(dev, root):
+    """(a function making the imdb-gin path's trainer
+    (``chip_smoke.imdb_argv``) on the synthetic IMDB set it writes under
+    ``root``, its first train batch, the gin forms' widths)."""
+    from gsn_tpu_torch import cli
+    from gsn_tpu_torch.data.synthetic import write_imdb_dataset
+    write_imdb_dataset(root, smoke.IMDB_GRAPHS, seed=0)
+    args = vars(cli.build_parser().parse_args(smoke.imdb_argv(root)))
+    graphs, cfg = cli.prepare(args)
+    train = cli.fold_splits(args, graphs, 0)[0]
+    tcfg = cli.trainer_config(args)
+
+    def make():
+        return cli.Trainer(cfg, tcfg, train)
+
+    data = make()._eval_batches(train, 1)[0].to(dev)
+    widths = (graphs[0]["x"].shape[1], smoke.IMDB_D, sum(cfg.d_in_id) + 1)
+    return (make, data), widths
+
+
+def gin_operands(data, d, part, gen):
+    """The gin form's (B, Pe, b1, g) at width ``d``: a node part (B
+    the rows, no Pe) or an edge part (a zero B, Pe the rows), zero b1."""
+    dev = data.x.device
+    N, E = data.num_node_slots, data.num_edge_slots
+    if part == "node":
+        B, Pe = torch.randn(N, d, device=dev, generator=gen), None
+    else:
+        B = torch.zeros(N, d, device=dev)
+        Pe = torch.randn(E, d, device=dev, generator=gen)
+    g = torch.randn(N, d, device=dev, generator=gen)
+    return B, Pe, torch.zeros(d, device=dev), g
+
+
 def k3_case(dev, root):
     """The k3 mode's (functions by name: (call, whether its bits must
     equal the other build's), paths by name); ``root`` takes zinc-cli's
@@ -276,6 +313,14 @@ def k1_case(dev, root):
     for dtype in (f32, bf):
         for act in ("relu", "id_sq"):
             add("zinc-cli", cli[1], smoke.CLI_D, dtype, act)
+    imdb, widths = imdb_gin_path(dev, os.path.join(root, "imdb"))
+    seg = edge_segments(imdb[1])
+    for d in widths:
+        for part in ("node", "edge"):
+            B, Pe, b1, _g = gin_operands(imdb[1], d, part, gen)
+            fns[f"imdb-gin {part} f32 identity d={d}"] = (
+                functools.partial(k12.edge_message_fwd, None, B, Pe, b1,
+                                  seg.recv_ptr, seg.send, "identity"), True)
     paths = {
         "zinc": path_of(zinc),
         "zinc-bf16": path_of(zinc, compute_dtype="bfloat16"),
@@ -283,6 +328,7 @@ def k1_case(dev, root):
                                    bn_mlp=True),
         "molhiv": path_of(molhiv),
         "zinc-cli-bf16": cli,
+        "imdb-gin": imdb,
     }
     return fns, paths
 
@@ -324,6 +370,16 @@ def k2_case(dev, root):
     cli = zinc_cli_path(dev, root, "--compute_dtype", "bfloat16")
     for act in ("relu", "id_sq"):
         add("zinc-cli", cli[1], smoke.CLI_D, bf, act)
+    imdb, widths = imdb_gin_path(dev, os.path.join(root, "imdb"))
+    seg = edge_segments(imdb[1])
+    E = imdb[1].num_edge_slots
+    for d in widths:
+        for part in ("node", "edge"):
+            B, Pe, b1, g = gin_operands(imdb[1], d, part, gen)
+            fns[f"imdb-gin {part} f32 identity d={d}"] = (
+                functools.partial(k12.edge_message_bwd_recv, None, B, Pe,
+                                  b1, g, seg.recv_ptr, seg.send, "identity",
+                                  E), True)
     paths = {
         "zinc": path_of(zinc),
         "zinc-bf16": path_of(zinc, compute_dtype="bfloat16"),
@@ -332,6 +388,7 @@ def k2_case(dev, root):
         "molhiv": path_of(molhiv),
         "molhiv-bf16": path_of(molhiv, compute_dtype="bfloat16"),
         "zinc-cli-bf16": cli,
+        "imdb-gin": imdb,
     }
     return fns, paths
 

@@ -10,7 +10,9 @@ the float4 and the scalar paths run; the DGN kernels run at widths that
 take each of their column layouts (d=33, 64, the DGN model's 70, and
 130, which spans two column tiles) with K of 1, 5 and 16 weight
 columns and inputs drawn from a few integers, so maxima tie, and the
-molhiv path's forms (K1/K2 with no A side, B4) at its width (d=300);
+molhiv path's forms (K1/K2 with no A side, B4) at its width (d=300),
+and the gin message's (identity, no A side, a node part or an edge part
+with a zero B) at d=1, 3, 64 and the odd id width 689;
 K4 runs on its stress layouts (empty graphs, leading and trailing
 padding, one graph, none) at widths 1 to 300 with aligned and unaligned
 g.  Tolerances:
@@ -196,6 +198,56 @@ def test_edge_message_ogb_form(dev, d):
                                        seg.send)
     grad_close(torch.autograd.grad((out * g).sum(), leaves),
                torch.autograd.grad((out_p * g).sum(), ref))
+
+
+@pytest.mark.parametrize("d", [1, 3, 689, 64])
+@pytest.mark.parametrize("part", ["node", "edge"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edge_message_gin_form(dev, d, part, dtype):
+    """K1/K2 as the gin message runs them: identity, no A side, a zero
+    b1; a node part (B = x, no Pe) or an edge part (a zero B, Pe the
+    edge rows).  d=1 is the IMDB model's layer-0 input, 689 an odd id
+    width (its one-hot ids, extended by the central column), 3 odd and
+    64 the published width.  Sums at the f32 tolerances or one bf16 ulp;
+    dH (a copy of g) bit for bit."""
+    rng = np.random.RandomState(d + (part == "edge"))
+    n, e, slots = 300, 900, 1000
+    seg = k12.EdgeSegments(*(t.to(dev)
+                             for t in ragged_segments(rng, n, e)))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    if part == "node":
+        B = torch.randn(n, d, device=dev, generator=gen).to(dtype)
+        Pe = None
+    else:
+        B = torch.zeros(n, d, device=dev, dtype=dtype)
+        Pe = torch.randn(slots, d, device=dev, generator=gen).to(dtype)
+    b1 = torch.zeros(d, device=dev)
+    g = torch.randn(n, d, device=dev, generator=gen).to(dtype)
+    close = (bf16_close if dtype == torch.bfloat16
+             else lambda a, b: torch.testing.assert_close(a, b, **FWD))
+    close(k12.edge_message_fwd(None, B, Pe, b1, seg.recv_ptr, seg.send,
+                               "identity"),
+          k12.edge_message_fwd_plain(None, B, Pe, b1, seg.recv_ptr, seg.send,
+                                     "identity"))
+    dH, dA = k12.edge_message_bwd_recv(None, B, Pe, b1, g, seg.recv_ptr,
+                                       seg.send, "identity", slots)
+    dH_p, _ = k12.edge_message_bwd_recv_plain(None, B, Pe, b1, g,
+                                              seg.recv_ptr, seg.send,
+                                              "identity", slots)
+    assert dA is None
+    assert torch.equal(dH, dH_p)
+    leaf = (B if part == "node" else Pe).clone().requires_grad_(True)
+    args = (None, leaf, None) if part == "node" else (None, B, leaf)
+    out = k12.edge_message_aggregate(*args, b1, seg, "identity")
+    got = torch.autograd.grad((out.float() * g.float()).sum(), [leaf])[0]
+    # dB: K3 over the senders, an f32 sum rounded once; dPe: dH
+    want = (k3.segment_sum_sorted_plain(dH_p, seg.send_ptr, seg.send_perm,
+                                        dtype)
+            if part == "node" else dH_p)
+    if dtype == torch.bfloat16:
+        bf16_close(got, want)
+    else:
+        grad_close([got], [want])
 
 
 @pytest.mark.parametrize("d", [300, 30])

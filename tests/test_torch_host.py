@@ -224,6 +224,15 @@ def test_import_scan_covers_the_parallel_package():
     assert want <= scanned, want - scanned
 
 
+def test_import_scan_covers_the_directional_cli_and_timing():
+    """The scan reads the directional CLI and the timing and profiling
+    modules too."""
+    scanned = {os.path.relpath(p, PKG) for p in _port_sources()}
+    want = {"cli_directional.py", "timing.py",
+            os.path.join("train", "profiling.py")}
+    assert want <= scanned, want - scanned
+
+
 def test_port_imports_with_jax_poisoned():
     """Every module of the port imports with jax, flax, optax and
     gsn_tpu made unimportable."""
