@@ -164,7 +164,8 @@ Phases (any failure is an uncaught exception and a nonzero exit):
     with ``--compute_dtype bfloat16`` (zinc-cli-bf16: K1/K2 4 bf16 + 4
     bf16 id_sq, K3 9, K4 1 a train step; K1 4, K3 1 an eval step); one
     epoch of the same trainer under the profiler (busy and idle share of
-    the epoch); K1/K2 (f32 on log lines, bf16 relu and id_sq), K3 (the
+    the epoch); K1/K2 (f32 and bf16, relu and id_sq; the f32 rows'
+    launches are phase 41's ep run's), K3 (the
     messages' sum, the pools beside ``index_add`` and
     ``segment_reduce``, dB) and K4 at d=150 on one train batch against
     their plain versions, timed with bounds; K3's launches by form are
@@ -265,6 +266,34 @@ Phases (any failure is an uncaught exception and a nonzero exit):
     one batch; then ``--parallel dp --parallel_devices 1`` (one spawned
     NCCL rank) for one epoch: its train loss within CLI_PARALLEL_RTOL of
     the serial run's first epoch (bit for bit logged).
+41. The multi-process CLI: ``cli.main`` with phase 30's data and flags
+    and ``--coordinator_address 127.0.0.1:<free port>
+    --num_procs_distributed 1 --process_id 0`` (this process joins an
+    NCCL group of one through ``parallel.distributed.initialize``) for
+    one epoch, first without ``--parallel`` (the dp default, whose line
+    must be printed), then with ``--parallel ep``: launches a train and
+    an eval step exactly (``cli_path``): dp phase 30's; ep those of the
+    fused-BN route that f32 ``bn_mlp`` messages take under ep, as in the
+    reference (a train step K1/K2 f32 4 and f32 id_sq 4 each, K3 9, K4
+    1; an eval step K1 4, K3 1; they are the launches of phase 30's f32
+    K1/K2 rows at d=150); a finite history,
+    the first epoch's train loss within CLI_PARALLEL_RTOL of phase 30's
+    (bit for bit logged), one log, one checkpoint, and no process group
+    left when ``cli.main`` returns.  Then ``python -m gsn_tpu_torch.cli``
+    with the same flags in a process of its own (600 s timeout): exit 0
+    and the in-process dp run's first-epoch train loss bit for bit.
+42. The edge-partitioned propagates at ``scaling_efficiency_bench``'s
+    defaults (EP_NODES nodes, degree EP_DEGREE, d=EP_D; message
+    ``tanh(x_i) + 2·x_j``) over an NCCL group of one formed by
+    ``distributed.initialize``: the all-gather and the ring propagate,
+    forward and gradient against the plain CPU version (one device,
+    ``index_add``) at the f32 tolerances, launches exactly K3 2 and K4 2
+    (one receiver sum a propagate, and its backward), and
+    ``scaling_efficiency_bench``'s two rates on a log line.  K3 on the propagate's CSR-ordered messages and K4 on
+    its backward's shapes against their plain versions, timed beside
+    ``index_add`` and ``segment_reduce`` (K3) and ``index_select`` (K4),
+    with bytes bounds: rows ``segment_sum_sorted[propagate d=128]`` and
+    ``segment_broadcast[propagate d=128]``.
 
 Then it prints three lines: ``{"kernels": [...]}`` (each kernel's
 checks, times, bound and its launches on the path named in its
@@ -306,9 +335,10 @@ SPLIT_MODES = (("f32", "relu"), ("bf16", "relu"), ("f32", "id_sq"))
 CLI_PARALLEL_RTOL = 2e-2
 D = 128
 # the CLI path: the ZINC subset's split sizes (train, val, test) and
-# scripts/zinc_10_runs.py's width at the 500K budget
+# scripts/zinc_10_runs.py's width and depth at the 500K budget
 ZINC_SIZES = (10000, 1000, 1000)
 CLI_D = 150
+ZINC_CLI_LAYERS = 4
 # bench.py::bench_dgn: width, aggregators (K=5 of them are weighted sums)
 DGN_D = 70
 DGN_AGGS = ("mean", "max", "min", "dir0-av", "dir1-av", "dir2-av",
@@ -2314,7 +2344,7 @@ def zinc_cli_argv(root, *extra):
             "--input_node_encoder", "one_hot_encoder",
             "--edge_encoder", "one_hot_encoder",
             "--model_name", "GSN_edge_sparse", "--msg_kind", "general",
-            "--num_layers", "4", "--d_out", str(CLI_D),
+            "--num_layers", str(ZINC_CLI_LAYERS), "--d_out", str(CLI_D),
             "--dropout_features", "0", "--final_projection", "False",
             "--jk_mlp", "True", "--readout", "sum", "--batch_size", "128",
             "--num_epochs", "2", "--eval_frequency", "1", "--lr", "1e-3",
@@ -2323,6 +2353,19 @@ def zinc_cli_argv(root, *extra):
             "--loss_fn", "L1Loss", "--prediction_fn", "L1Loss",
             "--mode", "train", "--wandb", "False"]
     return argv + list(extra)
+
+
+def zinc_cli_f32_launches():
+    """Phase 30's launches (``cli_path``'s per train step, per eval step,
+    and K3's forms a train and an eval step): in f32 each layer's
+    per-edge messages are summed at the receivers (K3, backward K4) and
+    so is the one pool (K3, backward K4); the message sums take K3's
+    warp form, the pool its block form."""
+    L = ZINC_CLI_LAYERS
+    return ({"segment_sum_sorted": {"f32->f32": L + 1},
+             "segment_broadcast": {"f32": L + 1}},
+            {"segment_sum_sorted": {"f32->f32": L + 1}},
+            ({"warp": L, "block": 1}, {"warp": L, "block": 1}))
 
 
 def zinc_cli_trainer(args, dev):
@@ -2461,14 +2504,12 @@ def zinc_cli_kernels(dev, timed, data, d, empty, cpm, main_pool):
     rows = {}
     k1_floor = launch_floor_ms(empty, cpm, k1_blocks(N))
     k2_floor = launch_floor_ms(empty, cpm, k2_blocks(N))
-    fwd, bwd = k12_timed(timed, data, d, torch.float32, "relu", gen)
-    log_row("zinc-cli", f"edge_message_fwd[f32 relu d={d}]",
-            dict(fwd, floor_ms=k1_floor, blocks=k1_blocks(N)))
-    log_row("zinc-cli", f"edge_message_bwd_recv[f32 relu d={d}]",
-            dict(bwd, floor_ms=k2_floor, blocks=k2_blocks(N)))
+    # f32: the ep route of phase 41; bf16: zinc-cli-bf16
     bf = torch.bfloat16
-    for act, mode in (("relu", "bf16"), ("id_sq", "id_sq bf16")):
-        fwd, bwd = k12_timed(timed, data, d, bf, act, gen)
+    for dt, act, mode in ((torch.float32, "relu", "f32"),
+                          (torch.float32, "id_sq", "id_sq f32"),
+                          (bf, "relu", "bf16"), (bf, "id_sq", "id_sq bf16")):
+        fwd, bwd = k12_timed(timed, data, d, dt, act, gen)
         rows[f"edge_message_fwd[{mode} d={d}]"] = dict(
             fwd, floor_ms=k1_floor, blocks=k1_blocks(N))
         rows[f"edge_message_bwd_recv[{mode} d={d}]"] = dict(
@@ -2713,16 +2754,9 @@ def cli_phases(dev, card, timed, cpm, empty, main_pool, root):
         f"vocabulary {d_id}")
 
     # ---- phase 30: the path -------------------------------------------
-    L = 4
-    # f32: each layer's per-edge messages summed at the receivers
-    # (K3, backward K4) and the one pool (K3, backward K4)
-    # (K3's forms: the message sums and dB warp, the pool block)
+    L = ZINC_CLI_LAYERS
     args, hist, modes, forms, evals = cli_path(
-        card, root, "zinc-cli",
-        {"segment_sum_sorted": {"f32->f32": L + 1},
-         "segment_broadcast": {"f32": L + 1}},
-        {"segment_sum_sorted": {"f32->f32": L + 1}},
-        ({"warp": L, "block": 1}, {"warp": L, "block": 1}))
+        card, root, "zinc-cli", *zinc_cli_f32_launches())
     args_bf, _h, modes_bf, forms_bf, _e = cli_path(
         card, root, "zinc-cli-bf16",
         {"edge_message_fwd": {"bf16": L, "bf16 id_sq": L},
@@ -3318,6 +3352,227 @@ def cli_parallel_phase(root, serial_hist):
             f"epoch in {wall:.3f} s (one spawned NCCL rank); train loss "
             f"{got}, phase 30's serial first epoch {want} (rel {rel:.3e}, "
             f"bit for bit {got == want}); history {hist}")
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def coordinator_argv(port, *extra):
+    """The multi-process flags of one process joining a coordinator on
+    ``port`` (world size 1), one epoch, and ``extra``."""
+    return ("--coordinator_address", f"127.0.0.1:{port}",
+            "--num_procs_distributed", "1", "--process_id", "0",
+            "--num_epochs", "1", *extra)
+
+
+def coordinator_cli_phase(card, root, serial_hist, rows):
+    """Phase 41 (see module docstring); fills the launches of the f32
+    K1/K2 rows at d=150 from the ep run."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from gsn_tpu_torch import cli
+    L = ZINC_CLI_LAYERS
+    said = "multi-process run: defaulting --parallel to 'dp'"
+    launches = {
+        "dp": zinc_cli_f32_launches(),
+        # under ep the f32 bn_mlp messages take the fused-BN route, as
+        # the reference's do (gsn_tpu/nn/filters.py:355-363): K1/K2 in
+        # f32 and in f32 id_sq a layer, K3 the dB of both passes and the
+        # pool, K4 the pool's backward; an eval step K1 and the pool
+        "ep": ({"edge_message_fwd": {"f32": L, "f32 id_sq": L},
+                "edge_message_bwd_recv": {"f32": L, "f32 id_sq": L},
+                "segment_sum_sorted": {"f32->f32": 2 * L + 1},
+                "segment_broadcast": {"f32": 1}},
+               {"edge_message_fwd": {"f32": L},
+                "segment_sum_sorted": {"f32->f32": 1}},
+               ({"warp": 2 * L, "block": 1}, {"block": 1})),
+    }
+    first = {}
+    for mode, extra in (("dp", ()), ("ep", ("--parallel", "ep"))):
+        tag = f"zinc-cli-coord-{mode}"
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            args, hist, modes, _f, _e = cli_path(
+                card, root, tag, *launches[mode],
+                *coordinator_argv(free_port(), "--results_folder", tag,
+                                  *extra))
+        wall = time.perf_counter() - t0
+        sys.stdout.write(out.getvalue())
+        if (said in out.getvalue()) != (mode == "dp"):
+            raise AssertionError(f"{tag}: the dp default's line printed "
+                                 f"{said in out.getvalue()}")
+        if dist.is_initialized():
+            raise AssertionError(f"{tag}: the group outlived cli.main")
+        run_dir, recs = read_log(args)
+        files = sorted(os.listdir(run_dir))
+        ckpts = os.listdir(os.path.dirname(cli.checkpoint_path(args, -1)))
+        if files != ["checkpoints", "log.jsonl", "params.json"] or len(
+                ckpts) != 1 or sum("train_loss" in r for r in recs) != 1:
+            raise AssertionError(f"{tag}: wrote {files}, checkpoints "
+                                 f"{ckpts}, {len(recs)} log records")
+        got, want = hist["train_losses"][0], serial_hist["train_losses"][0]
+        rel = abs(got - want) / abs(want)
+        if rel > CLI_PARALLEL_RTOL:
+            raise AssertionError(f"{tag}: first epoch's train loss {got}, "
+                                 f"phase 30's {want}")
+        first[mode] = got
+        if mode == "ep":
+            for kernel in ("edge_message_fwd", "edge_message_bwd_recv"):
+                for on, name in (("f32", "f32"), ("f32 id_sq", "id_sq f32")):
+                    rows[f"{kernel}[{name} d={CLI_D}]"].update(
+                        launches=modes[kernel][on], path=tag)
+        how = ", --parallel ep" if extra else ", dp by default"
+        log(f"[{tag}] cli.main with --coordinator_address (NCCL world size "
+            f"1, in this process{how}): one epoch in {wall:.3f} s; train "
+            f"loss {got}, phase 30's "
+            f"serial first epoch {want} (rel {rel:.3e}, bit for bit "
+            f"{got == want}); launches a step "
+            f"{'as phase 30' if mode == 'dp' else 'the ep route'}'s; one "
+            f"log, one checkpoint; no group left ({card})")
+
+    # the same flags in a process of its own
+    tag = "zinc-cli-coord-os"
+    argv = zinc_cli_argv(root, *coordinator_argv(
+        free_port(), "--results_folder", tag))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gsn_tpu_torch.cli", *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag}: exit {proc.returncode}\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    if said not in proc.stdout:
+        raise AssertionError(f"{tag}: no dp default line")
+    _d, recs = read_log(vars(cli.build_parser().parse_args(argv)))
+    got = [r["train_loss"] for r in recs if "train_loss" in r]
+    if got != [first["dp"]]:
+        raise AssertionError(f"{tag}: train losses {got}, the in-process "
+                             f"run's {first['dp']}")
+    log(f"[{tag}] python -m gsn_tpu_torch.cli with the same flags: exit 0 "
+        f"in {wall:.3f} s (process start and kernel loading included); "
+        f"first epoch's train loss {got[0]}, the in-process run's bit for "
+        f"bit ({card})")
+
+
+# phase 42: scaling_efficiency_bench's defaults and the reference test's
+# message
+EP_NODES, EP_DEGREE, EP_D = 8192, 8, 128
+
+
+def edge_partition_phase(dev, card, timed):
+    """Phase 42 (see module docstring); returns the propagate's K3 and K4
+    rows."""
+    from gsn_tpu_torch.ops.cuda import build
+    from gsn_tpu_torch.ops.cuda import slab_combine as k3
+    from gsn_tpu_torch.ops.cuda import slab_pool as k4
+    from gsn_tpu_torch.ops.segment import masked_segment_sum
+    from gsn_tpu_torch.parallel import distributed
+    from gsn_tpu_torch.parallel import edge_partition as ep
+
+    n, d, E = EP_NODES, EP_D, EP_NODES * EP_DEGREE
+    rng = np.random.RandomState(0)
+    ei = np.stack([rng.randint(0, n, E), rng.randint(0, n, E)])
+    x = rng.randn(n, d).astype(np.float32)
+    cot = rng.randn(n, d).astype(np.float32)
+
+    def message(xi, xj):
+        return torch.tanh(xi) + 2.0 * xj
+
+    # the plain CPU version: one device, index_add over every edge
+    x_cpu = torch.from_numpy(x).requires_grad_(True)
+    recv, send = (torch.from_numpy(a).long() for a in ei)
+    want = masked_segment_sum(message(x_cpu[recv], x_cpu[send]), recv, n)
+    (want_g,) = torch.autograd.grad((want * torch.from_numpy(cot)).sum(),
+                                    [x_cpu])
+    kinds = (("all-gather", ep.partition_edges_by_receiver,
+              ep.edge_partitioned_propagate),
+             ("ring", ep.partition_edges_ring,
+              ep.ring_edge_partitioned_propagate))
+    counters = kernel_counters()
+    distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        mesh = distributed.global_mesh("ep")
+        inputs = [(name, propagate(mesh, message),
+                   ep.rank_inputs(partition(ei, n, 1), 0, dev))
+                  for name, partition, propagate in kinds]
+        cot_dev = torch.from_numpy(cot).to(dev)
+        for fn in counters.values():
+            build.reset(fn)
+        outs = {}
+        for name, prop, args in inputs:
+            xs = torch.from_numpy(x).to(dev).requires_grad_(True)
+            y = prop(xs, *args)
+            (g,) = torch.autograd.grad((y * cot_dev).sum(), [xs])
+            outs[name] = (y.detach(), g)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        errs = {}
+        for name, (y, g) in outs.items():
+            errs[name] = (
+                max_err(y.cpu(), want.detach(), FWD_RTOL, FWD_ATOL,
+                        f"{name} propagate"),
+                grad_check([g.cpu()], [want_g], f"{name} propagate grad"))
+        # one K3 (forward) and one K4 (backward) a propagate: world size
+        # 1 is one hop of the ring
+        expect_launches(launches, {"segment_sum_sorted": 2,
+                                   "segment_broadcast": 2}, 1,
+                        "edge-partition propagates")
+        bench = ep.scaling_efficiency_bench(mesh)
+        log(f"[edge-partition] NCCL world size 1 (distributed.initialize), "
+            f"{n} nodes, {E} edges, d={d}, message tanh(x_i) + 2 x_j: "
+            f"(forward, gradient) max abs err against the plain CPU "
+            f"version {errs}; launches {launches}; "
+            f"scaling_efficiency_bench {bench} ({card})")
+
+        # K3 and K4 at the propagate's shapes, on its CSR-ordered messages
+        recv_l, send_l, order, ptr = inputs[0][2]
+        r_sorted = recv_l.long()[order]
+        xd = torch.from_numpy(x).to(dev)
+        msgs = message(xd[r_sorted], xd[send_l.long()[order]]).contiguous()
+        zeros = torch.zeros(n, d, device=dev)
+        ptr_l = ptr.long()
+        err = max_err(k3.segment_sum_sorted(msgs, ptr),
+                      k3.segment_sum_sorted_plain(msgs, ptr), FWD_RTOL,
+                      FWD_ATOL, "segment_sum_sorted[propagate]")
+        # read the rows and ptr, write the sums; one add an element
+        t_b, by = bound(4 * (E * d + n * d + n + 1), E * d)
+        rows = {
+            f"segment_sum_sorted[propagate d={d}]": dict(
+                source="gsn_tpu_torch/csrc/segment_sum.cu",
+                replaces="gsn_tpu/ops/pallas/slab_combine.py:77",
+                max_abs_err=err, bound_ms=t_b, bound_by=by,
+                launches=launches["segment_sum_sorted"],
+                path="edge-partition",
+                **timed(lambda: k3.segment_sum_sorted(msgs, ptr),
+                        lambda: k3.segment_sum_sorted_plain(msgs, ptr),
+                        lambda: torch.index_add(zeros, 0, r_sorted, msgs),
+                        also={"segment_reduce_ms":
+                              lambda: torch.segment_reduce(
+                                  msgs, "sum", offsets=ptr_l)})),
+            f"segment_broadcast[propagate d={d}]": dict(
+                source="gsn_tpu_torch/csrc/segment_broadcast.cu",
+                replaces="gsn_tpu/ops/pallas/slab_pool.py:90",
+                launches=launches["segment_broadcast"],
+                path="edge-partition",
+                **k4_timed_ptr(timed, cot_dev, ptr, E,
+                               k4.segment_broadcast,
+                               k4.segment_broadcast_plain)),
+        }
+        for name, row in rows.items():
+            log_row("edge-partition", name, row)
+        return rows
+    finally:
+        distributed.shutdown()
 
 
 # phases 38-39: the README's IMDBBINARY command (gin)
@@ -4018,6 +4273,8 @@ def main():
         cli_parallel_phase(root, cli_hist)                           # 37
         rows.update(gin_phases(dev, card, timed, cpm, empty, root))  # 38-39
         rows.update(dgn_cli_phase(dev, card, timed, root))           # 40
+        coordinator_cli_phase(card, root, cli_hist, rows)            # 41
+        rows.update(edge_partition_phase(dev, card, timed))          # 42
 
     # kernel_ms and bound_us repeat ms and bound_ms in the units the
     # port's kernel table uses

@@ -15,10 +15,16 @@ Run: ``python -m gsn_tpu_torch.cli --dataset chemical --dataset_name ZINC
 once, then spawns N ranks (``parallel.launch``: gloo ranks on the CPU,
 NCCL ranks on cards 0..N-1, N at most the cards there are) that train
 with ``parallel.ParallelTrainer``; only rank 0 writes the log and the
-checkpoints, and the call returns rank 0's results.  The reference's
-multi-process flags (``--coordinator_address``,
-``--num_procs_distributed``, ``--process_id``) raise
-``NotImplementedError`` until the port has that path.
+checkpoints, and the call returns rank 0's results.
+
+The multi-process flags (``--coordinator_address host:port``,
+``--num_procs_distributed N``, ``--process_id i``) make this process
+rank i of N processes launched on their own
+(``parallel/distributed.py``); ``--coordinator_address auto`` or no
+address joins through ``env://``.  The process trains with a
+``ParallelTrainer`` itself (``--parallel`` defaults to ``dp``); rank 0
+counts the dataset and writes its cache before the others read it, and
+only rank 0 writes the log, checkpoints and summaries or prints.
 """
 
 from __future__ import annotations
@@ -181,8 +187,7 @@ def build_parser() -> argparse.ArgumentParser:
            "'tight' re-buckets per epoch (less padding on skewed data)")
     a("--device", type=str, default="default",
       help="default (the CUDA card; raises when there is none) | cpu")
-    # multi-device execution (gsn_tpu_torch.parallel); the multi-process
-    # flags are not ported yet and raise NotImplementedError
+    # multi-device execution (gsn_tpu_torch.parallel)
     a("--parallel", type=str, default="none",
       choices=["none", "dp", "ep"],
       help="'dp' shards each batch's graphs across ranks, 'ep' "
@@ -190,11 +195,13 @@ def build_parser() -> argparse.ArgumentParser:
     a("--parallel_devices", type=int, default=None,
       help="ranks of --parallel (default: every card, or 1 on the CPU)")
     a("--coordinator_address", type=str, default=None,
-      help="multi-process coordinator host:port (not ported yet: raises)")
+      help="multi-process: rank 0's host:port, or 'auto' for env:// "
+           "(MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE)")
     a("--num_procs_distributed", type=int, default=None,
-      help="multi-process process count (not ported yet: raises)")
+      help="multi-process: the number of processes")
     a("--process_id", type=int, default=None,
-      help="multi-process rank (not ported yet: raises)")
+      help="multi-process: this process's rank (its card: LOCAL_RANK, "
+           "else the rank modulo the visible cards)")
     return p
 
 
@@ -275,18 +282,11 @@ def select_device(args: Dict) -> torch.device:
     return torch.device(f"cuda:{idx}")
 
 
-def check_single_process(args: Dict) -> None:
-    """The multi-process flags have no counterpart in the port yet."""
-    par = args.get("parallel", "none") or "none"
-    multi = [k for k in ("coordinator_address", "num_procs_distributed",
-                         "process_id") if args.get(k) is not None]
-    if multi:
-        what = [f"--parallel {par}"] if par != "none" else []
-        what += [f"--{k}" for k in multi]
-        raise NotImplementedError(
-            f"{', '.join(what)}: multi-process training (separately "
-            f"launched processes joining a coordinator) is not ported yet "
-            f"(ROADMAP.md A item 1: gsn_tpu/parallel/distributed.py)")
+def multi_process(args: Dict) -> bool:
+    """This process is one of several launched on their own: a
+    multi-process flag is set."""
+    return any(args.get(k) is not None for k in (
+        "coordinator_address", "num_procs_distributed", "process_id"))
 
 
 def parallel_ranks(args: Dict, device: torch.device) -> int:
@@ -350,6 +350,23 @@ def prepare(args: Dict) -> Tuple[List[Dict], GSNConfig]:
     return graphs, cfg
 
 
+def prepare_shared(args: Dict) -> Tuple[List[Dict], GSNConfig]:
+    """``prepare`` in every process of the group, rank 0 first: it counts
+    the dataset and writes its cache while the others wait at a barrier,
+    then they read the cache (else each would write the same file at
+    once).  A cold count longer than the group's timeout
+    (``parallel.mesh.DEFAULT_TIMEOUT_S``) times the barrier out: count
+    such a dataset in one process first."""
+    import torch.distributed as dist
+    first = dist.get_rank() == 0
+    if first:
+        out = prepare(args)
+    dist.barrier()
+    if not first:
+        out = prepare(args)
+    return out
+
+
 def trainer_config(args: Dict) -> TrainerConfig:
     return TrainerConfig(
         lr=args["lr"], regularization=args["regularization"],
@@ -391,10 +408,34 @@ def checkpoint_path(args: Dict, fold: int) -> str:
 
 def main(args: Dict):
     """Programmatic entry (mirrors reference main.main(args))."""
-    check_single_process(args)
-    device = select_device(args)
+    if not multi_process(args):
+        return run_main(args, select_device(args))
+    if args["mode"] == "isomorphism_test":
+        raise ValueError("--mode isomorphism_test runs on one device; "
+                         "drop the multi-process flags")
+    # the card is the process's local one (initialize), not --device_idx
+    cpu = select_device(args).type == "cpu"
+    from .parallel import distributed
+    addr = args.get("coordinator_address")
+    threads = torch.get_num_threads()
+    try:
+        device = distributed.initialize(
+            None if addr == "auto" else addr,
+            args.get("num_procs_distributed"), args.get("process_id"),
+            platform="cpu" if cpu else None)
+        # one thread a rank, as parallel.launch's ranks run
+        torch.set_num_threads(1)
+        return run_main(args, device, multi=True)
+    finally:
+        torch.set_num_threads(threads)
+        distributed.shutdown()
+
+
+def run_main(args: Dict, device: torch.device, multi: bool = False):
+    """``main`` on ``device``; ``multi``: in a process of a group that
+    ``parallel.distributed.initialize`` formed."""
     np.random.seed(args["np_seed"])
-    graphs, cfg = prepare(args)
+    graphs, cfg = prepare_shared(args) if multi else prepare(args)
     par = args.get("parallel", "none") or "none"
 
     if args["mode"] == "isomorphism_test":
@@ -410,6 +451,8 @@ def main(args: Dict):
         print(f"Failure Percentage: {100 * frac:.2f}%")
         return {"failure_percentage": frac, "pairs": pairs, "fails": fails}
 
+    if multi:
+        return _distributed_rank(args, graphs, cfg, par)
     if par != "none":
         from .parallel import launch
         return launch(_parallel_rank, parallel_ranks(args, device),
@@ -417,6 +460,33 @@ def main(args: Dict):
     tcfg = trainer_config(args)
     return run_folds(args, graphs,
                      lambda train: Trainer(cfg, tcfg, train, device=device))
+
+
+def _distributed_rank(args: Dict, graphs: List[Dict], cfg: GSNConfig,
+                      mode: str):
+    """This process's rank of a multi-process run: the folds with a
+    ``ParallelTrainer`` over the group (``--parallel``, by default dp);
+    only rank 0 writes and prints."""
+    from .parallel import ParallelTrainer, distributed
+    write = distributed.is_coordinator()
+    if mode == "none":
+        # N processes without a parallel mode would train N copies
+        if write:
+            print("[gsn_tpu_torch] multi-process run: defaulting "
+                  "--parallel to 'dp'")
+        mode = "dp"
+    mesh = distributed.global_mesh(mode)
+    n = args.get("parallel_devices")
+    if n is not None and n != mesh.size:
+        raise ValueError(f"--parallel_devices {n}: the multi-process run "
+                         f"has {mesh.size} processes")
+    np.random.seed(args["np_seed"])
+    tcfg = trainer_config(args)
+    return run_folds(
+        args, graphs,
+        lambda train: ParallelTrainer(cfg, tcfg, train, mesh=mesh,
+                                      mode=mode, distributed=True),
+        write=write)
 
 
 def _parallel_rank(rank: int, args: Dict, graphs: List[Dict],

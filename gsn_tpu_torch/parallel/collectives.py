@@ -84,6 +84,42 @@ class _AllGather(torch.autograd.Function):
         return out, None
 
 
+def _permute(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """This rank's ``x`` sent to rank ``r + shift`` and the one of rank
+    ``r - shift`` received (mod the world size), the send and the
+    receive posted in one batch (posted apart, gloo and NCCL can
+    deadlock)."""
+    size, rank = dist.get_world_size(), dist.get_rank()
+    x = x.contiguous()
+    if size == 1:
+        return x.clone()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, (rank + shift) % size),
+           dist.P2POp(dist.irecv, out, (rank - shift) % size)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        axis_size(axis)
+        return _permute(x, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g, -1), None
+
+
+def ring_shift(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """Rank ``r - 1``'s ``x`` (mod the world size): every rank sends its
+    ``x`` one step round the ring (``jax.lax.ppermute`` with the pairs
+    ``(i, i + 1)``); differentiable, its backward sends each cotangent
+    one step back."""
+    return _RingShift.apply(x, axis)
+
+
 def all_reduce(x: torch.Tensor, axis: str) -> torch.Tensor:
     """Σ over the ranks of axis ``axis``; differentiable (see module
     docstring)."""

@@ -20,6 +20,15 @@ rank 0 write them (``cli.py``).  Every dp shard of a batch has the same
 caps and there is no per-shard kernel metadata, so no batch leaves the
 kernel path (the reference drops shards whose slab metadata differ to
 its XLA path, ``gsn_tpu/parallel/trainer.py:288-302``).
+
+The reference's ``distributed`` keyword (separately launched
+processes, ``parallel/distributed.py``) is accepted and ignored: a
+process of the port is one rank, and a rank already builds only its own
+shard (``dp_shard``, ``make_ep_batch(rank=r)``), which is what the
+reference's multi-process feeding adds.  The kernels stay on (the
+reference turns its kernel layout off there,
+``gsn_tpu/parallel/trainer.py:97-103``, because its processes cannot
+agree on slab metadata; the port has none).
 """
 
 from __future__ import annotations
@@ -47,9 +56,11 @@ class ParallelTrainer(Trainer):
 
     def __init__(self, model_cfg, tcfg: TrainerConfig,
                  graphs_train: List[Dict], mesh: Optional[Mesh] = None,
-                 mode: str = "dp", model: Optional[torch.nn.Module] = None):
+                 mode: str = "dp", model: Optional[torch.nn.Module] = None,
+                 distributed: bool = False):
         if mode not in ("dp", "ep"):
             raise ValueError(f"parallel mode {mode!r} (want 'dp'|'ep')")
+        del distributed   # a process is one rank (module docstring)
         self.mode = mode
         self.mesh = mesh or make_mesh(axis_names=(mode,))
         if self.mesh.axis != mode:

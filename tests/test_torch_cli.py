@@ -367,22 +367,62 @@ def test_cli_zinc_flags_train_with_val_and_resume(tmp_path):
         assert resumed[key] == straight[key][2:], key
 
 
-@pytest.mark.parametrize("flags,match", [
-    (("--parallel", "dp", "--process_id", "0"), "--parallel dp"),
-    (("--parallel", "ep", "--parallel_devices", "2",
-      "--coordinator_address", "localhost:9955"), "--parallel ep"),
-    (("--coordinator_address", "localhost:9955"), "--coordinator_address"),
-    (("--num_procs_distributed", "2", "--process_id", "0"), "--process_id"),
+@pytest.mark.parametrize("flags,exc,match", [
+    # env:// (no address, or "auto") without the variables it reads
+    (("--coordinator_address", "auto", "--num_procs_distributed", "2",
+      "--process_id", "0"), RuntimeError, "env:// and needs MASTER_ADDR"),
+    (("--coordinator_address", "127.0.0.1:9955",
+      "--num_procs_distributed", "2", "--process_id", "2"), ValueError,
+     "process id 2 of 2 processes"),
+    (("--coordinator_address", "127.0.0.1:9955"), ValueError,
+     "needs the process count"),
+    (("--coordinator_address", "127.0.0.1:9955", "--num_procs_distributed",
+      "1", "--process_id", "0", "--mode", "isomorphism_test"), ValueError,
+     "isomorphism_test runs on one device"),
 ])
-def test_cli_multi_device_flags_raise(tmp_path, flags, match):
-    """The multi-process flags raise, alone or beside ``--parallel``
-    (which runs on its own: tests/test_torch_parallel.py), naming the
-    ROADMAP item that ports them."""
+def test_cli_multi_device_flags_raise(tmp_path, monkeypatch, flags, exc,
+                                      match):
+    """The multi-process flags raise, before any process group forms or
+    any cache is written, on an ``env://`` rendezvous without its
+    variables, a process id out of range, an address without the
+    process count and id, and the isomorphism mode."""
+    import torch.distributed as dist
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
     make_tu_dataset(str(tmp_path))
-    with pytest.raises(NotImplementedError,
-                       match=f"{match}.*ROADMAP.md A item 1"):
+    with pytest.raises(exc, match=match):
         run(tu_argv(tmp_path, *flags))
+    assert not dist.is_initialized()
     assert not (tmp_path / "cache").exists()
+
+
+@pytest.mark.parametrize("mode", ["default", "ep"])
+def test_cli_multi_process_runs(tmp_path, capsys, mode):
+    """One process joining a coordinator (a gloo group of 1): without
+    ``--parallel`` it trains data-parallel and says so, with
+    ``--parallel ep`` edge-partitioned; a finite history, one log and one
+    checkpoint, and no group left when ``main`` returns.  (Two
+    processes: tests/test_torch_distributed.py.)"""
+    import socket
+
+    import torch.distributed as dist
+    make_tu_dataset(str(tmp_path))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    extra = ("--parallel", "ep") if mode == "ep" else ()
+    hist = run(tu_argv(tmp_path, *extra, "--coordinator_address",
+                       f"127.0.0.1:{port}", "--num_procs_distributed", "1",
+                       "--process_id", "0"))[0]
+    assert not dist.is_initialized()
+    assert len(hist["test_accs"]) == 2
+    assert all(np.isfinite(hist[k]).all() for k in hist if hist[k])
+    said = "defaulting --parallel to 'dp'" in capsys.readouterr().out
+    assert said == (mode == "default")
+    run_dir = tmp_path / "cache" / "results" / "temp" / "0" / "GSN_sparse"
+    assert sorted(os.listdir(run_dir / "checkpoints")) == ["checkpoint.pt"]
+    recs = (run_dir / "log.jsonl").read_text().splitlines()
+    assert sum('"train_loss"' in r for r in recs) == 2
 
 
 def test_cli_runs_on_the_card_or_raises(tmp_path, monkeypatch):

@@ -40,6 +40,10 @@ worst-case rounding of two f32 sums of the row's terms, 2 (n - 1) 2^-24
 sum |x| (the long rows cancel).  K2's relu and identity dH are masked
 copies of g, bit for bit.  K3's block form and K2 must give the same
 bits on every call.
+
+The edge-partitioned propagates (``parallel/edge_partition.py``) run
+over an NCCL group of one against their plain CPU version at the f32
+tolerances, one K3 and one K4 launch each.
 """
 
 import numpy as np
@@ -970,3 +974,60 @@ def test_receiver_sums_repeat_bit_for_bit(dev):
         assert runs[0][0] == runs[1][0]
         assert all(torch.equal(a, b) for a, b in zip(runs[0][1],
                                                      runs[1][1]))
+
+
+def test_edge_partitioned_propagates_on_the_card(dev):
+    """Both edge-partitioned propagates over an NCCL group of one
+    (``parallel.distributed.initialize``) on a graph of 1,024 nodes with
+    a hub receiver: forward and the gradient of Σ out·cot against their
+    plain versions on the CPU (one device, ``index_add``); each is one K3
+    launch forward and one K4 backward."""
+    import socket
+
+    from gsn_tpu_torch.ops.cuda import build
+    from gsn_tpu_torch.ops.segment import masked_segment_sum
+    from gsn_tpu_torch.parallel import distributed
+    from gsn_tpu_torch.parallel import edge_partition as ep
+
+    n, e, d = 1024, 6000, 70
+    rng = np.random.RandomState(3)
+    ei = np.stack([rng.randint(0, n, e), rng.randint(0, n, e)])
+    ei[0, :200] = 7
+    x = rng.randn(n, d).astype(np.float32)
+    cot = rng.randn(n, d).astype(np.float32)
+
+    def message(xi, xj):
+        return torch.tanh(xi) + 2.0 * xj
+
+    x_cpu = torch.from_numpy(x).requires_grad_(True)
+    recv, send = (torch.from_numpy(a).long() for a in ei)
+    want = masked_segment_sum(message(x_cpu[recv], x_cpu[send]), recv, n)
+    (want_g,) = torch.autograd.grad((want * torch.from_numpy(cot)).sum(),
+                                    [x_cpu])
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = distributed.global_mesh("ep")
+        for partition, propagate in (
+                (ep.partition_edges_by_receiver,
+                 ep.edge_partitioned_propagate),
+                (ep.partition_edges_ring,
+                 ep.ring_edge_partitioned_propagate)):
+            prop = propagate(mesh, message)
+            args = ep.rank_inputs(partition(ei, n, 1), 0, dev)
+            for fn in (k3.segment_sum_sorted, k4.segment_broadcast):
+                build.reset(fn)
+            xs = torch.from_numpy(x).to(dev).requires_grad_(True)
+            y = prop(xs, *args)
+            (g,) = torch.autograd.grad(
+                (y * torch.from_numpy(cot).to(dev)).sum(), [xs])
+            assert (k3.segment_sum_sorted.launches,
+                    k4.segment_broadcast.launches) == (1, 1)
+            torch.testing.assert_close(y.cpu(), want.detach(), **FWD)
+            torch.testing.assert_close(
+                g.cpu(), want_g, rtol=2e-3,
+                atol=1e-4 * float(want_g.abs().max()))
+    finally:
+        distributed.shutdown()

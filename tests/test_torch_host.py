@@ -220,7 +220,7 @@ def test_import_scan_covers_the_parallel_package():
     scanned = {os.path.relpath(p, PKG) for p in _port_sources()}
     want = {os.path.join("parallel", f) for f in (
         "__init__.py", "collectives.py", "mesh.py", "dp.py", "ep.py",
-        "trainer.py")}
+        "trainer.py", "distributed.py", "edge_partition.py")}
     assert want <= scanned, want - scanned
 
 
@@ -245,9 +245,12 @@ def test_port_imports_with_jax_poisoned():
         "    gsn_tpu_torch.__path__, 'gsn_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 20
+    names = res.stdout.split()
+    assert len(names) >= 20
+    assert {"gsn_tpu_torch.parallel.distributed",
+            "gsn_tpu_torch.parallel.edge_partition"} <= set(names)
