@@ -162,9 +162,11 @@ Phases (any failure is an uncaught exception and a nonzero exit):
     and the checkpoint, each epoch's seconds, median step and host
     batching ms a step, peak memory, the ``watch`` count.  Then 1 epoch
     with ``--compute_dtype bfloat16`` (zinc-cli-bf16: K1/K2 4 bf16 + 4
-    bf16 id_sq, K3 9, K4 1 a train step; K1 4, K3 1 an eval step); one
-    epoch of the same trainer under the profiler (busy and idle share of
-    the epoch); K1/K2 (f32 and bf16, relu and id_sq; the f32 rows'
+    bf16 id_sq, K3 9, K4 1 a train step; K1 4, K3 1 an eval step); both
+    runs go through the trainer's one-dispatch epochs (``scan_epochs``,
+    the CLI's default: a CUDA graph of each train and eval step,
+    replayed), and the counters count each replay's launches; K1/K2
+    (f32 and bf16, relu and id_sq; the f32 rows'
     launches are phase 41's ep run's), K3 (the
     messages' sum, the pools beside ``index_add`` and
     ``segment_reduce``, dB) and K4 at d=150 on one train batch against
@@ -174,7 +176,7 @@ Phases (any failure is an uncaught exception and a nonzero exit):
     the pool f32 and each K3 row carry the form ``segment_sum_form``
     picked and the launch floor of its own grid (``floor_ms``, an empty
     kernel on ``blocks`` blocks; K1's and K2's rows on their grid; K2's
-    rows also time the wrapper's zero fill of dH's padding slots alone,
+    rows also time the wrapper's zero fill of dH (every slot) alone,
     ``pad_fill_ms``), and the block form called twice on the pool's rows
     gives the same bits; the launch floor on the zinc path's pool grids
     goes on log lines.
@@ -294,6 +296,26 @@ Phases (any failure is an uncaught exception and a nonzero exit):
     ``index_add`` and ``segment_reduce`` (K3) and ``index_select`` (K4),
     with bytes bounds: rows ``segment_sum_sorted[propagate d=128]`` and
     ``segment_broadcast[propagate d=128]``.
+43. The one-dispatch epochs (``TrainerConfig.scan_epochs``: each run of
+    same-shape batches replays a CUDA graph of the whole train step,
+    K1-K6 inside, and of the eval step).  Four paths each run from one
+    seed and weights with graphs, per step, and with graphs again:
+    zinc-cli f32 (2 epochs, each evaluated on train, test and val),
+    zinc-cli-bf16 (1 epoch), molhiv GSN-VN-AF (``molhiv_cfg``, 2 epochs
+    of ``make_molhiv_like(1024)`` at batch MOLHIV_BATCH, ROC-AUC) and
+    dgn-cli (2 epochs of phase 40's data and flags).  The two graphed
+    runs must agree bit for bit, and so must the graphed and the
+    per-step run (train losses, evaluations, every parameter and BN
+    statistic) on the zinc paths; on the dropout paths (molhiv,
+    dgn-cli) whether they do is logged, and they are held to the f32
+    tolerances.  Each path logs its capture seconds, the graph's device
+    time a step (CUDA events about each replay) beside the per-step
+    epochs' median step, the peak memory of the graphed run (its graphs'
+    pools included) and EPOCH_TURNS rounds of a graphed and a per-step
+    epoch in turns.  zinc-cli's cached graphed epoch and an evaluation
+    run under ``torch.cuda.set_sync_debug_mode`` (at most one blocking
+    read in the epoch's one run and in the split), and a per-step and a
+    graphed epoch run under the profiler (device busy and idle share).
 
 Then it prints three lines: ``{"kernels": [...]}`` (each kernel's
 checks, times, bound and its launches on the path named in its
@@ -1048,7 +1070,7 @@ def dgn_phases(dev, card, timed):
 
     # ---- phase 8: K5/K6 against the plain versions -------------------------
     d, K = DGN_D, DGN_K
-    if tuple(W.shape) != (e_real, K):
+    if tuple(W.shape) != (E, K) or W[e_real:].any():   # a row a slot
         raise AssertionError(f"weight columns {tuple(W.shape)}")
 
     def dB_plain(dh):
@@ -1125,15 +1147,17 @@ def dgn_phases(dev, card, timed):
     # T @ g the weighted backward's dh; scatter_reduce gives [max, -min]
     # without the tie counts.
     recv = k12.receivers(rp)
+    # the real edges' senders and weights (send and W span the slots)
+    send_r, W_r = send[:e_real].long(), W[:e_real]
     vk = (recv[:, None] * K + torch.arange(K, device=dev)).reshape(-1)
     S = torch.sparse_coo_tensor(
-        torch.stack([vk, send.long().repeat_interleave(K)]), W.reshape(-1),
+        torch.stack([vk, send_r.repeat_interleave(K)]), W_r.reshape(-1),
         (N * K, N)).coalesce().to_sparse_csr()
     T = torch.sparse_coo_tensor(
         torch.stack([torch.arange(e_real, device=dev).repeat_interleave(K),
-                     vk]), W.reshape(-1), (e_real, N * K)
+                     vk]), W_r.reshape(-1), (e_real, N * K)
     ).coalesce().to_sparse_csr()
-    hc = torch.cat([B[send.long()], -B[send.long()]], dim=1)
+    hc = torch.cat([B[send_r], -B[send_r]], dim=1)
     idx = recv[:, None].expand_as(hc)
     zeros_2d = torch.zeros(N, 2 * d, device=dev)
     library = {
@@ -1145,8 +1169,8 @@ def dgn_phases(dev, card, timed):
     }
     max_err(library["weighted_gather_fwd"]().view(N, K * d), out_p,
             FWD_RTOL, FWD_ATOL, "library weighted forward")
-    max_err(library["weighted_gather_bwd"](), dh_p, FWD_RTOL, FWD_ATOL,
-            "library weighted dh")
+    max_err(library["weighted_gather_bwd"](), dh_p[:e_real], FWD_RTOL,
+            FWD_ATOL, "library weighted dh")
     max_err(library["segment_minmax_fwd"](), mm_p, FWD_RTOL, FWD_ATOL,
             "library scatter max")
 
@@ -1279,16 +1303,11 @@ def dgn_phases(dev, card, timed):
     return rows, (graphs, data)
 
 
-def molhiv_setup(dev):
-    """Phase 13's batch and the molhiv path's configuration,
-    ``bench.py::molhiv_cfg`` (GSN-VN-AF): (graphs of
-    ``make_molhiv_like(1024)``, the batch on the host, on ``dev``,
-    GSNConfig, TrainerConfig)."""
+def molhiv_cfg(d_id):
+    """``bench.py::molhiv_cfg`` (GSN-VN-AF) for an id vocabulary of
+    ``d_id``."""
     from gsn_tpu_torch.config import GSNConfig
-    from gsn_tpu_torch.data.synthetic import make_molhiv_like
-    from gsn_tpu_torch.train.loop import TrainerConfig
-    graphs, d_id = make_molhiv_like(1024)
-    cfg = GSNConfig(
+    return GSNConfig(
         model_name="GSN_edge_sparse_ogb", num_layers=5, d_out=MOLHIV_D,
         d_h=2 * MOLHIV_D, out_features=1, msg_kind="ogb", id_scope="local",
         vn=True, dropout_features=0.5, readout="mean",
@@ -1296,6 +1315,17 @@ def molhiv_setup(dev):
         d_out_id_embedding=MOLHIV_D, input_node_encoder="atom_encoder",
         edge_encoder="bond_encoder", input_vn_encoder="embedding",
         in_features=9, in_edge_features=3, d_in_id=d_id)
+
+
+def molhiv_setup(dev):
+    """Phase 13's batch and the molhiv path's configuration,
+    ``bench.py::molhiv_cfg`` (GSN-VN-AF): (graphs of
+    ``make_molhiv_like(1024)``, the batch on the host, on ``dev``,
+    GSNConfig, TrainerConfig)."""
+    from gsn_tpu_torch.data.synthetic import make_molhiv_like
+    from gsn_tpu_torch.train.loop import TrainerConfig
+    graphs, d_id = make_molhiv_like(1024)
+    cfg = molhiv_cfg(d_id)
     tcfg = TrainerConfig(lr=1e-3, batch_size=1024, scheduler="None",
                          loss_fn="BCEWithLogitsLoss", prediction_fn="None")
     return (graphs, *one_batch(graphs, dev), cfg, tcfg)
@@ -1962,7 +1992,8 @@ def dgn_bf16_phases(dev, card, timed, dgn):
     mm, cnt = b6.segment_minmax_fwd_plain(B, rp, send)
     # g_w already in bf16, so the timed backward calls do not round it
     calls = dgn_kernel_calls(B, W, g_w_b, mm, cnt, g_mm, seg)
-    hc = torch.cat([B[send.long()], -B[send.long()]], dim=1)
+    send_r = send[:e_real].long()
+    hc = torch.cat([B[send_r], -B[send_r]], dim=1)
     recv = torch.repeat_interleave(torch.arange(N, device=dev), rp.diff())
     idx = recv[:, None].expand_as(hc)
     zeros_2d = torch.zeros(N, 2 * d, dtype=torch.bfloat16, device=dev)
@@ -2400,9 +2431,9 @@ def k12_timed(timed, data, d, dtype, act, gen):
     """K1 and K2 in ``act`` mode on ``dtype`` data at width ``d`` over the
     batch's edges, against their plain versions; their (fwd, bwd) rows
     with bounds (rows the functions must touch, as phase 3's).  K2's row
-    also carries ``pad_fill_ms``: the wrapper's zero fill of dH's padding
-    slots (a PyTorch fill launched beside the kernel, part of ``ms``),
-    timed alone."""
+    also carries ``pad_fill_ms``: the wrapper's zero fill of dH, every
+    slot (a PyTorch fill launched before the kernel, part of ``ms``: which
+    slots are padding is known only on the device), timed alone."""
     from gsn_tpu_torch.nn.models import edge_segments
     from gsn_tpu_torch.ops.cuda import slab_message as k12
     N, E, e_real = data.num_node_slots, data.num_edge_slots, \
@@ -2463,7 +2494,7 @@ def k12_timed(timed, data, d, dtype, act, gen):
                                                   act, E),
                 lambda: k12.edge_message_bwd_recv_plain(A, B, Pe, b1, g, rp,
                                                         send, act, E),
-                also={"pad_fill_ms": lambda: dH[e_real:].zero_()})
+                also={"pad_fill_ms": lambda: dH.zero_()})
     src = "gsn_tpu_torch/csrc/edge_message.cu"
     out = []
     for row, (t_b, by), err, line in ((fwd, fwd_b, err_f, "214"),
@@ -2769,12 +2800,8 @@ def cli_phases(dev, card, timed, cpm, empty, main_pool, root):
         ({"warp": 2 * L, "block": 1}, {"block": 1}),
         "--compute_dtype", "bfloat16", "--num_epochs", "1",
         "--results_folder", "bf16")
-    # one epoch of the same trainer under the profiler
-    make_trainer, train, data = zinc_cli_trainer(args, dev)
-    trainer = make_trainer()
-    state = trainer.init_state(seed=0)
-    profile_epoch(trainer, state, train, evals[-1]["epoch_s"],
-                  "zinc-cli")
+    # the kernels on one train batch (phase 43 profiles whole epochs)
+    _make, _train, data = zinc_cli_trainer(args, dev)
     rows = zinc_cli_kernels(dev, timed, data, CLI_D, empty, cpm,
                             main_pool)
     d = CLI_D
@@ -3057,10 +3084,10 @@ def split_rows(tag, dt, act, shard, A, B, Pe, b1, g, timed, cpm, empty):
     slots = shard.num_edge_slots
     n_send_rows = B.shape[0]
     n_recv = int((rp.diff() > 0).sum())
-    touched = torch.unique(send.long())
+    touched = torch.unique(send[:n].long())
     n_send = touched.numel()
-    remap = torch.full((n_send_rows,), -1, dtype=torch.int32,
-                       device=B.device)
+    # padding slots (never read) map to row 0
+    remap = torch.zeros((n_send_rows,), dtype=torch.int32, device=B.device)
     remap[touched] = torch.arange(n_send, dtype=torch.int32,
                                   device=B.device)
     send_c, B_c = remap[send.long()], B[touched].contiguous()
@@ -3464,6 +3491,212 @@ def coordinator_cli_phase(card, root, serial_hist, rows):
         f"bit ({card})")
 
 
+# phase 43: rounds of a graphed and a per-step epoch in turns, and the
+# molhiv path's batch (32 steps an epoch of make_molhiv_like(1024)'s
+# 1024 graphs, 896 of them trained on)
+EPOCH_TURNS = 3
+MOLHIV_BATCH = 32
+
+
+def epochs_run(make, splits, epochs, seed):
+    """``epochs`` epochs of a fresh trainer ``make()`` from ``seed`` on
+    ``splits[0]``, each then evaluated on ``splits[1:]``: a dict of the
+    train losses, evaluations, final state dict, per-epoch stats, the
+    trainer and the state."""
+    trainer = make()
+    state = trainer.init_state(seed=seed)
+    losses, evals, stats = [], [], []
+    for _ in range(epochs):
+        state, loss = trainer.train_epoch(state, splits[0])
+        losses.append(loss)
+        stats.append(dict(trainer.epoch_stats))
+        evals.append([trainer.evaluate(state, s) for s in splits[1:]])
+    params = {k: v.detach().clone()
+              for k, v in state.model.state_dict().items()}
+    return dict(losses=losses, evals=evals, params=params, stats=stats,
+                trainer=trainer, state=state)
+
+
+def same_bits(a, b):
+    return (a["losses"] == b["losses"] and a["evals"] == b["evals"]
+            and all(torch.equal(v, b["params"][k])
+                    for k, v in a["params"].items()))
+
+
+def graphed_paths(root):
+    """Phase 43's paths: (tag, make(scan) -> Trainer, splits, epochs,
+    seed, whether graphed and per-step must agree bit for bit)."""
+    from gsn_tpu_torch import cli
+    from gsn_tpu_torch import cli_directional as dcli
+    from gsn_tpu_torch.data.synthetic import make_molhiv_like
+    from gsn_tpu_torch.train.loop import Trainer, TrainerConfig
+    paths = []
+    for tag, argv, epochs in (
+            ("zinc-cli", zinc_cli_argv(root), 2),
+            ("zinc-cli-bf16", zinc_cli_argv(
+                root, "--compute_dtype", "bfloat16"), 1)):
+        args = vars(cli.build_parser().parse_args(argv))
+        graphs, cfg = cli.prepare(args)
+        train, test, val = cli.fold_splits(args, graphs, -1)
+        tcfg = cli.trainer_config(args)
+        paths.append((tag, lambda scan, cfg=cfg, tcfg=tcfg, train=train:
+                      cli.Trainer(cfg, dataclasses.replace(
+                          tcfg, scan_epochs=scan), train),
+                      [train, train, test, val], epochs, args["seed"], True))
+    graphs, d_id = make_molhiv_like(1024)
+    cfg = molhiv_cfg(d_id)
+    tcfg = TrainerConfig(lr=1e-3, batch_size=MOLHIV_BATCH, scheduler="None",
+                         loss_fn="BCEWithLogitsLoss", prediction_fn="None",
+                         evaluator="rocauc")
+    paths.append(("molhiv", lambda scan: Trainer(cfg, dataclasses.replace(
+        tcfg, scan_epochs=scan), graphs[:896]),
+        [graphs[:896], graphs[:896], graphs[896:]], 2, 0, False))
+    args = vars(dcli.build_parser().parse_args(dgn_cli_argv(root)))
+    train, val, test, _tasks = dcli.prepare(dict(args))
+    dcfg = dcli.model_config(args, dcli.compute_avg_d(train), 1)
+    dtcfg = dcli.trainer_config(args)
+    paths.append(("dgn-cli", lambda scan: dcli.Trainer(
+        dcfg, dataclasses.replace(dtcfg, scan_epochs=scan), train,
+        model=dcli.DGNNet(dcfg)), [train, val, test], 2, args["seed"],
+        False))
+    return paths
+
+
+def run_numbers(run):
+    """A run's train losses and evaluations, flat, in f64."""
+    return np.asarray(run["losses"] + list(np.ravel(run["evals"])),
+                      np.float64)
+
+
+def max_diffs(a, b):
+    """(largest relative difference of the losses and evaluations, of
+    any parameter or statistic) between two runs."""
+    x, y = run_numbers(a), run_numbers(b)
+    rel = float(np.max(np.abs(x - y) / np.maximum(np.abs(y), 1e-30)))
+    par = max(float((v.float() - b["params"][k].float()).abs().max())
+              for k, v in a["params"].items() if v.is_floating_point())
+    return rel, par
+
+
+def sync_reads(fn):
+    """(fn's result, where each blocking device read it made happened: the
+    innermost frames of the call, file:line), from
+    ``torch.cuda.set_sync_debug_mode``'s warnings.  The collector runs
+    first and is off meanwhile: freeing another object's CUDA graphs
+    (earlier runs' trainers are cyclic garbage) synchronizes the card
+    wherever a collection happens to fall."""
+    import gc
+    import traceback
+    import warnings
+    gc.collect()
+    torch.cuda.synchronize()
+    gc.disable()
+    reads, inside = [], [False]
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        # only while fn runs: toggling the mode is not fn's read
+        if inside[0] and "synchroniz" in str(message):
+            reads.append(" < ".join(
+                f"{os.path.basename(f.filename)}:{f.lineno}"
+                for f in traceback.extract_stack()[-5:-1][::-1]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            inside[0] = True
+            out = fn()
+        finally:
+            inside[0] = False
+            torch.cuda.set_sync_debug_mode("default")
+            gc.enable()
+    return out, reads
+
+
+def graphed_epochs_phase(card, root):
+    """Phase 43 (see module docstring)."""
+    for tag, make, splits, epochs, seed, bitwise in graphed_paths(root):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        g = epochs_run(lambda: make(True), splits, epochs, seed)
+        peak = torch.cuda.max_memory_allocated() - held
+        p = epochs_run(lambda: make(False), splits, epochs, seed)
+        again = epochs_run(lambda: make(True), splits, epochs, seed)
+        if not same_bits(g, again):
+            raise AssertionError(f"[graphed {tag}] two graphed runs differ: "
+                                 f"{max_diffs(g, again)}")
+        del again
+        equal = same_bits(g, p)
+        rel, par = max_diffs(g, p)
+        if not equal:
+            if bitwise:
+                raise AssertionError(f"[graphed {tag}] graphed and per-step "
+                                     f"runs differ: rel {rel}, params {par}")
+            max_err(torch.from_numpy(run_numbers(g)),
+                    torch.from_numpy(run_numbers(p)), FWD_RTOL, FWD_ATOL,
+                    f"[graphed {tag}] losses and evaluations")
+            grad_check([v for v in g["params"].values()
+                        if v.is_floating_point()],
+                       [v for v in p["params"].values()
+                        if v.is_floating_point()],
+                       f"[graphed {tag}] parameters")
+        log(f"[graphed {tag}] {epochs} epochs from seed {seed}: graphed and "
+            f"per-step bit for bit {equal} (largest relative difference of "
+            f"losses and evaluations {rel}, of parameters {par}); two "
+            f"graphed runs bit for bit; train losses {g['losses']}; "
+            f"evaluations {g['evals']}; {len(g['trainer']._graphs)} graphs "
+            f"held")
+        log(f"[graphed {tag}] capture_s by epoch "
+            f"{[st['capture_s'] for st in g['stats']]}; a replay's device "
+            f"time (median) by epoch "
+            f"{[st['step_median_s'] * 1e3 for st in g['stats']]} ms; the "
+            f"per-step epochs' median step (host) "
+            f"{[st['step_median_s'] * 1e3 for st in p['stats']]} ms; steps "
+            f"an epoch {g['stats'][0]['steps']}; peak memory of the graphed "
+            f"run {peak / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB "
+            f"held ({card})")
+        secs = {"graphed": [], "per-step": []}
+        for r in range(EPOCH_TURNS):
+            order = (("graphed", g), ("per-step", p))
+            for name, run in (order if r % 2 == 0 else order[::-1]):
+                run["state"], _ = run["trainer"].train_epoch(run["state"],
+                                                             splits[0])
+                secs[name].append(run["trainer"].epoch_stats["epoch_s"])
+        if g["trainer"].epoch_stats["capture_s"] != 0.0:
+            raise AssertionError(f"[graphed {tag}] a cached epoch captured")
+        log(f"[graphed {tag}] epoch seconds in turns ({EPOCH_TURNS} "
+            f"rounds): graphed {secs['graphed']}, per step "
+            f"{secs['per-step']}; a graphed epoch's replay device time "
+            f"{g['trainer'].epoch_stats['step_median_s'] * 1e3} ms a step "
+            f"({card})")
+        if tag != "zinc-cli":
+            continue
+        trainer, train = g["trainer"], splits[0]
+
+        def epoch():
+            g["state"], _ = trainer.train_epoch(g["state"], train)
+
+        _o, reads = sync_reads(epoch)
+        _o, eval_reads = sync_reads(lambda: trainer.evaluate(g["state"],
+                                                             splits[2]))
+        if len(reads) > 1 or len(eval_reads) > 1:
+            raise AssertionError(f"[graphed {tag}] blocking reads at "
+                                 f"{reads} in a one-run epoch, at "
+                                 f"{eval_reads} in a one-run split")
+        log(f"[graphed {tag}] under set_sync_debug_mode: a cached graphed "
+            f"epoch (one run) made {len(reads)} blocking device read(s) "
+            f"({reads}), an evaluation of the test split (one run) "
+            f"{len(eval_reads)} ({eval_reads})")
+        p["state"] = profile_epoch(p["trainer"], p["state"], train,
+                                   statistics.median(secs["per-step"]),
+                                   f"{tag} per-step")
+        g["state"] = profile_epoch(trainer, g["state"], train,
+                                   statistics.median(secs["graphed"]),
+                                   f"{tag} graphed")
+
+
 # phase 42: scaling_efficiency_bench's defaults and the reference test's
 # message
 EP_NODES, EP_DEGREE, EP_D = 8192, 8, 128
@@ -3646,7 +3879,7 @@ def gin_rows(timed, data, d, part, gen, floor):
     recv_l = k12.receivers(rp)
     if part == "node":
         adj = torch.sparse_csr_tensor(
-            rp, send, torch.ones(e_real, device=dev), size=(N, N))
+            rp, send[:e_real], torch.ones(e_real, device=dev), size=(N, N))
 
         def library():
             return torch.sparse.mm(adj, B)
@@ -4161,7 +4394,7 @@ def main():
         k3.segment_sum_sorted_plain(A, data.graph_ptr),
         FWD_RTOL, FWD_ATOL, "segment_sum_sorted[pool]"))
     zeros_nd = torch.zeros(N, D, device=dev)
-    send_l = send.long()
+    send_l = send[:e_real].long()
     t_b, by = bound(4 * (e_real * D + n_dst * D + n_dst + 1 + e_real),
                     e_real * D)
     rows["segment_sum_sorted"] = dict(
@@ -4275,6 +4508,7 @@ def main():
         rows.update(dgn_cli_phase(dev, card, timed, root))           # 40
         coordinator_cli_phase(card, root, cli_hist, rows)            # 41
         rows.update(edge_partition_phase(dev, card, timed))          # 42
+        graphed_epochs_phase(card, root)                             # 43
 
     # kernel_ms and bound_us repeat ms and bound_ms in the units the
     # port's kernel table uses

@@ -17,11 +17,18 @@ layout** that the CUDA kernels walk directly:
 - the real edges are stably sorted by receiver (the same order the
   reference's slab layout produces), padding edges after them;
 - ``recv_ptr [N+1]``: CSR offsets of each receiver's edges;
-- ``send_perm [E_real]`` / ``send_ptr [N+1]``: a stable sender-sorted
-  permutation of the real edges and its CSR offsets, so sender-side sums
-  are deterministic segment reductions with no float atomics;
+- ``send_perm [E]`` / ``send_ptr [N+1]``: a stable sender-sorted
+  permutation of the real edges, then the padding slots' own positions,
+  and the CSR offsets of the real edges, so sender-side sums are
+  deterministic segment reductions with no float atomics;
 - ``graph_ptr [G+1]``: node offsets of each graph (padding excluded);
-- ``in_degree [N]``: float32 receiver in-degree.
+- ``in_degree [N]``: float32 receiver in-degree;
+- ``num_real_edges``: the real edge count, a plain int for host code.
+
+Every array's shape depends only on the caps, never on the real counts:
+the kernels walk only the ranges ``recv_ptr``/``send_ptr`` give, and
+padding slots hold valid row ids (node slot 0, their own positions), so
+a batch's shapes are one signature per caps (``train/loop.py``).
 
 An edge-partitioned shard (``parallel/ep.py::make_ep_batch``, the
 counterpart of ``gsn_tpu/parallel/ep.py``) is a ``GraphBatch`` with
@@ -58,7 +65,7 @@ class GraphBatch:
     graph_mask: Any                 # [G]     bool
     degrees: Any                    # [N] or [N, Kd]
     recv_ptr: Any                   # [N+1]   int32
-    send_perm: Any                  # [E_real] int32
+    send_perm: Any                  # [E]     int32
     send_ptr: Any                   # [N+1]   int32
     graph_ptr: Any                  # [G+1]   int32
     in_degree: Any                  # [N]     float32
@@ -69,6 +76,7 @@ class GraphBatch:
     edge_eig: Any = None            # [E, Dv] float32, receiver-sorted
     flow: str = "source_to_target"  # which edge_index row is the receiver
     ep_axis: Optional[str] = None   # mesh axis of an edge-partitioned shard
+    num_real_edges: int = 0         # host count, never a shape
 
     @property
     def num_node_slots(self) -> int:
@@ -83,10 +91,6 @@ class GraphBatch:
         return self.y.shape[0]
 
     @property
-    def num_real_edges(self) -> int:
-        return int(self.send_perm.shape[0])
-
-    @property
     def select(self) -> int:
         """Row of ``edge_index`` holding the receiver (row 0 in an
         edge-partitioned shard, whatever the flow)."""
@@ -94,12 +98,34 @@ class GraphBatch:
             return 0
         return 0 if self.flow == "target_to_source" else 1
 
+    def check_senders(self) -> None:
+        """Raise unless every sender id (``edge_index`` row ``1 -
+        select``, padding slots included) is a row of the sender space
+        (``send_ptr``'s segments): the kernels gather B by these ids
+        without a bounds check.  A host (numpy) batch only."""
+        send = self.edge_index[1 - self.select]
+        n_send = self.send_ptr.shape[0] - 1
+        if send.size and (send.min() < 0 or send.max() >= n_send):
+            raise ValueError(f"sender ids span [{send.min()}, "
+                             f"{send.max()}], the sender space has "
+                             f"{n_send} rows")
+
     def to(self, device) -> "GraphBatch":
+        """The batch with every array a tensor on ``device`` (host
+        arrays' sender ids checked first).  To a CUDA device host arrays
+        go through pinned memory, copied without waiting."""
         import torch
+
+        if isinstance(self.edge_index, np.ndarray):
+            self.check_senders()
+        pin = torch.device(device).type == "cuda"
 
         def conv(v):
             if isinstance(v, np.ndarray):
-                return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                t = torch.from_numpy(np.ascontiguousarray(v))
+                if pin:
+                    return t.pin_memory().to(device, non_blocking=True)
+                return t.to(device)
             if isinstance(v, torch.Tensor):
                 return v.to(device)
             return v
@@ -121,10 +147,10 @@ def mask_off(data: GraphBatch) -> GraphBatch:
         edge_mask=np.zeros_like(data.edge_mask),
         graph_mask=np.zeros_like(data.graph_mask),
         recv_ptr=np.zeros_like(data.recv_ptr),
-        send_perm=data.send_perm[:0],
+        send_perm=np.arange(data.num_edge_slots, dtype=np.int32),
         send_ptr=np.zeros_like(data.send_ptr),
         graph_ptr=np.zeros_like(data.graph_ptr),
-        in_degree=np.zeros_like(data.in_degree))
+        in_degree=np.zeros_like(data.in_degree), num_real_edges=0)
 
 
 def _round_up(x: int, multiple: int) -> int:
@@ -134,6 +160,13 @@ def _round_up(x: int, multiple: int) -> int:
 def pad_cap(n: int, multiple: int = 64) -> int:
     """Bucket capacity: next multiple (bounds the variety of shapes)."""
     return max(_round_up(max(n, 1), multiple), multiple)
+
+
+def pad_perm(order: np.ndarray, slots: int) -> np.ndarray:
+    """int32 [slots]: the permutation ``order`` of the real edges, then
+    the padding slots' own positions (valid row ids no segment reaches)."""
+    return np.concatenate([order, np.arange(len(order), slots)]).astype(
+        np.int32)
 
 
 def _csr(keys: np.ndarray, num_segments: int) -> np.ndarray:
@@ -260,7 +293,7 @@ def batch_graphs(
         edge_eig = edge_eig[perm]
     recv = edge_index[select, :e_tot]
     send = edge_index[1 - select, :e_tot]
-    send_perm = np.argsort(send, kind="stable").astype(np.int32)
+    send_perm = pad_perm(np.argsort(send, kind="stable"), edge_cap)
 
     return GraphBatch(
         x=x, edge_index=edge_index, batch=batch_vec, y=y,
@@ -272,4 +305,5 @@ def batch_graphs(
         graph_ptr=_csr(batch_vec[:n_tot], graph_cap),
         in_degree=np.bincount(recv, minlength=node_cap).astype(np.float32),
         identifiers=identifiers, edge_features=edge_features,
-        node_eig=node_eig, edge_eig=edge_eig, flow=flow)
+        node_eig=node_eig, edge_eig=edge_eig, flow=flow,
+        num_real_edges=e_tot)

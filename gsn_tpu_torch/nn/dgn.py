@@ -2,7 +2,11 @@
 ``gsn_tpu/nn/dgn.py``, reference ``directional_gsn/nets/*``).
 
 Every aggregator is a segment op over the batch's real edges in
-receiver-sorted order.  Aggregator math (``aggregators.py:8-71``), with
+receiver-sorted order.  The per-edge arrays (senders, receivers, the
+vector field, the weight columns W) run over the batch's edge slots,
+padding under ``edge_mask`` (W is zero there), so their shapes are the
+caps' whatever the real edge count, as a captured CUDA graph needs.
+Aggregator math (``aggregators.py:8-71``), with
 vf the per-edge vector field and N(v) the in-neighbourhood:
 
 - mean/sum/max/min/var/std: segment reductions;
@@ -181,10 +185,12 @@ def node_sums(cols: List[torch.Tensor], seg: EdgeSegments) -> torch.Tensor:
 
 
 class AggContext(NamedTuple):
-    """Layer-invariant aggregation context of one batch."""
+    """Layer-invariant aggregation context of one batch, over its edge
+    slots."""
     seg: EdgeSegments
-    src: torch.Tensor            # [E] int64 senders of the real edges
-    dst: torch.Tensor            # [E] int64 receivers
+    src: torch.Tensor            # [E] int64 senders (padding: slot 0)
+    dst: torch.Tensor            # [E] int64 receivers (padding: slot 0)
+    em: torch.Tensor             # [E] bool, the real edges
     vf: Optional[torch.Tensor]   # [E, Dv] vector field
     deg: torch.Tensor            # [N] in-degree
     kernel_idx: List[int]        # aggregators computed as weighted sums
@@ -201,18 +207,19 @@ def build_agg_ctx(aggregators: Sequence[str], data: GraphBatch,
     node-sum denominators (degree, Σ|vf_i|, Σvf_i, ...) come from ONE
     K3 pass (``node_sums``)."""
     seg = edge_segments(data)
-    e = data.num_real_edges
+    em = data.edge_mask
     src = seg.send.long()
-    dst = data.edge_index[data.select, :e].long()
+    dst = data.edge_index[data.select].long()
     vf_parts = []
     if data.node_eig is not None:
         vf_parts.append(data.node_eig[src] - data.node_eig[dst])
     if data.edge_eig is not None:
-        vf_parts.append(data.edge_eig[:e])
+        vf_parts.append(data.edge_eig)
     vf = torch.cat(vf_parts, dim=1) if vf_parts else None
 
-    # ---- phase 1: every scalar column that needs a node sum
-    ones = torch.ones(e, dtype=torch.float32, device=src.device)
+    # ---- phase 1: every scalar column that needs a node sum (K3 sums
+    # the real edges' rows only)
+    ones = torch.ones(src.shape[0], dtype=torch.float32, device=src.device)
     cols = [ones]                     # degree
     plans = []                        # (kind, eig_idx, col slots)
 
@@ -269,12 +276,13 @@ def build_agg_ctx(aggregators: Sequence[str], data: GraphBatch,
                  + torch.relu(-col) / (sums_e[:, slots[1]] + EPS)) / 2.0
             post = _dx_post((df / (df + EPS) + db / (db + EPS)) / 2.0, True)
         else:
-            w = softmax_weight(a, vf, dst, n, recv_ptr=seg.recv_ptr)
+            w = softmax_weight(a, vf, dst, n, em, seg.recv_ptr)
         kernel_idx.append(i)
         kernel_w.append(w)
         posts.append(post)
-    W = torch.stack(kernel_w, dim=1).contiguous() if kernel_idx else None
-    return AggContext(seg, src, dst, vf, deg, kernel_idx, W, posts)
+    W = (_masked(torch.stack(kernel_w, dim=1), em[:, None]).contiguous()
+         if kernel_idx else None)
+    return AggContext(seg, src, dst, em, vf, deg, kernel_idx, W, posts)
 
 
 def _identity_post(agg, h_in):
@@ -379,7 +387,7 @@ class DGNLayerSimple(nn.Module):
                     # most of all) must not accumulate in bf16
                     h_src = h.float()[ctx.src]
                 parts[i] = dgn_aggregate(a, h_src, ctx.vf, h_in, ctx.dst, n,
-                                         recv_ptr=ctx.seg.recv_ptr)
+                                         ctx.em, ctx.seg.recv_ptr)
         agg = torch.cat(parts, dim=1)   # f32 parts in either dtype
         if len(self.scalers) > 1:
             agg = torch.cat([dgn_scale(s, agg, ctx.deg, self.avg_d)

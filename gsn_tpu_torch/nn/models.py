@@ -125,8 +125,11 @@ def compute_dtype_of(cfg) -> Optional[torch.dtype]:
 
 
 def edge_segments(data: GraphBatch) -> EdgeSegments:
-    """The kernels' view of a batch's real edges."""
-    send = data.edge_index[1 - data.select, :data.num_real_edges]
+    """The kernels' view of a batch's real edges: the sender of every
+    edge slot (padding slots' point at node slot 0, outside every
+    segment), so its shape is the batch's caps', whatever its real edge
+    count."""
+    send = data.edge_index[1 - data.select]
     return EdgeSegments(data.recv_ptr, send.contiguous(), data.send_ptr,
                         data.send_perm)
 

@@ -10,7 +10,10 @@ cold start pays for the slowest file, not the sum.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a nonzero code into an exception.  ``on_cuda`` and
 ``require`` are the wrappers' shared dispatch and argument checks, and
-``counted``/``count`` their launch counts.  K1–K4 take f32 or bf16 data
+``counted``/``count`` their launch counts; ``snapshot``, ``since``,
+``restore`` and ``add`` let a CUDA graph's capture record the launches
+it holds and each replay add them (``train/graphs.py``).  K1–K4 take
+f32 or bf16 data
 (one dtype for all of a call's data operands); K5/K6 take f32 or bf16
 rows with f32 weights, maxima and counts.
 ``build_other`` and ``use`` build another source tree's kernel beside
@@ -249,6 +252,10 @@ def require(what, device, *tensors, dtype=None) -> None:
                            if len(accepted) > 1 else ""))
 
 
+# every counted wrapper, in the order of definition
+COUNTED: List = []
+
+
 def counted(fn):
     """Give a kernel wrapper its launch counts: ``launches`` in all,
     ``modes``, launches by mode (the data dtypes, e.g. ``"bf16"`` or
@@ -257,6 +264,7 @@ def counted(fn):
     launches by (mode, row width) where the wrapper gives the width
     (K1, K2)."""
     reset(fn)
+    COUNTED.append(fn)
     return fn
 
 
@@ -277,6 +285,49 @@ def count(fn, mode: str, form: str = "", width: int = 0) -> None:
     if width:
         key = (mode, width)
         fn.widths[key] = fn.widths.get(key, 0) + 1
+
+
+_KEYS = ("modes", "forms", "widths")
+
+
+def snapshot() -> Dict:
+    """Every counted wrapper's counts, for ``since`` and ``restore``."""
+    return {fn: (fn.launches, *(dict(getattr(fn, k)) for k in _KEYS))
+            for fn in COUNTED}
+
+
+def since(snap: Dict) -> Dict:
+    """The launches each wrapper of ``snap`` counted after it, by key:
+    what a CUDA graph's capture recorded (wrappers with none left out)."""
+    out = {}
+    for fn, (n, *maps) in snap.items():
+        delta = [fn.launches - n]
+        for key, old in zip(_KEYS, maps):
+            new = getattr(fn, key)
+            delta.append({k: c - old.get(k, 0) for k, c in new.items()
+                          if c != old.get(k, 0)})
+        if delta[0] or any(delta[1:]):
+            out[fn] = tuple(delta)
+    return out
+
+
+def restore(snap: Dict) -> None:
+    """Put back the counts of ``snap`` (a capture launched nothing)."""
+    for fn, (n, *maps) in snap.items():
+        fn.launches = n
+        for key, old in zip(_KEYS, maps):
+            setattr(fn, key, dict(old))
+
+
+def add(deltas: Dict, times: int = 1) -> None:
+    """Count ``times`` runs of the launches ``deltas`` (from ``since``):
+    each replay of a captured graph launches what its capture held."""
+    for fn, (n, *maps) in deltas.items():
+        fn.launches += n * times
+        for key, delta in zip(_KEYS, maps):
+            counts = getattr(fn, key)
+            for k, c in delta.items():
+                counts[k] = counts.get(k, 0) + c * times
 
 
 def ptr(t) -> int:

@@ -6,8 +6,9 @@
 Each op picks the kernel's instantiation by two flags: ``weighted``
 (the K weighted sums ``Σ_e W[e,k]·B[send e]``) and ``minmax`` (the
 per-column ``[max, −min]`` of ``B[send e]`` with its tie counts).  The
-edges are the batch's real edges in receiver-sorted order; W has one
-row per real edge.
+edges are the batch's real edges in receiver-sorted order; ``send`` and
+W have one row per edge slot (or per real edge), and the kernels read
+the real ones, the ranges ``recv_ptr`` gives.
 
 The rows B are f32 or bf16 (the reference's ``data_dtype="bfloat16"``);
 the weighted cotangent g_w and the per-edge dh have B's dtype, and W,
@@ -82,8 +83,10 @@ def launch_bwd(what: str, B: torch.Tensor, W: Optional[torch.Tensor],
                need_dw: bool = False
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K6 on the card: (dh [E, d] in B's dtype, dW [E, K] f32 or None)
-    for the E real edges; the weighted part runs when W is given (g_w in
-    B's dtype), the minmax part when ``mm`` is."""
+    over ``send``'s E rows, zero past the real edges (both are zeroed
+    first: which rows are padding is known only on the device); the
+    weighted part runs when W is given (g_w in B's dtype), the minmax
+    part when ``mm`` is."""
     weighted, minmax = W is not None, mm is not None
     _check(what, B, W, recv_ptr, send, weighted)
     build.require(what, B.device, B, g_w, dtype=DATA_DTYPES)
@@ -98,11 +101,11 @@ def launch_bwd(what: str, B: torch.Tensor, W: Optional[torch.Tensor],
     if weighted and g_w is None or minmax and (cnt is None or g_mm is None):
         raise ValueError(f"{what}: missing cotangent or tie counts")
     e = send.numel()
-    dh = torch.empty(e, d, dtype=B.dtype, device=B.device)
-    dW = (torch.empty(e, K, dtype=torch.float32, device=B.device)
+    dh = torch.zeros(e, d, dtype=B.dtype, device=B.device)
+    dW = (torch.zeros(e, K, dtype=torch.float32, device=B.device)
           if need_dw else None)
     if n == 0 or d == 0 or e == 0:
-        return dh.zero_(), dW.zero_() if need_dw else None
+        return dh, dW
     rc = getattr(build.lib("dgn_aggregate"),
                  "gsn_dgn_aggregate_bwd" + _suffix(B.dtype))(
         build.ptr(B), build.ptr(W), build.ptr(g_w), build.ptr(mm),

@@ -49,8 +49,9 @@ def segment_sum_form(n_seg: int, n_rows: int) -> str:
     ``"warp"``: many segments fill the card with warps, and short ones
     give a block's warps nothing to share.  zinc-cli's pool (128 graphs
     over 5,504 node slots) takes the block form; its message sums (5,504
-    receivers over 13,184 edge slots) and dB (5,504 senders over 7,360
-    edges) the warp form."""
+    receivers over 13,184 edge slots) and dB (5,504 senders over the
+    13,184 slots of ``send_perm``, 7,360 of them real edges) the warp
+    form."""
     for name, n in (("n_seg", n_seg), ("n_rows", n_rows)):
         if isinstance(n, bool) or not isinstance(n, int) or n < 0:
             raise ValueError(f"segment_sum_form: {name} must be an int >= "

@@ -11,8 +11,14 @@ with ``act`` relu or identity.  Its gradient: ``dH = act'(H)·g[recv]``,
 over the host-built sender-sorted permutation, deterministic),
 ``dPe = dH`` and ``db1 = Σ_e dH`` (each only where its input needs a
 gradient).  Edges are the batch's real edges in
-receiver-sorted order (``GraphBatch.recv_ptr``); Pe and dH keep the
-batch's edge-slot rows, padding slots last (dH is zero there).
+receiver-sorted order (``GraphBatch.recv_ptr``); ``send``, Pe and dH
+keep the batch's edge-slot rows, padding slots last (dH is zero there),
+and the kernels read only the real ones, the ranges ``recv_ptr`` gives:
+no shape depends on the real edge count, so a captured CUDA graph
+replays any batch of the same caps.  The sender ids are checked on the
+host batch (``GraphBatch.check_senders``); the plain versions check
+them again, the wrappers on the card check shapes, dtypes and devices
+and never read the device.
 
 The data (A, B, Pe, g and every output but db1) is f32 or bf16, one
 dtype for all of it; b1 and db1 are f32.  In bf16 (the reference's
@@ -45,15 +51,18 @@ ACT_CODES = {"identity": 0, "relu": 1, "id_sq": 2}
 
 
 class EdgeSegments(NamedTuple):
-    """Receiver- and sender-side CSR views of a batch's real edges."""
+    """Receiver- and sender-side CSR views of a batch's real edges, over
+    its edge slots (padding last, outside every segment)."""
     recv_ptr: torch.Tensor    # [N+1] int32
-    send: torch.Tensor        # [E_real] int32, receiver-sorted order
+    send: torch.Tensor        # [E] int32, receiver-sorted order
     send_ptr: torch.Tensor    # [N_send+1] int32
-    send_perm: torch.Tensor   # [E_real] int32 positions, sender-sorted
+    send_perm: torch.Tensor   # [E] int32 positions, sender-sorted
 
 
 def receivers(recv_ptr: torch.Tensor) -> torch.Tensor:
-    """[E] int64 receiver of each edge from the CSR offsets ``recv_ptr``."""
+    """[E_real] int64 receiver of each real edge from the CSR offsets
+    ``recv_ptr`` (its length is read from them: the plain versions'
+    helper, never on a captured path)."""
     n = recv_ptr.numel() - 1
     return torch.repeat_interleave(
         torch.arange(n, device=recv_ptr.device), recv_ptr.diff())
@@ -61,39 +70,35 @@ def receivers(recv_ptr: torch.Tensor) -> torch.Tensor:
 
 def _pre_activation(A, B, Pe, b1, recv, send):
     # in f32, in the reference kernel's order: B[send] + A[recv] + Pe + b1
-    h = B[send].float()
+    e = recv.numel()
+    h = B[send[:e]].float()
     if A is not None:
         h = h + A[recv].float()
     if Pe is not None:
-        h = h + Pe[:send.numel()].float()
+        h = h + Pe[:e].float()
     return h + b1
 
 
-def _sender_range(send: torch.Tensor):
-    """(smallest, largest) sender id of ``send``, or None when it is
-    empty.  Read back once per tensor and kept on it, so a batch's
-    segments pay one device read however many kernels they feed (the
-    port never writes into a ``send`` tensor)."""
-    cached = getattr(send, "_gsn_sender_range", None)
-    if cached is None:
-        cached = (tuple(int(v) for v in torch.aminmax(send))
-                  if send.numel() else ())
-        send._gsn_sender_range = cached
-    return cached or None
-
-
-def check_senders(what: str, B: torch.Tensor, send: torch.Tensor,
-                  send_ptr: Optional[torch.Tensor] = None) -> None:
-    """Raise unless every id of ``send`` is a row of B and, when given,
-    ``send_ptr`` holds B.shape[0] + 1 offsets."""
+def check_send_ptr(what: str, B: torch.Tensor,
+                   send_ptr: Optional[torch.Tensor]) -> None:
+    """Raise unless ``send_ptr`` (when given) holds B.shape[0] + 1
+    offsets: a shape check, safe under CUDA graph capture."""
     n_send = B.shape[0]
     if send_ptr is not None and send_ptr.numel() - 1 != n_send:
         raise ValueError(f"{what}: send_ptr has {send_ptr.numel() - 1} "
                          f"segments, B has {n_send} rows")
-    rng = _sender_range(send)
-    if rng is not None and (rng[0] < 0 or rng[1] >= n_send):
-        raise ValueError(f"{what}: sender ids span [{rng[0]}, {rng[1]}], "
-                         f"B has {n_send} rows")
+
+
+def check_senders(what: str, B: torch.Tensor, send: torch.Tensor,
+                  send_ptr: Optional[torch.Tensor] = None) -> None:
+    """``check_send_ptr``, and raise unless every id of ``send`` is a row
+    of B: the plain versions' check (it reads the ids)."""
+    check_send_ptr(what, B, send_ptr)
+    if send.numel():
+        lo, hi = (int(v) for v in torch.aminmax(send))
+        if lo < 0 or hi >= B.shape[0]:
+            raise ValueError(f"{what}: sender ids span [{lo}, {hi}], "
+                             f"B has {B.shape[0]} rows")
 
 
 def _check_act(act: str) -> None:
@@ -146,7 +151,7 @@ def edge_message_bwd_recv_plain(A, B, Pe, b1, g, recv_ptr, send,
             dh = dh[:, :d] + 2.0 * h * dh[:, d:]
     slots = send.numel() if num_edge_slots is None else num_edge_slots
     dH = torch.zeros(slots, d, dtype=dh.dtype, device=g.device)
-    dH[:send.numel()] = dh
+    dH[:dh.shape[0]] = dh
     dA = None
     if A is not None:
         dA = torch.zeros(A.shape, dtype=torch.float32,
@@ -174,7 +179,6 @@ def _check_cuda(what, A, B, Pe, b1, g, recv_ptr, send, act):
         raise ValueError(f"{what}: b1 has shape {tuple(b1.shape)}")
     if Pe is not None and Pe.shape[0] < send.numel():
         raise ValueError(f"{what}: Pe has fewer rows than edges")
-    check_senders(what, B, send)
 
 
 def _suffix(dtype) -> str:
@@ -223,18 +227,18 @@ def edge_message_bwd_recv(A, B, Pe, b1, g, recv_ptr, send, act="relu",
     """K2: (dH [num_edge_slots, d], dA [N, d] or None when A is None).
     dH is in the data dtype and g must have it on the card, or with
     ``act="id_sq"`` g is the f32 [N, 2d] cotangent of the moments and dH
-    is f32; dA is in the data dtype.  ``num_edge_slots`` defaults to the
-    real edge count; slots past the real edges get zero rows."""
+    is f32; dA is in the data dtype.  ``num_edge_slots`` defaults to
+    ``send``'s length; rows past the real edges are zero (the card zeroes
+    all of dH first: which rows are padding is known only on the
+    device)."""
     if not build.on_cuda(g):
         return edge_message_bwd_recv_plain(A, B, Pe, b1, g, recv_ptr,
                                            send, act, num_edge_slots)
     _check_cuda("edge_message_bwd_recv", A, B, Pe, b1, g, recv_ptr, send,
                 act)
     n_rows, d = recv_ptr.numel() - 1, B.shape[1]
-    e_real = send.numel()
-    slots = e_real if num_edge_slots is None else num_edge_slots
-    dH = torch.empty(slots, d, dtype=g.dtype, device=g.device)
-    dH[e_real:].zero_()
+    slots = send.numel() if num_edge_slots is None else num_edge_slots
+    dH = torch.zeros(slots, d, dtype=g.dtype, device=g.device)
     dA = (torch.empty(n_rows, d, dtype=B.dtype, device=g.device)
           if A is not None else None)
     if n_rows == 0 or d == 0:
@@ -261,7 +265,7 @@ class EdgeMessageAggregate(torch.autograd.Function):
         A = A.contiguous() if A is not None else None
         B = B.contiguous()
         Pe = Pe.contiguous() if Pe is not None else None
-        check_senders("edge_message_aggregate", B, seg.send, seg.send_ptr)
+        check_send_ptr("edge_message_aggregate", B, seg.send_ptr)
         ctx.save_for_backward(A, B, Pe, b1)
         ctx.seg, ctx.act = seg, act
         return edge_message_fwd(A, B, Pe, b1, seg.recv_ptr, seg.send, act)

@@ -42,7 +42,7 @@ def segment_minmax_fwd_plain(B: torch.Tensor, recv_ptr: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the minmax forward: (mm, cnt)."""
     recv = receivers(recv_ptr)
-    h = B[send].float()
+    h = B[send[:recv.numel()]].float()
     hc = torch.cat([h, -h], dim=1)
     n = recv_ptr.numel() - 1
     idx = recv[:, None].expand_as(hc)
@@ -58,14 +58,17 @@ def segment_minmax_fwd_plain(B: torch.Tensor, recv_ptr: torch.Tensor,
 
 def minmax_dh_f32(B, mm, cnt, g_mm, recv_ptr, send) -> torch.Tensor:
     """Plain per-edge cotangent [E, d] of the minmax output in f32: the
-    even tie split, written out (not the backward of ``scatter_reduce``)."""
+    even tie split, written out (not the backward of ``scatter_reduce``);
+    zero rows past the real edges."""
     recv = receivers(recv_ptr)
-    h = B[send].float()
+    h = B[send[:recv.numel()]].float()
     hc = torch.cat([h, -h], dim=1)
     gp = g_mm / torch.clamp(cnt, min=1.0)
     dhc = torch.where(hc == mm[recv], gp[recv], torch.zeros_like(hc))
     d = h.shape[1]
-    return dhc[:, :d] - dhc[:, d:]
+    dh = h.new_zeros(send.numel(), d)
+    dh[:recv.numel()] = dhc[:, :d] - dhc[:, d:]
+    return dh
 
 
 def minmax_dh_plain(B, mm, cnt, g_mm, recv_ptr, send) -> torch.Tensor:

@@ -15,7 +15,9 @@ Counterpart of ``gsn_tpu/ops/pallas/slab_weighted.py``:
 
 The TPU kernel computed the weighted sums as bf16 one-hot products split
 three ways (about 2^-16 relative); the kernel here sums in exact f32.
-W has one row per real edge, in the batch's receiver-sorted order.
+W has one row per edge slot, in the batch's receiver-sorted order; the
+kernels read only the real edges' rows (``recv_ptr``'s ranges), and dh
+and dW are zero past them.
 
 B is f32 or bf16 (``ops/cuda/dgn_aggregate.py``); W, the outputs and dW
 are f32.  In bf16 the rounding points are the reference's
@@ -38,12 +40,20 @@ from .slab_message import EdgeSegments, receivers
 from .slab_minmax import minmax_dh_f32, segment_minmax_fwd_plain
 
 
+def pad_edges(x: torch.Tensor, slots: int) -> torch.Tensor:
+    """``x`` [E_real, ...] with zero rows appended up to ``slots``."""
+    out = x.new_zeros((slots,) + tuple(x.shape[1:]))
+    out[:x.shape[0]] = x
+    return out
+
+
 def weighted_gather_fwd_plain(B, W, recv_ptr, send) -> torch.Tensor:
     """Plain PyTorch version of the weighted forward: [N, K·d] f32 (W
     rounded to B's dtype)."""
     recv = receivers(recv_ptr)
-    h = B[send].float()
-    w = W.to(B.dtype).float()
+    e = recv.numel()
+    h = B[send[:e]].float()
+    w = W[:e].to(B.dtype).float()
     n, K, d = recv_ptr.numel() - 1, W.shape[1], B.shape[1]
     out = torch.zeros(n, K, d, dtype=torch.float32, device=B.device)
     out.index_add_(0, recv, w[:, :, None] * h[:, None, :])
@@ -52,12 +62,14 @@ def weighted_gather_fwd_plain(B, W, recv_ptr, send) -> torch.Tensor:
 
 def _weighted_dh_dw(B, W, g_w, recv_ptr, send, need_dw):
     """(f32 dh [E, d] before its rounding, dW [E, K] or None) from g_w
-    rounded to B's dtype."""
+    rounded to B's dtype; zero rows past the real edges."""
     recv = receivers(recv_ptr)
+    e, slots = recv.numel(), send.numel()
     K, d = W.shape[1], B.shape[1]
     g_e = g_w.to(B.dtype).float().reshape(-1, K, d)[recv]
-    dh = (W[:, :, None] * g_e).sum(1)
-    dW = (B[send].float()[:, None, :] * g_e).sum(2) if need_dw else None
+    dh = pad_edges((W[:e, :, None] * g_e).sum(1), slots)
+    dW = (pad_edges((B[send[:e]].float()[:, None, :] * g_e).sum(2), slots)
+          if need_dw else None)
     return dh, dW
 
 

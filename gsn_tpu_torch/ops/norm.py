@@ -50,13 +50,15 @@ class MaskedBatchNorm(nn.Module):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
+            # the row count is made on the device (no host-to-device
+            # copy inside a captured step)
             if moments is not None:
                 n, sum_x, sum_x2 = moments
-                n = torch.as_tensor(n, dtype=torch.float32,
-                                    device=sum_x.device)
+                n = (n.to(torch.float32) if torch.is_tensor(n)
+                     else sum_x.new_full((), float(n), dtype=torch.float32))
             elif mask is None:
                 xf = x.float()
-                n = torch.tensor(float(x.shape[0]), device=x.device)
+                n = xf.new_full((), float(x.shape[0]))
                 sum_x = xf.sum(0)
                 sum_x2 = xf.square().sum(0)
             else:

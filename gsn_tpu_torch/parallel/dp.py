@@ -28,7 +28,7 @@ from gsn_tpu_torch.graphs.container import GraphBatch, batch_graphs, \
 from gsn_tpu_torch.nn.models import build_model
 from gsn_tpu_torch.train.loop import TrainState, full_f32_matmuls
 from gsn_tpu_torch.train.metrics import LOSSES
-from gsn_tpu_torch.train.optim import make_optimizer
+from gsn_tpu_torch.train.optim import make_optimizer, set_lr
 from .collectives import (all_reduce, all_reduce_grads, axis_size,
                           broadcast_module)
 from .mesh import Mesh
@@ -120,7 +120,8 @@ class MeshTrainer:
                             torch.Generator().manual_seed(seed))
         model = model.to(self.mesh.device)
         broadcast_module(model, self.axis)
-        opt = make_optimizer(model.parameters(), self.lr, self.weight_decay)
+        opt = make_optimizer(model.parameters(), self.lr, self.weight_decay,
+                             self.mesh.device)
         drop, node = self.generators(seed + 1)
         return TrainState(model=model, optimizer=opt, dropout_gen=drop,
                           node_gen=node)
@@ -147,8 +148,7 @@ class MeshTrainer:
     def train_step(self, state: TrainState, shard: GraphBatch,
                    lr: Optional[float] = None):
         """One Adam step on this rank's shard; (state, global loss)."""
-        for group in state.optimizer.param_groups:
-            group["lr"] = self.lr if lr is None else lr
+        set_lr(state.optimizer, self.lr if lr is None else lr)
         loss = self._loss_and_backward(state, shard)
         state.optimizer.step()
         return state, loss

@@ -29,7 +29,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gsn_tpu_torch.graphs.container import GraphBatch, _csr, pad_cap
+from gsn_tpu_torch.graphs.container import (GraphBatch, _csr, pad_cap,
+                                            pad_perm)
 from .dp import MeshTrainer, rank_generator
 
 
@@ -45,8 +46,10 @@ def make_ep_batch(data: GraphBatch, num_devices: int, axis: str = "ep",
     with ``edge_index`` rows (local receiver, global sender), padded to
     ``pad_cap`` of the larger of its edge count and its share of the
     batch's edge slots; ``recv_ptr``/``in_degree``
-    over the block; ``send_ptr`` [N+1] and ``send_perm`` over the global
-    senders; ``graph_ptr`` clipped to the block; the batch's graph-level
+    over the block; ``send_ptr`` [N+1] over the global senders and
+    ``send_perm`` [slots] (its real edges', then the padding's own
+    positions, as ``graphs/container.py`` pads it); ``graph_ptr``
+    clipped to the block; the batch's graph-level
     arrays.  ``ids_on_edges`` says whether the identifiers are
     edge-level where their row count is the node cap and the edge cap
     alike.  Raises when the node cap is not a multiple of
@@ -101,7 +104,7 @@ def make_ep_batch(data: GraphBatch, num_devices: int, axis: str = "ep",
             graph_mask=data.graph_mask.copy(),
             degrees=nodes(data.degrees),
             recv_ptr=_csr(recv, block),
-            send_perm=np.argsort(send, kind="stable").astype(np.int32),
+            send_perm=pad_perm(np.argsort(send, kind="stable"), slots),
             send_ptr=_csr(send, N),
             graph_ptr=(np.clip(data.graph_ptr, lo, hi) - lo).astype(
                 np.int32),
@@ -110,7 +113,7 @@ def make_ep_batch(data: GraphBatch, num_devices: int, axis: str = "ep",
                          else nodes(data.identifiers)),
             edge_features=edges(data.edge_features),
             node_eig=nodes(data.node_eig), edge_eig=edges(data.edge_eig),
-            ep_axis=axis)
+            ep_axis=axis, num_real_edges=n_e)
 
     if rank is not None:
         return shard(rank)

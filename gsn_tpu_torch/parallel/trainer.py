@@ -29,6 +29,12 @@ reference's multi-process feeding adds.  The kernels stay on (the
 reference turns its kernel layout off there,
 ``gsn_tpu/parallel/trainer.py:97-103``, because its processes cannot
 agree on slab metadata; the port has none).
+
+Every step is its own call (``scan_epochs`` is set False, as the
+reference sets it for its process-spanning trainers,
+``gsn_tpu/parallel/trainer.py:82-86``): each rank is a process of its
+own, and the one-dispatch epochs of ``train/loop.py`` (CUDA graphs of
+the step) would have to capture the collectives too.
 """
 
 from __future__ import annotations
@@ -52,7 +58,8 @@ from .mesh import Mesh, make_mesh
 class ParallelTrainer(Trainer):
     """``Trainer`` whose steps run data-parallel (``mode="dp"``) or
     edge-partitioned (``mode="ep"``) over ``mesh`` (by default this
-    process group's, its axis named ``mode``)."""
+    process group's, its axis named ``mode``), each its own call
+    (``tcfg.scan_epochs`` is set False)."""
 
     def __init__(self, model_cfg, tcfg: TrainerConfig,
                  graphs_train: List[Dict], mesh: Optional[Mesh] = None,
@@ -61,6 +68,8 @@ class ParallelTrainer(Trainer):
         if mode not in ("dp", "ep"):
             raise ValueError(f"parallel mode {mode!r} (want 'dp'|'ep')")
         del distributed   # a process is one rank (module docstring)
+        # per-step calls: no graphs of the collectives (module docstring)
+        tcfg = dataclasses.replace(tcfg, scan_epochs=False)
         self.mode = mode
         self.mesh = mesh or make_mesh(axis_names=(mode,))
         if self.mesh.axis != mode:

@@ -5,7 +5,7 @@ All take a graph mask so padded graph slots contribute nothing: losses
 are means over real graphs (training), prediction fns are sums (eval
 accumulation), as in the reference (``utils.py:163-192``).  The OGB
 evaluator metrics (ROC-AUC, AP) run on the host over a split's
-concatenated predictions.
+concatenated predictions, and so do binary F1 and MAE on host arrays.
 """
 
 from __future__ import annotations
@@ -144,3 +144,22 @@ def average_precision_score(y_true: np.ndarray, y_score: np.ndarray) -> float:
     if not aps:
         raise ValueError("no task with both positive and negative labels")
     return float(np.mean(aps))
+
+
+def binary_f1_score(y_true: np.ndarray, y_pred: np.ndarray) -> float:
+    """Binary F1 over hard predictions (0 when there is no positive in
+    either; reference directional_gsn/train/metrics.py keeps per-class F1
+    among its benchmark metrics)."""
+    y_true = np.asarray(y_true).ravel()
+    y_pred = np.asarray(y_pred).ravel()
+    tp = float(((y_pred == 1) & (y_true == 1)).sum())
+    fp = float(((y_pred == 1) & (y_true == 0)).sum())
+    fn = float(((y_pred == 0) & (y_true == 1)).sum())
+    denom = 2 * tp + fp + fn
+    return 2 * tp / denom if denom else 0.0
+
+
+def mean_absolute_error(y_true: np.ndarray, y_pred: np.ndarray) -> float:
+    """MAE (reference directional_gsn/train/metrics.py MAE)."""
+    return float(np.mean(np.abs(np.asarray(y_true).ravel()
+                                - np.asarray(y_pred).ravel())))

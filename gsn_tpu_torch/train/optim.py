@@ -9,8 +9,15 @@ Reference ``train_test_funcs.py:18-35`` semantics:
 - ReduceLROnPlateau (min mode) multiplies lr by ``decay_rate`` after
   ``patience`` non-improving evals.
 
-The trainer sets each step's learning rate from the scheduler, so the
-scheduler objects are plain Python state.
+The trainer sets the learning rate from the scheduler (``set_lr``), so
+the scheduler objects are plain Python state.  On the card Adam is built
+``capturable`` with its rate a 0-dim device tensor, which ``set_lr``
+fills: a captured CUDA graph of the step reads the rate from that
+tensor on every replay (as the reference hands its scanned epochs the
+rate as an array, ``gsn_tpu/train/loop.py::_with_lr``), and the
+per-step path runs the same Adam, so both do the same arithmetic.  The
+CPU keeps a float rate and ``capturable=False``, which PyTorch requires
+there.
 """
 
 from __future__ import annotations
@@ -22,10 +29,35 @@ import torch
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
-                   weight_decay: float = 0.0) -> torch.optim.Adam:
-    """torch.optim.Adam(lr, weight_decay): L2-regularized Adam."""
+                   weight_decay: float = 0.0,
+                   device=None) -> torch.optim.Adam:
+    """torch.optim.Adam(lr, weight_decay): L2-regularized Adam; on a
+    CUDA ``device`` capturable, its rate a device tensor."""
+    device = torch.device(device or "cpu")
+    if device.type == "cuda":
+        return torch.optim.Adam(
+            params, lr=torch.tensor(lr, dtype=torch.float32, device=device),
+            betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay,
+            capturable=True)
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=weight_decay)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every param group's rate to ``lr``: filled into a capturable
+    optimizer's device tensor (made anew when a loaded state dict left a
+    float or another device's tensor there, and ``capturable`` set
+    again), else stored as the float."""
+    for group in optimizer.param_groups:
+        dev = group["params"][0].device
+        if dev.type != "cuda":
+            group["lr"] = lr
+            continue
+        rate = group["lr"]
+        if not (torch.is_tensor(rate) and rate.device == dev):
+            group["lr"] = torch.empty((), dtype=torch.float32, device=dev)
+            group["capturable"] = True
+        group["lr"].fill_(lr)
 
 
 @dataclasses.dataclass

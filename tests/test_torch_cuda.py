@@ -44,6 +44,12 @@ bits on every call.
 The edge-partitioned propagates (``parallel/edge_partition.py``) run
 over an NCCL group of one against their plain CPU version at the f32
 tolerances, one K3 and one K4 launch each.
+
+The one-dispatch epochs (``TrainerConfig.scan_epochs``): a small zinc
+model's graphed train and eval steps against its per-step ones bit for
+bit (losses, evaluations, parameters, BN statistics, launches), a
+Plateau rate change reaching the replayed Adam, and a step that reads
+the device from the host raising at its capture.
 """
 
 import numpy as np
@@ -909,14 +915,15 @@ def test_edge_message_split_sender_space(dev, dtype, act):
         n = shard.num_real_edges
         rows = slice(r * block, (r + 1) * block)
         a, pe, gr = A[rows], Pe[e0:e0 + n], g[rows]
-        out = k12.edge_message_fwd(a, B, pe, b1, seg.recv_ptr, seg.send,
-                                   act)
+        # Pe holds the shard's real edges only: so does send
+        send = seg.send[:n]
+        out = k12.edge_message_fwd(a, B, pe, b1, seg.recv_ptr, send, act)
         close(out, k12.edge_message_fwd_plain(a, B, pe, b1, seg.recv_ptr,
-                                              seg.send, act))
+                                              send, act))
         dH, dA = k12.edge_message_bwd_recv(a, B, pe, b1, gr, seg.recv_ptr,
-                                           seg.send, act, n + 7)
+                                           send, act, n + 7)
         dH_p, dA_p = k12.edge_message_bwd_recv_plain(
-            a, B, pe, b1, gr, seg.recv_ptr, seg.send, act, n + 7)
+            a, B, pe, b1, gr, seg.recv_ptr, send, act, n + 7)
         if act == "id_sq":
             torch.testing.assert_close(dH, dH_p, **FWD)
         else:
@@ -1031,3 +1038,116 @@ def test_edge_partitioned_propagates_on_the_card(dev):
                 atol=1e-4 * float(want_g.abs().max()))
     finally:
         distributed.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# one-dispatch epochs: the train and eval steps as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def graphed_zinc(num_graphs=48, seed=3):
+    """A small ``zinc_cfg`` (d=16, 2 layers, BN) and its graphs."""
+    from gsn_tpu_torch.config import GSNConfig
+    from gsn_tpu_torch.data.synthetic import make_zinc_like
+    graphs, d_id = make_zinc_like(num_graphs, seed=seed)
+    cfg = GSNConfig(model_name="GSN_edge_sparse", num_layers=2, d_out=16,
+                    out_features=1, msg_kind="general", id_scope="global",
+                    bn_mlp=False, id_embedding="one_hot_encoder",
+                    input_node_encoder="embedding", edge_encoder="embedding",
+                    readout="sum", in_features=1, d_in_node_encoder=[28],
+                    d_in_edge_encoder=[4], d_in_id=d_id)
+    return graphs, cfg
+
+
+def zinc_epochs(dev, scan, epochs=2, lr_at=None, model=None,
+                scheduler="None"):
+    """(epoch losses, evaluations, final parameters, trainer) of a small
+    zinc run on the card; ``lr_at``: {epoch: rate} set on the scheduler
+    before that epoch."""
+    from gsn_tpu_torch.train.loop import Trainer, TrainerConfig
+    graphs, cfg = graphed_zinc()
+    tcfg = TrainerConfig(lr=1e-3, batch_size=8, scheduler=scheduler,
+                         loss_fn="L1Loss", prediction_fn="L1Loss", seed=2,
+                         scan_epochs=scan)
+    trainer = Trainer(cfg, tcfg, graphs[:40], device=dev, model=model)
+    state = trainer.init_state(seed=0)
+    losses, evals = [], []
+    for e in range(epochs):
+        if lr_at and e in lr_at:
+            trainer.scheduler.current_lr = lr_at[e]
+        state, loss = trainer.train_epoch(state, graphs[:40])
+        losses.append(loss)
+        evals.append(trainer.evaluate(state, graphs[40:]))
+    params = {k: v.detach().clone() for k, v in
+              state.model.state_dict().items()}
+    return losses, evals, params, trainer
+
+
+def test_graphed_epochs_equal_per_step(dev):
+    """Two graphed epochs (train and eval replays) against two per-step
+    epochs of the same seed and weights: losses, evaluations and every
+    parameter and BN statistic bit for bit; the second graphed epoch
+    captures nothing and launches what the per-step epoch does."""
+    from gsn_tpu_torch.ops.cuda import build
+    graphed = zinc_epochs(dev, True)
+    assert graphed[3].epoch_stats["capture_s"] == 0.0
+    assert all(g.captured for g in graphed[3]._graphs.values())
+    counted = [k3.segment_sum_sorted, k4.segment_broadcast,
+               k12.edge_message_fwd, k12.edge_message_bwd_recv]
+    per_step = zinc_epochs(dev, False)
+    assert graphed[0] == per_step[0] and graphed[1] == per_step[1]
+    for k, v in per_step[2].items():
+        assert torch.equal(graphed[2][k], v), k
+    # one more epoch of each: the launch counts agree
+    counts = []
+    train = graphed_zinc()[0][:40]
+    for run in (graphed, per_step):
+        trainer = run[3]
+        state = trainer.init_state(seed=0)
+        state, _ = trainer.train_epoch(state, train)
+        for fn in counted:
+            build.reset(fn)
+        trainer.train_epoch(state, train)
+        counts.append([(fn.launches, dict(fn.modes)) for fn in counted])
+    assert counts[0] == counts[1] and counts[0][0][0] > 0
+
+
+def test_graphed_plateau_rate_reaches_replays(dev):
+    """A rate set on the Plateau scheduler between epochs reaches the
+    replayed Adam: the graphed run equals the per-step run bit for bit
+    through a halving, and at rate 0 a replayed epoch leaves every
+    parameter as it was."""
+    lr_at = {1: 5e-4, 2: 0.0}
+    graphed = zinc_epochs(dev, True, 3, lr_at, scheduler="ReduceLROnPlateau")
+    per_step = zinc_epochs(dev, False, 3, lr_at,
+                           scheduler="ReduceLROnPlateau")
+    assert graphed[0] == per_step[0]
+    for k, v in per_step[2].items():
+        assert torch.equal(graphed[2][k], v), k
+    trainer, train = graphed[3], graphed_zinc()[0][:40]
+    state = trainer.init_state(seed=0)
+    trainer.scheduler.current_lr = 0.0
+    state, _ = trainer.train_epoch(state, train)
+    before = [p.detach().clone() for p in state.model.parameters()]
+    state, _ = trainer.train_epoch(state, train)
+    assert trainer.epoch_stats["capture_s"] == 0.0
+    for a, p in zip(before, state.model.parameters()):
+        assert torch.equal(a, p)
+
+
+def test_capture_unsafe_step_raises(dev):
+    """A step that reads the device from the host (``.item()``) cannot be
+    captured: ``train_epoch`` raises, and runs nothing per step in its
+    place."""
+    from gsn_tpu_torch.nn.models import GNNSubstructures
+
+    class ReadsBack(GNNSubstructures):
+        def forward(self, data, generator=None, noise=None):
+            out = super().forward(data, generator, noise)
+            if out.sum().item() == float("nan"):   # a host read
+                raise AssertionError("unreachable")
+            return out
+
+    _graphs, cfg = graphed_zinc()
+    with pytest.raises(RuntimeError):
+        zinc_epochs(dev, True, 1, model=ReadsBack(cfg.finalize()))
+    torch.cuda.synchronize()

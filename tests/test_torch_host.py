@@ -154,10 +154,15 @@ def test_batch_graphs_matches_reference(scope, flow):
     send = b.edge_index[1 - b.select, :E]
     np.testing.assert_array_equal(
         np.repeat(np.arange(b.num_node_slots), np.diff(b.recv_ptr)), recv)
-    np.testing.assert_array_equal(send[b.send_perm], np.sort(send))
+    # send_perm: the real edges' sender order, then the padding slots'
+    # own positions (every slot a valid row id; shapes are the caps')
+    perm = b.send_perm[:E]
+    np.testing.assert_array_equal(send[perm], np.sort(send))
+    np.testing.assert_array_equal(b.send_perm[E:],
+                                  np.arange(E, b.num_edge_slots))
     np.testing.assert_array_equal(
         np.repeat(np.arange(b.num_node_slots), np.diff(b.send_ptr)),
-        send[b.send_perm])
+        send[perm])
     np.testing.assert_array_equal(
         np.repeat(np.arange(caps[2]), np.diff(b.graph_ptr)),
         b.batch[b.node_mask])

@@ -144,7 +144,9 @@ def test_make_ep_batch_matches_reference(zinc, D):
         assert s.send_ptr.shape == (CAPS[0] + 1,)
         np.testing.assert_array_equal(np.diff(s.send_ptr),
                                       np.bincount(send, minlength=CAPS[0]))
-        np.testing.assert_array_equal(send[s.send_perm], np.sort(send))
+        np.testing.assert_array_equal(send[s.send_perm[:n]], np.sort(send))
+        np.testing.assert_array_equal(s.send_perm[n:],
+                                      np.arange(n, s.num_edge_slots))
         counts += np.diff(s.graph_ptr)
     # the clipped graph offsets split every graph's nodes over the blocks
     np.testing.assert_array_equal(counts, np.diff(tb.graph_ptr))

@@ -281,12 +281,13 @@ def test_add_pool_matches_slab_add_pool_at_width(d, dtype):
 # zinc-cli's K3 shapes (scripts/zinc_10_runs.py --budget 500K through
 # gsn_tpu_torch.cli, batch 128 at the trainer's worst-case caps; PERF.md §6):
 # 128 graph slots over 5,504 node slots, 5,504 receivers over 13,184
-# edge slots, 5,504 senders over 7,360 real edges.  The bench.py paths'
+# edge slots, 5,504 senders over 7,360 real edges (send_perm spans the
+# 13,184 slots since the graphed epochs: the message sums' case).  The bench.py paths'
 # pools: 1,024 graphs over ~25,000 node slots.
 @pytest.mark.parametrize("n_seg,n_rows,want", [
     (128, 5504, "block"),      # zinc-cli's pool
     (5504, 13184, "warp"),     # zinc-cli's message sums over recv_ptr
-    (5504, 7360, "warp"),      # zinc-cli's dB over send_perm
+    (5504, 7360, "warp"),      # zinc-cli's dB over its real edges
     (1024, 24987, "block"),    # the zinc path's pools (1024 graphs)
     (1057, 30000, "warp"),     # beyond one wave of resident blocks
     (128, 2047, "warp"),       # under 16 rows a segment on average
