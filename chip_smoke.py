@@ -271,8 +271,8 @@ Phases (any failure is an uncaught exception and a nonzero exit):
 41. The multi-process CLI: ``cli.main`` with phase 30's data and flags
     and ``--coordinator_address 127.0.0.1:<free port>
     --num_procs_distributed 1 --process_id 0`` (this process joins an
-    NCCL group of one through ``parallel.distributed.initialize``) for
-    one epoch, first without ``--parallel`` (the dp default, whose line
+    NCCL group of one through ``parallel.distributed.initialize``; its
+    epochs graphed, as a spawned rank's) for one epoch, first without ``--parallel`` (the dp default, whose line
     must be printed), then with ``--parallel ep``: launches a train and
     an eval step exactly (``cli_path``): dp phase 30's; ep those of the
     fused-BN route that f32 ``bn_mlp`` messages take under ep, as in the
@@ -316,6 +316,30 @@ Phases (any failure is an uncaught exception and a nonzero exit):
     run under ``torch.cuda.set_sync_debug_mode`` (at most one blocking
     read in the epoch's one run and in the split), and a per-step and a
     graphed epoch run under the profiler (device busy and idle share).
+44. Graphed parallel epochs: ``ParallelTrainer`` on an NCCL group of one
+    in this process (``distributed.initialize``) graphs each run of
+    same-shape dp or ep batches, its collectives (the loss's and the BN
+    moments' all-reduces, the ep all-gathers and reduce-scatters, the
+    gradient sum, the evaluation's sums and ROC-AUC rows) captured with
+    the step.  Three paths each run PARALLEL_EPOCHS epoch(s) from one
+    seed graphed, per step and graphed again, each epoch evaluated:
+    zinc-cli-dp and zinc-cli-ep (phase 30's data and flags under
+    ``--parallel dp`` / ``ep``'s trainer) and dgn-cli-dp (phase 40's
+    under ``--parallel dp``'s).  The two graphed runs must agree bit for
+    bit, and so must the graphed and the per-step run on the zinc paths
+    (dgn-cli-dp, whose dropout masks come from a registered generator,
+    is logged and held to the f32 tolerances if not).  Each then runs
+    EPOCH_TURNS rounds of a graphed and a per-step epoch in turns; in
+    the first round each epoch's counters are zeroed just before it and
+    read just after: a cached graphed epoch launches exactly what a
+    per-step epoch does, by kernel and mode, and that is a train step's
+    launches of the path (phase 30's under dp, phase 41's under ep,
+    phase 40's) times the steps.  Each logs its capture seconds, a
+    replay's device time, the peak memory, the epochs in turns, the
+    blocking reads of a cached graphed epoch and of an evaluation under
+    ``set_sync_debug_mode`` (at most one in the epoch's one run and in
+    the split's), and a profiled graphed epoch (device busy and idle
+    share).
 
 Then it prints three lines: ``{"kernels": [...]}`` (each kernel's
 checks, times, bound and its launches on the path named in its
@@ -2399,6 +2423,22 @@ def zinc_cli_f32_launches():
             ({"warp": L, "block": 1}, {"warp": L, "block": 1}))
 
 
+def zinc_cli_ep_launches():
+    """``zinc_cli_f32_launches`` under ep: the f32 bn_mlp messages take
+    the fused-BN route, as the reference's do
+    (gsn_tpu/nn/filters.py:355-363): K1/K2 in f32 and in f32 id_sq a
+    layer, K3 the dB of both passes and the pool, K4 the pool's
+    backward; an eval step K1 and the pool."""
+    L = ZINC_CLI_LAYERS
+    return ({"edge_message_fwd": {"f32": L, "f32 id_sq": L},
+             "edge_message_bwd_recv": {"f32": L, "f32 id_sq": L},
+             "segment_sum_sorted": {"f32->f32": 2 * L + 1},
+             "segment_broadcast": {"f32": 1}},
+            {"edge_message_fwd": {"f32": L},
+             "segment_sum_sorted": {"f32->f32": 1}},
+            ({"warp": 2 * L, "block": 1}, {"block": 1}))
+
+
 def zinc_cli_trainer(args, dev):
     """The trainer of a zinc-cli run's parsed ``args`` (its data written
     by ``write_zinc_dataset``): (a function making a fresh ``Trainer`` of
@@ -3405,22 +3445,9 @@ def coordinator_cli_phase(card, root, serial_hist, rows):
     import torch.distributed as dist
 
     from gsn_tpu_torch import cli
-    L = ZINC_CLI_LAYERS
     said = "multi-process run: defaulting --parallel to 'dp'"
-    launches = {
-        "dp": zinc_cli_f32_launches(),
-        # under ep the f32 bn_mlp messages take the fused-BN route, as
-        # the reference's do (gsn_tpu/nn/filters.py:355-363): K1/K2 in
-        # f32 and in f32 id_sq a layer, K3 the dB of both passes and the
-        # pool, K4 the pool's backward; an eval step K1 and the pool
-        "ep": ({"edge_message_fwd": {"f32": L, "f32 id_sq": L},
-                "edge_message_bwd_recv": {"f32": L, "f32 id_sq": L},
-                "segment_sum_sorted": {"f32->f32": 2 * L + 1},
-                "segment_broadcast": {"f32": 1}},
-               {"edge_message_fwd": {"f32": L},
-                "segment_sum_sorted": {"f32->f32": 1}},
-               ({"warp": 2 * L, "block": 1}, {"block": 1})),
-    }
+    launches = {"dp": zinc_cli_f32_launches(),
+                "ep": zinc_cli_ep_launches()}
     first = {}
     for mode, extra in (("dp", ()), ("ep", ("--parallel", "ep"))):
         tag = f"zinc-cli-coord-{mode}"
@@ -3614,34 +3641,46 @@ def sync_reads(fn):
     return out, reads
 
 
+def graphed_and_per_step(tag, make, splits, epochs, seed, bitwise):
+    """Phases 43 and 44: ``epochs_run`` graphed, per step and graphed
+    again from ``seed``.  The two graphed runs must agree bit for bit,
+    and so must the graphed and the per-step run where ``bitwise``, else
+    at the f32 tolerances.  Returns (the graphed run, the per-step run,
+    whether they agree bit for bit, their largest differences, the
+    graphed run's peak memory above the ``held`` memory, held)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    g = epochs_run(lambda: make(True), splits, epochs, seed)
+    peak = torch.cuda.max_memory_allocated() - held
+    p = epochs_run(lambda: make(False), splits, epochs, seed)
+    again = epochs_run(lambda: make(True), splits, epochs, seed)
+    if not same_bits(g, again):
+        raise AssertionError(f"[graphed {tag}] two graphed runs differ: "
+                             f"{max_diffs(g, again)}")
+    del again
+    equal = same_bits(g, p)
+    rel, par = max_diffs(g, p)
+    if not equal:
+        if bitwise:
+            raise AssertionError(f"[graphed {tag}] graphed and per-step "
+                                 f"runs differ: rel {rel}, params {par}")
+        max_err(torch.from_numpy(run_numbers(g)),
+                torch.from_numpy(run_numbers(p)), FWD_RTOL, FWD_ATOL,
+                f"[graphed {tag}] losses and evaluations")
+        grad_check([v for v in g["params"].values()
+                    if v.is_floating_point()],
+                   [v for v in p["params"].values()
+                    if v.is_floating_point()],
+                   f"[graphed {tag}] parameters")
+    return g, p, equal, (rel, par), peak, held
+
+
 def graphed_epochs_phase(card, root):
     """Phase 43 (see module docstring)."""
     for tag, make, splits, epochs, seed, bitwise in graphed_paths(root):
-        torch.cuda.synchronize()
-        held = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        g = epochs_run(lambda: make(True), splits, epochs, seed)
-        peak = torch.cuda.max_memory_allocated() - held
-        p = epochs_run(lambda: make(False), splits, epochs, seed)
-        again = epochs_run(lambda: make(True), splits, epochs, seed)
-        if not same_bits(g, again):
-            raise AssertionError(f"[graphed {tag}] two graphed runs differ: "
-                                 f"{max_diffs(g, again)}")
-        del again
-        equal = same_bits(g, p)
-        rel, par = max_diffs(g, p)
-        if not equal:
-            if bitwise:
-                raise AssertionError(f"[graphed {tag}] graphed and per-step "
-                                     f"runs differ: rel {rel}, params {par}")
-            max_err(torch.from_numpy(run_numbers(g)),
-                    torch.from_numpy(run_numbers(p)), FWD_RTOL, FWD_ATOL,
-                    f"[graphed {tag}] losses and evaluations")
-            grad_check([v for v in g["params"].values()
-                        if v.is_floating_point()],
-                       [v for v in p["params"].values()
-                        if v.is_floating_point()],
-                       f"[graphed {tag}] parameters")
+        g, p, equal, (rel, par), peak, held = graphed_and_per_step(
+            tag, make, splits, epochs, seed, bitwise)
         log(f"[graphed {tag}] {epochs} epochs from seed {seed}: graphed and "
             f"per-step bit for bit {equal} (largest relative difference of "
             f"losses and evaluations {rel}, of parameters {par}); two "
@@ -3695,6 +3734,162 @@ def graphed_epochs_phase(card, root):
         g["state"] = profile_epoch(trainer, g["state"], train,
                                    statistics.median(secs["graphed"]),
                                    f"{tag} graphed")
+
+
+# phase 44: the epochs of each graphed parallel path (fewer than phase
+# 43's, the run's time kept near its length before phase 44)
+PARALLEL_EPOCHS = 1
+
+
+def graphed_parallel_paths(root):
+    """Phase 44's paths on this process's group: (tag, make(scan) ->
+    ParallelTrainer, splits, seed, whether graphed and per-step must
+    agree bit for bit, a train step's launches by kernel and mode)."""
+    from gsn_tpu_torch import cli
+    from gsn_tpu_torch import cli_directional as dcli
+    from gsn_tpu_torch.parallel import ParallelTrainer, distributed
+    args = vars(cli.build_parser().parse_args(zinc_cli_argv(root)))
+    graphs, cfg = cli.prepare(args)
+    train, test, val = cli.fold_splits(args, graphs, -1)
+    tcfg = cli.trainer_config(args)
+    paths = []
+    for mode, per_train in (("dp", zinc_cli_f32_launches()[0]),
+                            ("ep", zinc_cli_ep_launches()[0])):
+        paths.append((f"zinc-cli-{mode}", lambda scan, mode=mode,
+                      train=train: ParallelTrainer(
+                          cfg, dataclasses.replace(tcfg, scan_epochs=scan),
+                          train, mesh=distributed.global_mesh(mode),
+                          mode=mode),
+                      [train, train, test, val], args["seed"], True,
+                      per_train))
+    args = vars(dcli.build_parser().parse_args(dgn_cli_argv(
+        root, "--parallel", "dp")))
+    train, val, test, _tasks = dcli.prepare(dict(args))
+    dcfg = dcli.model_config(args, dcli.compute_avg_d(train), 1)
+    dtcfg = dcli.trainer_config(args)
+    L = args["L"]
+    paths.append(("dgn-cli-dp", lambda scan: ParallelTrainer(
+        dcfg, dataclasses.replace(dtcfg, scan_epochs=scan), train,
+        mesh=distributed.global_mesh("dp"), mode="dp",
+        model=dcli.DGNNet(dcfg)), [train, val, test], args["seed"], False,
+        # phase 40's train step
+        {"dgn_fused_fwd": L, "dgn_fused_bwd": L,
+         "segment_sum_sorted": L + 2, "segment_broadcast": 1}))
+    return paths
+
+
+def check_epoch_launches(tag, name, trainer, counters, per_train):
+    """The launches of the train epoch ``trainer`` just ran (the counters
+    zeroed just before it) must be ``per_train`` (a train step's, by
+    kernel and mode, or by kernel) times its steps, and nothing else;
+    returns (launches by kernel, by kernel and mode)."""
+    torch.cuda.synchronize()
+    steps = trainer.epoch_stats["steps"]
+    launches = {n: fn.launches for n, fn in counters.items() if fn.launches}
+    modes = {n: dict(fn.modes) for n, fn in counters.items() if fn.modes}
+    for kernel, want in per_train.items():
+        got = (modes.get(kernel, {}) if isinstance(want, dict)
+               else launches.get(kernel, 0))
+        want = ({m: c * steps for m, c in want.items()}
+                if isinstance(want, dict) else want * steps)
+        if got != want:
+            raise AssertionError(f"[graphed {tag}] {name}: {kernel} "
+                                 f"launched {got} in {steps} steps, "
+                                 f"expected {want}")
+    if set(launches) != set(per_train):
+        raise AssertionError(f"[graphed {tag}] {name}: launched "
+                             f"{launches}, expected only {per_train}")
+    return launches, modes
+
+
+def graphed_parallel_phase(card, root):
+    """Phase 44 (see module docstring)."""
+    from gsn_tpu_torch.parallel import distributed
+    distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        for tag, make, splits, seed, bitwise, per_train in \
+                graphed_parallel_paths(root):
+            graphed_parallel_path(card, tag, make, splits, seed, bitwise,
+                                  per_train)
+    finally:
+        distributed.shutdown()
+
+
+def graphed_parallel_path(card, tag, make, splits, seed, bitwise,
+                          per_train):
+    """One path of phase 44: graphed, per step and graphed again from
+    one seed; bits, launches, blocking reads, times and a profile."""
+    epochs, train = PARALLEL_EPOCHS, splits[0]
+    g, p, equal, (rel, par), peak, held = graphed_and_per_step(
+        tag, make, splits, epochs, seed, bitwise)
+    if not (g["trainer"].tcfg.scan_epochs and g["trainer"]._graphs):
+        raise AssertionError(f"[graphed {tag}] the parallel trainer ran "
+                             f"no graphs")
+    log(f"[graphed {tag}] NCCL world size 1, {epochs} epoch(s) from seed "
+        f"{seed}: graphed and per-step bit for bit {equal} (largest "
+        f"relative difference of losses and evaluations {rel}, of "
+        f"parameters {par}); two graphed runs bit for bit; train losses "
+        f"{g['losses']}; evaluations {g['evals']}; "
+        f"{len(g['trainer']._graphs)} graphs held")
+    log(f"[graphed {tag}] capture_s {[st['capture_s'] for st in g['stats']]}"
+        f"; a replay's device time (median) "
+        f"{[st['step_median_s'] * 1e3 for st in g['stats']]} ms; the "
+        f"per-step epoch's median step (host) "
+        f"{[st['step_median_s'] * 1e3 for st in p['stats']]} ms; steps an "
+        f"epoch {g['stats'][0]['steps']}; peak memory of the graphed run "
+        f"{peak / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB held "
+        f"({card})")
+    # epochs in turns; the first round's, counted, show that a cached
+    # replay launches what a per-step step does
+    from gsn_tpu_torch.ops.cuda import build
+    counters = kernel_counters()
+    secs = {"graphed": [], "per-step": []}
+    counted = {}
+    for r in range(EPOCH_TURNS):
+        order = (("graphed", g), ("per-step", p))
+        for name, run in (order if r % 2 == 0 else order[::-1]):
+            for fn in counters.values():
+                build.reset(fn)
+            run["state"], _ = run["trainer"].train_epoch(run["state"],
+                                                         train)
+            secs[name].append(run["trainer"].epoch_stats["epoch_s"])
+            if r == 0:
+                counted[name] = check_epoch_launches(
+                    tag, name, run["trainer"], counters, per_train)
+    if g["trainer"].epoch_stats["capture_s"] != 0.0:
+        raise AssertionError(f"[graphed {tag}] a cached epoch captured")
+    if counted["graphed"] != counted["per-step"]:
+        raise AssertionError(f"[graphed {tag}] launches graphed "
+                             f"{counted['graphed']}, per step "
+                             f"{counted['per-step']}")
+    log(f"[graphed {tag}] launches in an epoch of "
+        f"{g['trainer'].epoch_stats['steps']} steps, graphed = per step: "
+        f"{counted['graphed'][1] or counted['graphed'][0]} ({per_train} a "
+        f"train step)")
+    log(f"[graphed {tag}] epoch seconds in turns ({EPOCH_TURNS} rounds): "
+        f"graphed {secs['graphed']}, per step {secs['per-step']}; a "
+        f"graphed epoch's replay device time "
+        f"{g['trainer'].epoch_stats['step_median_s'] * 1e3} ms a step "
+        f"({card})")
+    trainer = g["trainer"]
+
+    def epoch():
+        g["state"], _ = trainer.train_epoch(g["state"], train)
+
+    _o, reads = sync_reads(epoch)
+    _o, eval_reads = sync_reads(lambda: trainer.evaluate(g["state"],
+                                                         splits[-1]))
+    if len(reads) > 1 or len(eval_reads) > 1:
+        raise AssertionError(f"[graphed {tag}] blocking reads at {reads} "
+                             f"in a one-run epoch, at {eval_reads} in a "
+                             f"one-run split")
+    log(f"[graphed {tag}] under set_sync_debug_mode: a cached graphed "
+        f"epoch (one run) made {len(reads)} blocking device read(s) "
+        f"({reads}), an evaluation of a split (one run) "
+        f"{len(eval_reads)} ({eval_reads})")
+    g["state"] = profile_epoch(trainer, g["state"], train,
+                               statistics.median(secs["graphed"]),
+                               f"{tag} graphed")
 
 
 # phase 42: scaling_efficiency_bench's defaults and the reference test's
@@ -4509,6 +4704,7 @@ def main():
         coordinator_cli_phase(card, root, cli_hist, rows)            # 41
         rows.update(edge_partition_phase(dev, card, timed))          # 42
         graphed_epochs_phase(card, root)                             # 43
+        graphed_parallel_phase(card, root)                           # 44
 
     # kernel_ms and bound_us repeat ms and bound_ms in the units the
     # port's kernel table uses

@@ -168,10 +168,20 @@ def broadcast_module(module: torch.nn.Module, axis: str,
             dist.broadcast(t.data, src=src)
 
 
-def sum_scalar(x: float, axis: str, device=None) -> float:
-    """A host number summed over the ranks (a tensor on ``device``, which
-    NCCL needs on the card)."""
-    axis_size(axis)
-    t = torch.tensor([float(x)], dtype=torch.float64, device=device)
-    dist.all_reduce(t)
-    return float(t.item())
+# (the default group, the gloo group made beside it): see host_group
+_host = (None, None)
+
+
+def host_group():
+    """A group over every rank for host (CPU) tensors: the default group
+    where it is gloo, else one gloo group per default group, made at the
+    first call (every rank makes it) and released with the default group
+    by ``destroy_process_group`` (``distributed.shutdown``, ``launch``'s
+    ranks)."""
+    global _host
+    world = dist.group.WORLD
+    if dist.get_backend() == "gloo":
+        return world
+    if _host[0] is not world:
+        _host = (world, dist.new_group(backend="gloo"))
+    return _host[1]

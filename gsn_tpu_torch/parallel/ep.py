@@ -17,8 +17,11 @@ One batch is split over the ranks of the ``ep`` axis:
 In place of the reference's per-shard slab metadata, each shard carries
 the segment layout of ``graphs/container.py``: local receiver offsets,
 and the sender offsets and permutation over the global sender space.
-There is no edge-cap high-water mark to carry: nothing is compiled per
-shape.
+Every shard of a batch has one edge slot count, floored by a caller's
+high-water mark (``e_cap``, as in the reference): a captured step
+(``train/graphs.py``) is bound to its batch's shapes, so every rank must
+hold the same shapes, and a mark carried across batches keeps an epoch
+at one shape.
 """
 
 from __future__ import annotations
@@ -34,9 +37,39 @@ from gsn_tpu_torch.graphs.container import (GraphBatch, _csr, pad_cap,
 from .dp import MeshTrainer, rank_generator
 
 
+def ep_edge_slots(data: GraphBatch, num_devices: int,
+                  e_cap: Optional[int] = None) -> int:
+    """The edge slot count of every shard of ``data`` split over
+    ``num_devices`` ranks: ``pad_cap`` of the largest over the shards of
+    its edge count and its share of the batch's edge slots (on one rank
+    the shard's edge arrays are the batch's, padding included), at
+    least ``e_cap`` (reference ``gsn_tpu/parallel/ep.py:105-112``)."""
+    return _edge_slots(data, num_devices,
+                       _block_edges(data, num_devices)[1], e_cap)
+
+
+def _edge_slots(data: GraphBatch, num_devices: int, counts,
+                e_cap: Optional[int]) -> int:
+    """``ep_edge_slots`` from the blocks' edge counts ``counts``."""
+    return max(pad_cap(max(int(counts.max()),
+                           -(-data.num_edge_slots // num_devices))),
+               e_cap or 0)
+
+
+def _block_edges(data: GraphBatch, num_devices: int):
+    """(each block's first edge, each block's edge count): the batch's
+    real edges are stably receiver-sorted, so a block's edges are one
+    run of them."""
+    block = data.num_node_slots // num_devices
+    recv_g = np.asarray(data.edge_index[data.select, :data.num_real_edges])
+    bounds = np.searchsorted(recv_g, np.arange(num_devices + 1) * block)
+    return bounds[:-1], np.diff(bounds)
+
+
 def make_ep_batch(data: GraphBatch, num_devices: int, axis: str = "ep",
                   ids_on_edges: Optional[bool] = None,
-                  rank: Optional[int] = None):
+                  rank: Optional[int] = None,
+                  e_cap: Optional[int] = None):
     """Split a host (numpy) batch into ``num_devices`` edge-partitioned
     shards (``GraphBatch`` with ``ep_axis=axis``): the list of shards,
     or with ``rank`` only that rank's.
@@ -44,8 +77,9 @@ def make_ep_batch(data: GraphBatch, num_devices: int, axis: str = "ep",
     Per shard: the node arrays of its block; its edges (those whose
     receiver lies in the block) in the batch's receiver-sorted order,
     with ``edge_index`` rows (local receiver, global sender), padded to
-    ``pad_cap`` of the larger of its edge count and its share of the
-    batch's edge slots; ``recv_ptr``/``in_degree``
+    ``ep_edge_slots(data, num_devices, e_cap)``, one count for every
+    shard (the padding slots carry nothing: no segment reaches them);
+    ``recv_ptr``/``in_degree``
     over the block; ``send_ptr`` [N+1] over the global senders and
     ``send_perm`` [slots] (its real edges', then the padding's own
     positions, as ``graphs/container.py`` pads it); ``graph_ptr``
@@ -62,6 +96,8 @@ def make_ep_batch(data: GraphBatch, num_devices: int, axis: str = "ep",
     E = data.num_real_edges
     recv_g = np.asarray(data.edge_index[data.select, :E])
     send_g = np.asarray(data.edge_index[1 - data.select, :E])
+    starts, counts = _block_edges(data, D)
+    slots = _edge_slots(data, D, counts, e_cap)
 
     if data.identifiers is not None:
         rows = data.identifiers.shape[0]
@@ -74,13 +110,9 @@ def make_ep_batch(data: GraphBatch, num_devices: int, axis: str = "ep",
 
     def shard(d: int) -> GraphBatch:
         lo, hi = d * block, (d + 1) * block
-        # the batch's edges are stably receiver-sorted, so a block's
-        # edges are one run of them, already in local receiver order
-        e0, e1 = np.searchsorted(recv_g, [lo, hi])
-        n_e = int(e1 - e0)
-        # at least its share of the batch's edge slots: on one rank the
-        # shard's edge arrays are the batch's, padding included
-        slots = pad_cap(max(n_e, -(-data.num_edge_slots // D)))
+        # the block's edges, already in local receiver order
+        e0, n_e = int(starts[d]), int(counts[d])
+        e1 = e0 + n_e
         recv, send = recv_g[e0:e1] - lo, send_g[e0:e1]
         edge_index = np.zeros((2, slots), np.int32)
         edge_index[0, :n_e], edge_index[1, :n_e] = recv, send

@@ -25,41 +25,59 @@ The reference's ``distributed`` keyword (separately launched
 processes, ``parallel/distributed.py``) is accepted and ignored: a
 process of the port is one rank, and a rank already builds only its own
 shard (``dp_shard``, ``make_ep_batch(rank=r)``), which is what the
-reference's multi-process feeding adds.  The kernels stay on (the
-reference turns its kernel layout off there,
+reference's multi-process feeding adds.  So those epochs stay graphed
+(below): the reference scans no multi-process epoch
+(``gsn_tpu/parallel/trainer.py:82-86``) only because its global
+batches, built from process-local rows, cannot be stacked.  The kernels
+stay on (the reference turns its kernel layout off there,
 ``gsn_tpu/parallel/trainer.py:97-103``, because its processes cannot
 agree on slab metadata; the port has none).
 
-Every step is its own call (``scan_epochs`` is set False, as the
-reference sets it for its process-spanning trainers,
-``gsn_tpu/parallel/trainer.py:82-86``): each rank is a process of its
-own, and the one-dispatch epochs of ``train/loop.py`` (CUDA graphs of
-the step) would have to capture the collectives too.
+Epochs run as the single-device trainer's do (``train/loop.py``): with
+``scan_epochs`` (the default) each run of same-shape batches replays one
+CUDA graph of the whole step on each rank, its collectives (the loss's
+and the BN moments' all-reduces, the ep all-gathers and their
+reduce-scatters, the gradient sum) captured with it, as the reference's
+scanned epochs run under ``shard_map``
+(``gsn_tpu/parallel/trainer.py:128-134, 163-176``).  Replayed
+collectives pair up only if every rank replays the same graphs in the
+same order: every dp shard of a batch is built at the same caps, every
+ep shard at one edge slot count with a high-water mark carried across
+batches (``_ep_ecap``), and before an epoch's or an evaluation's first
+run the ranks compare a digest of its signatures (a host all-gather
+over ``collectives.host_group``) and raise if they differ.  An
+evaluation's counts and metric sums are all-reduced on the device, and
+under dp its evaluator rows are all-gathered there, so a split is still
+read once.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gsn_tpu_torch.graphs.batching import epoch_caps
 from gsn_tpu_torch.graphs.container import GraphBatch
 from gsn_tpu_torch.train.loop import Trainer, TrainerConfig, TrainState
-from .collectives import all_gather_rows, broadcast_module, sum_scalar
+from .collectives import (all_gather_rows, all_reduce, broadcast_module,
+                          host_group)
 from .dp import (backward_replicated, dp_shard, global_mean_loss,
                  rank_generator)
-from .ep import make_ep_batch
+from .ep import ep_edge_slots, make_ep_batch
 from .mesh import Mesh, make_mesh
 
 
 class ParallelTrainer(Trainer):
     """``Trainer`` whose steps run data-parallel (``mode="dp"``) or
     edge-partitioned (``mode="ep"``) over ``mesh`` (by default this
-    process group's, its axis named ``mode``), each its own call
-    (``tcfg.scan_epochs`` is set False)."""
+    process group's, its axis named ``mode``): graphed epochs under
+    ``tcfg.scan_epochs``, whether the ranks were spawned or launched
+    separately (``distributed``, ignored: module docstring)."""
 
     def __init__(self, model_cfg, tcfg: TrainerConfig,
                  graphs_train: List[Dict], mesh: Optional[Mesh] = None,
@@ -68,8 +86,6 @@ class ParallelTrainer(Trainer):
         if mode not in ("dp", "ep"):
             raise ValueError(f"parallel mode {mode!r} (want 'dp'|'ep')")
         del distributed   # a process is one rank (module docstring)
-        # per-step calls: no graphs of the collectives (module docstring)
-        tcfg = dataclasses.replace(tcfg, scan_epochs=False)
         self.mode = mode
         self.mesh = mesh or make_mesh(axis_names=(mode,))
         if self.mesh.axis != mode:
@@ -89,6 +105,11 @@ class ParallelTrainer(Trainer):
         elif self.caps is not None:
             n, e, g = self.caps
             self.caps = (-(-n // D) * D, e, g)
+        # the high-water edge slot count of the ep shards (reference
+        # gsn_tpu/parallel/trainer.py:110): one shape once it settles
+        self._ep_ecap = 0
+        # the rows of how many shards an evaluator pack holds
+        self._pack_ranks = D if mode == "dp" else 1
         g0 = graphs_train[0]
         ids = g0.get("identifiers")
         self._ids_on_edges = (
@@ -121,13 +142,13 @@ class ParallelTrainer(Trainer):
     def _backward(self, loss: torch.Tensor, model) -> None:
         backward_replicated(loss, model, self.axis)
 
-    def _eval_counts(self, y_hat, data: GraphBatch):
-        n, acc = super()._eval_counts(y_hat, data)
+    def _eval_sums(self, y_hat, data: GraphBatch):
+        n, acc = super()._eval_sums(y_hat, data)
         if self.mode == "ep":
-            return n, acc   # replicated graph-level rows: already global
-        dev = self.device
-        return (int(round(sum_scalar(n, self.axis, dev))),
-                sum_scalar(acc, self.axis, dev))
+            return n, acc
+        # the reference's psum of both (f32 on the device, one call)
+        both = all_reduce(torch.stack([n, acc]), self.axis)
+        return both[0], both[1]
 
     def _eval_pack(self, y_hat, data: GraphBatch):
         pack = super()._eval_pack(y_hat, data)
@@ -136,11 +157,26 @@ class ParallelTrainer(Trainer):
         return tuple(all_gather_rows(t.contiguous(), self.axis)
                      for t in pack)
 
+    def _check_runs(self, sigs) -> None:
+        """Raise unless every rank holds this epoch's or evaluation's
+        signatures (module docstring)."""
+        # [batch count, a 63-bit digest of the signatures]
+        h = hashlib.sha256(repr(list(sigs)).encode()).digest()
+        mine = torch.tensor([len(sigs), int.from_bytes(h[:8], "little") >> 1],
+                            dtype=torch.int64)
+        every = [torch.empty_like(mine) for _ in range(self.n_devices)]
+        dist.all_gather(every, mine, group=host_group())
+        if any(not torch.equal(t, mine) for t in every):
+            raise RuntimeError(
+                f"rank {self.mesh.rank}: the ranks' batch shapes differ "
+                f"([count, digest] by rank "
+                f"{[t.tolist() for t in every]}); their captured "
+                f"collectives would not pair up")
+
     # ---- batches -------------------------------------------------------
     def _train_batches(self, graphs: List[Dict]) -> List[GraphBatch]:
         if self.mode == "ep":
-            return [self._ep_shard(b)
-                    for b in super()._train_batches(graphs)]
+            return self._ep_shards(super()._train_batches(graphs))
         order = np.arange(len(graphs))
         if self.tcfg.shuffle:
             self.rng.shuffle(order)
@@ -152,8 +188,7 @@ class ParallelTrainer(Trainer):
     def _eval_batches(self, graphs: List[Dict],
                       n_iters: Optional[int]) -> List[GraphBatch]:
         if self.mode == "ep":
-            return [self._ep_shard(b)
-                    for b in super()._eval_batches(graphs, n_iters)]
+            return self._ep_shards(super()._eval_batches(graphs, n_iters))
         caps = tuple(max(a, b) for a, b in zip(
             self.shard_caps, epoch_caps(graphs, self.shard_bs)))
         bs = self.tcfg.batch_size
@@ -166,9 +201,14 @@ class ParallelTrainer(Trainer):
         return dp_shard(chunk, self.mesh.rank, self.n_devices, caps,
                         self.y_shape, self.y_dtype, self.flow)
 
-    def _ep_shard(self, data: GraphBatch) -> GraphBatch:
-        return make_ep_batch(
+    def _ep_shards(self, batches: List[GraphBatch]) -> List[GraphBatch]:
+        """This rank's shards of ``batches``, all at one edge slot count:
+        the high-water mark raised to the batches' largest first."""
+        for data in batches:
+            self._ep_ecap = ep_edge_slots(data, self.n_devices,
+                                          self._ep_ecap)
+        return [make_ep_batch(
             data, self.n_devices, self.axis,
             ids_on_edges=(self._ids_on_edges
                           if data.identifiers is not None else None),
-            rank=self.mesh.rank)
+            rank=self.mesh.rank, e_cap=self._ep_ecap) for data in batches]

@@ -42,6 +42,11 @@ from gsn_tpu_torch.ops.cuda import build
 # reads none of them but the strings, which the signature holds)
 HOST_FIELDS = ("num_real_edges",)
 
+# torch.cuda.graph's capture_error_mode: an unsafe call (a host read, a
+# sync) on the capturing thread raises; other threads, such as the NCCL
+# watchdog querying its collectives' events, may run on
+CAPTURE_ERROR_MODE = "thread_local"
+
 
 def _leaf_sig(v):
     if isinstance(v, (np.ndarray, torch.Tensor)):
@@ -146,7 +151,8 @@ class StepGraph:
             graph.register_generator_state(gen)
         snap = build.snapshot()
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph,
+                                  capture_error_mode=CAPTURE_ERROR_MODE):
                 out = self.fn(state, self.static)
             self.launches = build.since(snap)
         finally:

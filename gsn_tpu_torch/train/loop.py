@@ -160,6 +160,8 @@ class Trainer:
         # (kind, signature, state_key) -> StepGraph of the epoch executor
         self._graphs: "collections.OrderedDict" = collections.OrderedDict()
         self._finalizers: Dict[int, weakref.finalize] = {}
+        # the shards whose rows an evaluator pack holds (_eval_pack)
+        self._pack_ranks = 1
         # the last train_epoch's host, step and capture times (seconds)
         self.epoch_stats: Dict[str, float] = {}
 
@@ -217,18 +219,23 @@ class Trainer:
         them over the ranks)."""
         loss.backward()
 
-    def _eval_counts(self, y_hat, data: GraphBatch):
-        """(graphs, metric sum) of one eval batch (global totals under
-        the parallel trainer)."""
-        n = int(data.graph_mask.sum())
-        acc = (float(self.pred_fn(y_hat, data.y, data.graph_mask))
-               if self.pred_fn is not None else 0.0)
-        return n, acc
+    def _eval_sums(self, y_hat, data: GraphBatch):
+        """f32 (graphs, metric sum) of one eval batch on the device
+        (global totals under the parallel trainer)."""
+        acc = (self.pred_fn(y_hat, data.y, data.graph_mask)
+               if self.pred_fn is not None else y_hat.new_zeros(()))
+        return (data.graph_mask.sum().to(torch.float32),
+                acc.to(torch.float32))
 
     def _eval_pack(self, y_hat, data: GraphBatch):
         """(y_hat, y, graph_mask) for evaluator metrics on the whole
-        split (every rank's rows under data parallelism)."""
+        split (every rank's rows under data parallelism: the rows of
+        ``_pack_ranks`` shards)."""
         return y_hat, data.y, data.graph_mask
+
+    def _check_runs(self, sigs) -> None:
+        """Before an epoch's or an evaluation's first run: nothing on one
+        device (the parallel trainer checks that its ranks agree)."""
 
     def _train_batches(self, graphs: List[Dict]) -> List[GraphBatch]:
         """One epoch's (shuffled) host batches."""
@@ -291,6 +298,7 @@ class Trainer:
         losses, step_s = [], []
         copy_s = capture_s = 0.0
         sigs = [batch_sig(b) for b in seq]
+        self._check_runs(sigs)
         for i, j in runs(sigs):
             t0 = time.perf_counter()
             uniq, idxs = unique_slots(seq[i:j])
@@ -423,7 +431,8 @@ class Trainer:
         out = []
         for data in batches:
             y_hat = state.model(data)
-            n, acc = self._eval_counts(y_hat, data)
+            n, acc = self._eval_sums(y_hat, data)
+            n, acc = int(n), float(acc)
             loss = float(self._step_loss(y_hat, data))
             y_true = y_pred = None
             if self.tcfg.evaluator is not None:
@@ -436,26 +445,37 @@ class Trainer:
     @torch.no_grad()
     def _eval_row(self, state: TrainState, data: GraphBatch
                   ) -> torch.Tensor:
-        """f32 [loss, graphs, metric sum] of one batch, then its
-        predictions flattened when there is an evaluator: what an eval
-        graph captures."""
+        """f32 [loss, graphs, metric sum] of one batch, then, when there
+        is an evaluator, its ``_eval_pack`` flattened: what an eval graph
+        captures."""
         y_hat = state.model(data)
-        acc = (self.pred_fn(y_hat, data.y, data.graph_mask)
-               if self.pred_fn is not None else y_hat.new_zeros(()))
-        parts = [self._step_loss(y_hat, data), data.graph_mask.sum(), acc]
-        parts = [p.reshape(1).to(torch.float32) for p in parts]
+        parts = [self._step_loss(y_hat, data), *self._eval_sums(y_hat, data)]
         if self.tcfg.evaluator is not None:
-            parts.append(y_hat.reshape(-1).to(torch.float32))
-        return torch.cat(parts)
+            parts += self._eval_pack(y_hat, data)
+        return torch.cat([p.reshape(-1).to(torch.float32) for p in parts])
+
+    def _unpack(self, pack: np.ndarray, data: GraphBatch):
+        """(y_true, y_pred) of the real graphs from an eval row's
+        ``_eval_pack`` part, for a host batch ``data``: predictions, labels
+        (in their host dtype) and the mask, each over ``_pack_ranks``
+        shards' graph slots."""
+        g = self._pack_ranks * data.num_graph_slots
+        y_shape = (g,) + data.y.shape[1:]
+        n_y = int(np.prod(y_shape))
+        mask = pack[-g:] != 0
+        y = pack[-g - n_y:-g].reshape(y_shape).astype(data.y.dtype)
+        return y[mask], pack[:-g - n_y].reshape((g, -1))[mask]
 
     def _eval_runs(self, state: TrainState, hosts: List[GraphBatch],
                    batches: List[GraphBatch]):
         """``_eval_steps``'s numbers from the runs of same-shape batches,
         each step a replay of the state's eval graph for its signature;
         the split's rows are read back at once (the same f32 values, so
-        the host sums are the per-step path's)."""
+        the host sums are the per-step path's; the evaluator's labels
+        and mask come from the row, which holds every dp rank's)."""
         bufs = []
         sigs = [batch_sig(b) for b in hosts]
+        self._check_runs(sigs)
         for i, j in runs(sigs):
             graph = self._step_graph(
                 ("eval", sigs[i], state_key(state, optimizer=False)), state,
@@ -478,10 +498,7 @@ class Trainer:
             for data, row in zip(hosts[i:j], rows):
                 y_true = y_pred = None
                 if self.tcfg.evaluator is not None:
-                    mask = data.graph_mask
-                    y_true = data.y[mask]
-                    y_pred = row[3:].reshape(
-                        (data.num_graph_slots, -1))[mask]
+                    y_true, y_pred = self._unpack(row[3:], data)
                 out.append((float(row[0]), int(row[1]), float(row[2]),
                             y_true, y_pred))
         return out

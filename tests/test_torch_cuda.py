@@ -49,7 +49,9 @@ The one-dispatch epochs (``TrainerConfig.scan_epochs``): a small zinc
 model's graphed train and eval steps against its per-step ones bit for
 bit (losses, evaluations, parameters, BN statistics, launches), a
 Plateau rate change reaching the replayed Adam, and a step that reads
-the device from the host raising at its capture.
+the device from the host raising at its capture.  ``ParallelTrainer``'s
+graphed dp and ep epochs on an NCCL group of one (the collectives
+captured with the step) against its per-step ones, bit for bit.
 """
 
 import numpy as np
@@ -1151,3 +1153,91 @@ def test_capture_unsafe_step_raises(dev):
     with pytest.raises(RuntimeError):
         zinc_epochs(dev, True, 1, model=ReadsBack(cfg.finalize()))
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# graphed parallel epochs: dp and ep steps, their NCCL collectives inside
+# ---------------------------------------------------------------------------
+
+def parallel_epochs(dev, mode, scan, evaluator=None, epochs=2):
+    """(epoch losses, evaluations, final parameters, trainer) of the small
+    zinc run under ``ParallelTrainer`` ``mode`` on the process group;
+    ``evaluator="rocauc"``: BCE on 0/1 labels with the ROC-AUC pack."""
+    from gsn_tpu_torch.parallel import ParallelTrainer, distributed
+    from gsn_tpu_torch.train.loop import TrainerConfig
+    graphs, cfg = graphed_zinc()
+    kw = dict(loss_fn="L1Loss", prediction_fn="L1Loss")
+    if evaluator is not None:
+        graphs = [dict(g, y=np.array([float(g["y"] > 0)], np.float32))
+                  for g in graphs]
+        kw = dict(loss_fn="BCEWithLogitsLoss", prediction_fn="None",
+                  evaluator=evaluator)
+    tcfg = TrainerConfig(lr=1e-3, batch_size=8, scheduler="None", seed=2,
+                         scan_epochs=scan, **kw)
+    trainer = ParallelTrainer(cfg, tcfg, graphs[:40],
+                              mesh=distributed.global_mesh(mode), mode=mode)
+    assert trainer.tcfg.scan_epochs is scan
+    assert trainer.device.type == dev.type
+    state = trainer.init_state(seed=0)
+    losses, evals = [], []
+    for _ in range(epochs):
+        state, loss = trainer.train_epoch(state, graphs[:40])
+        losses.append(loss)
+        evals.append(trainer.evaluate(state, graphs[40:]))
+    params = {k: v.detach().clone() for k, v in
+              state.model.state_dict().items()}
+    return losses, evals, params, trainer
+
+
+@pytest.fixture
+def nccl_group(dev):
+    """An NCCL group of one in this process (``distributed.initialize``),
+    left when the test ends."""
+    import socket
+
+    from gsn_tpu_torch.parallel import distributed
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        yield dev
+    finally:
+        distributed.shutdown()
+
+
+@pytest.mark.parametrize("mode,evaluator", [("dp", None), ("ep", None),
+                                            ("dp", "rocauc")])
+def test_graphed_parallel_epochs_equal_per_step(nccl_group, mode,
+                                                evaluator):
+    """``ParallelTrainer`` on one NCCL rank: two graphed epochs (the train
+    and eval steps with their all-reduces, all-gathers and reduce-scatters
+    captured) against two per-step epochs of the same seed and weights,
+    losses, evaluations (the ROC-AUC pack all-gathered on the device) and
+    every parameter and BN statistic bit for bit; a fresh state's second
+    graphed epoch captures nothing and launches what a per-step epoch
+    does."""
+    from gsn_tpu_torch.ops.cuda import build
+    dev = nccl_group
+    graphed = parallel_epochs(dev, mode, True, evaluator)
+    per_step = parallel_epochs(dev, mode, False, evaluator)
+    assert graphed[0] == per_step[0] and graphed[1] == per_step[1]
+    for k, v in per_step[2].items():
+        assert torch.equal(graphed[2][k], v), k
+    counted = [k3.segment_sum_sorted, k4.segment_broadcast,
+               k12.edge_message_fwd, k12.edge_message_bwd_recv]
+    counts = []
+    train = graphed_zinc()[0][:40]
+    if evaluator is not None:
+        train = [dict(g, y=np.array([float(g["y"] > 0)], np.float32))
+                 for g in train]
+    for run in (graphed, per_step):
+        trainer = run[3]
+        state = trainer.init_state(seed=0)
+        state, _ = trainer.train_epoch(state, train)
+        for fn in counted:
+            build.reset(fn)
+        trainer.train_epoch(state, train)
+        counts.append([(fn.launches, dict(fn.modes)) for fn in counted])
+    assert graphed[3].epoch_stats["capture_s"] == 0.0
+    assert counts[0] == counts[1] and counts[0][0][0] > 0

@@ -2,7 +2,8 @@
 CPU: the run partition against ``gsn_tpu``'s, static shapes per
 signature, scanned equal to looped bit for bit, the scanned epochs
 against ``gsn_tpu``'s, the graph cache's keys, the launch bookkeeping of
-replays, and ``ParallelTrainer`` staying per step.
+replays, and ``ParallelTrainer`` keeping ``scan_epochs`` on its ranks,
+spawned or launched separately.
 
 On the CPU the runs drive the eager step over the executor's static
 buffers (no CUDA graph): everything but the capture runs here; the
@@ -434,16 +435,23 @@ def test_replay_launch_bookkeeping():
 
 
 def test_parallel_trainer_runs_per_step(zinc):
-    """``ParallelTrainer`` turns ``scan_epochs`` off (each rank is a
-    process; the reference does the same for its multi-process
-    trainers)."""
+    """``ParallelTrainer`` keeps the caller's ``scan_epochs``, for the
+    ranks that ``parallel.launch`` spawns (one program over the mesh, as
+    the reference's ``shard_map`` scan) and for ``distributed=True``
+    (separately launched processes: each still one rank building its own
+    shard, so nothing stops its epochs being graphed); a caller's
+    ``scan_epochs=False`` stays off."""
     graphs, d_id = zinc
-    mesh = Mesh("dp", 1, 0, torch.device("cpu"))
     for mode in ("dp", "ep"):
-        trainer = ParallelTrainer(GSNConfig(**zinc_kwargs(d_id)),
-                                  zinc_tcfg(), graphs, mesh=Mesh(
-                                      mode, 1, 0, torch.device("cpu")),
-                                  mode=mode)
-        assert trainer.tcfg.scan_epochs is False
+        mesh = Mesh(mode, 1, 0, torch.device("cpu"))
+        for scan, distributed, want in ((True, False, True),
+                                        (True, True, True),
+                                        (False, False, False),
+                                        (False, True, False)):
+            trainer = ParallelTrainer(
+                GSNConfig(**zinc_kwargs(d_id)),
+                zinc_tcfg(scan_epochs=scan), graphs, mesh=mesh, mode=mode,
+                distributed=distributed)
+            assert trainer.tcfg.scan_epochs is want, (mode, scan,
+                                                      distributed)
     assert loop.TrainerConfig().scan_epochs is True
-    del mesh
