@@ -13,6 +13,8 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
+from gsn_tpu_torch.spans import span
+
 
 class OneHotUnique:
     """Per-column contiguous relabel over the concatenated dataset."""
@@ -69,24 +71,26 @@ def encode(graphs: List[dict], id_encoding: str | None,
     """Rewrite ``identifiers``/``degrees`` in-place to categorical indices.
 
     Returns (graphs, encoder_ids, d_id, encoder_degrees, d_degree),
-    mirroring reference utils_encoding.py:8-34.
+    mirroring reference utils_encoding.py:8-34.  Timed as the
+    ``data.encode`` span.
     """
-    encoder_ids, d_id = None, None
-    if graphs and "identifiers" in graphs[0]:
-        d_id = [1] * graphs[0]["identifiers"].shape[1]
-    if id_encoding is not None:
-        ids = [g["identifiers"] for g in graphs]
-        encoder_ids = _ENCODINGS[id_encoding](ids)
-        for g, enc in zip(graphs, encoder_ids.fit(ids)):
-            g["identifiers"] = enc
-        d_id = encoder_ids.d
+    with span("data.encode"):
+        encoder_ids, d_id = None, None
+        if graphs and "identifiers" in graphs[0]:
+            d_id = [1] * graphs[0]["identifiers"].shape[1]
+        if id_encoding is not None:
+            ids = [g["identifiers"] for g in graphs]
+            encoder_ids = _ENCODINGS[id_encoding](ids)
+            for g, enc in zip(graphs, encoder_ids.fit(ids)):
+                g["identifiers"] = enc
+            d_id = encoder_ids.d
 
-    encoder_degrees, d_degree = None, []
-    if degree_encoding is not None:
-        degs = [np.asarray(g["degrees"]).reshape(-1, 1) for g in graphs]
-        encoder_degrees = _ENCODINGS[degree_encoding](degs)
-        for g, enc in zip(graphs, encoder_degrees.fit(degs)):
-            g["degrees"] = enc
-        d_degree = encoder_degrees.d
+        encoder_degrees, d_degree = None, []
+        if degree_encoding is not None:
+            degs = [np.asarray(g["degrees"]).reshape(-1, 1) for g in graphs]
+            encoder_degrees = _ENCODINGS[degree_encoding](degs)
+            for g, enc in zip(graphs, encoder_degrees.fit(degs)):
+                g["degrees"] = enc
+            d_degree = encoder_degrees.d
 
     return graphs, encoder_ids, d_id, encoder_degrees, d_degree

@@ -31,6 +31,7 @@ from gsn_tpu_torch.counting import (automorphism_orbits, count_identifiers,
                                     induced_edge_automorphism_orbits,
                                     line_graph_edge_automorphism_orbits)
 from gsn_tpu_torch.graphs.patterns import resolve_pattern_vocabulary
+from gsn_tpu_torch.spans import span
 from .loaders import load_g6_graphs, load_ogb_data, load_tu_data, load_zinc_data
 
 SR_FAMILIES = {"sr16622", "sr251256", "sr261034", "sr281264", "sr291467",
@@ -144,24 +145,26 @@ def generate_dataset(
 ) -> tuple:
     """Attach degrees + identifiers to every graph dict.
 
-    Returns (graphs, orbit_partition_sizes)."""
-    patterns = build_pattern_infos(pattern_edge_lists, id_scope,
-                                   directed_orbits, edge_automorphism,
-                                   directed)
-    sizes = [p.num_edge_orbits if id_scope == "local" else p.num_orbits
-             for p in patterns]
-    if _native_batch_ok(graphs, patterns, id_scope):
-        graphs = _prepare_batch_native(graphs, patterns, induced,
-                                       id_scope, num_processes)
-    elif num_processes > 1:
-        import functools
-        fn = functools.partial(_prepare_one, patterns=patterns,
-                               induced=induced, id_scope=id_scope)
-        with cf.ProcessPoolExecutor(max_workers=num_processes) as ex:
-            graphs = list(ex.map(fn, graphs, chunksize=16))
-    else:
-        graphs = [_prepare_one(g, patterns, induced, id_scope)
-                  for g in graphs]
+    Returns (graphs, orbit_partition_sizes).  Timed as the
+    ``data.count`` span."""
+    with span("data.count"):
+        patterns = build_pattern_infos(pattern_edge_lists, id_scope,
+                                       directed_orbits, edge_automorphism,
+                                       directed)
+        sizes = [p.num_edge_orbits if id_scope == "local" else p.num_orbits
+                 for p in patterns]
+        if _native_batch_ok(graphs, patterns, id_scope):
+            graphs = _prepare_batch_native(graphs, patterns, induced,
+                                           id_scope, num_processes)
+        elif num_processes > 1:
+            import functools
+            fn = functools.partial(_prepare_one, patterns=patterns,
+                                   induced=induced, id_scope=id_scope)
+            with cf.ProcessPoolExecutor(max_workers=num_processes) as ex:
+                graphs = list(ex.map(fn, graphs, chunksize=16))
+        else:
+            graphs = [_prepare_one(g, patterns, induced, id_scope)
+                      for g in graphs]
     return graphs, sizes
 
 

@@ -31,8 +31,9 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from typing import Dict, List
+
+from gsn_tpu_torch.spans import span
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(os.path.dirname(_HERE))
@@ -150,9 +151,8 @@ def _load(name: str, stem: str = "") -> ctypes.CDLL:
 
 def build_all() -> float:
     """Compile every stale source in parallel and load all libraries.
-    Returns the wall seconds spent."""
-    t0 = time.perf_counter()
-    with _lock:
+    Returns the wall seconds spent (the ``kernels.build`` span)."""
+    with span("kernels.build") as s, _lock:
         procs = {n: _start(n) for n in SIGNATURES if _stale(n)}
         try:
             for n, p in procs.items():
@@ -165,7 +165,7 @@ def build_all() -> float:
         for n in SIGNATURES:
             if n not in _libs:
                 _libs[n] = _load(n)
-    return time.perf_counter() - t0
+    return s.seconds
 
 
 def lib(name: str) -> ctypes.CDLL:

@@ -25,6 +25,10 @@ evaluation reads its per-batch numbers once a split.  A capture that
 fails raises.  On the CPU the same runs drive the eager step.
 ``scan_epochs=False`` issues every step's launches from Python and
 reads each loss back, as before.
+
+What an epoch spent is recorded as spans and counters (``spans.py``):
+``train_epoch`` leaves them in ``epoch_stats`` (its keys below), and
+``fit`` adds its epoch's to the record it logs.
 """
 
 from __future__ import annotations
@@ -33,7 +37,6 @@ import collections
 import copy
 import dataclasses
 import statistics
-import time
 import weakref
 from typing import Callable, Dict, List, Optional
 
@@ -46,6 +49,7 @@ from gsn_tpu_torch.graphs.batching import (epoch_caps, infer_y_spec,
 from gsn_tpu_torch.graphs.container import GraphBatch
 from gsn_tpu_torch.nn.init import init_parameters
 from gsn_tpu_torch.nn.models import DropoutStreams, build_model
+from gsn_tpu_torch.spans import count, hist_add, since, snapshot, span
 from .checkpoint import save_checkpoint
 from .graphs import StepGraph, batch_sig, runs, state_key, unique_slots
 from .metrics import LOSSES, PREDICTION_FNS, roc_auc_score
@@ -162,25 +166,28 @@ class Trainer:
         self._finalizers: Dict[int, weakref.finalize] = {}
         # the shards whose rows an evaluator pack holds (_eval_pack)
         self._pack_ranks = 1
-        # the last train_epoch's host, step and capture times (seconds)
-        self.epoch_stats: Dict[str, float] = {}
+        # the last train_epoch's times, counters and spans (train_epoch)
+        self.epoch_stats: Dict = {}
+        # timing events, two a step, reused by every run (_train_runs)
+        self._events: List = []
 
     def init_state(self, seed: int = 0) -> TrainState:
         """Fresh weights drawn from ``torch.Generator`` seeded with
         ``seed``, on the trainer's device, with a new optimizer; the
         dropout masks come from a generator on that device seeded with
         ``seed + 1`` (the reference's dropout key)."""
-        gen = torch.Generator().manual_seed(seed)
-        if self.model is None:
-            model = build_model(self.model_cfg, gen)
-        else:
-            model = copy.deepcopy(self.model)
-            init_parameters(model, gen)
-        model = model.to(self.device)
-        opt = make_optimizer(model.parameters(), self.tcfg.lr,
-                             self.tcfg.regularization, self.device)
-        dropout_gen = torch.Generator(device=self.device)
-        dropout_gen.manual_seed(seed + 1)
+        with span("model.init"):
+            gen = torch.Generator().manual_seed(seed)
+            if self.model is None:
+                model = build_model(self.model_cfg, gen)
+            else:
+                model = copy.deepcopy(self.model)
+                init_parameters(model, gen)
+            model = model.to(self.device)
+            opt = make_optimizer(model.parameters(), self.tcfg.lr,
+                                 self.tcfg.regularization, self.device)
+            dropout_gen = torch.Generator(device=self.device)
+            dropout_gen.manual_seed(seed + 1)
         return TrainState(model=model, optimizer=opt,
                           dropout_gen=dropout_gen)
 
@@ -247,63 +254,77 @@ class Trainer:
     def train_epoch(self, state: TrainState, graphs: List[Dict]):
         """One epoch of ``num_iters`` steps (default: every batch once;
         more wrap around to the first batch).  Returns (state, mean
-        loss) and leaves in ``epoch_stats`` the epoch's seconds, steps,
-        host batching and copy seconds, median step (a replay's device
-        time under ``scan_epochs`` on the card, else the host's) and
-        capture seconds (warm-up and capture; 0 once cached)."""
-        t_start = t0 = time.perf_counter()
-        batches = self._train_batches(graphs)
-        build_s = time.perf_counter() - t0
-        n_iters = self.tcfg.num_iters or len(batches)
-        seq = []
-        k = 0
-        for _ in range(n_iters):
-            if k >= len(batches):
-                k = 0
-            seq.append(batches[k])
-            k += 1
-            # the reference's per-iteration dropout key: drawn so that
-            # later epochs' shuffles stay in step with its stream
-            self.rng.randint(0, 2**31 - 1)
-        run = self._train_runs if self.tcfg.scan_epochs else self._train_steps
-        losses, copy_s, step_s, capture_s = run(state, seq)
+        loss) and leaves in ``epoch_stats``, from the epoch's spans and
+        counters (``spans.py``): ``epoch_s`` (``train.epoch``),
+        ``steps``, ``host_batch_s`` (``train.batch`` + ``train.copy``),
+        ``step_median_s`` (a replay's device time under ``scan_epochs``
+        on the card, else the host's), ``capture_s`` (``train.capture``:
+        warm-up and capture; 0 once cached), ``step_hist`` (every timed
+        step's seconds, ``spans.hist_add``), the counters ``TRAIN_COUNTS``
+        (runs, captures, graphs evicted, and real rows against slots of
+        the steps' nodes, edges and graphs) and ``spans`` ({name:
+        [seconds, self seconds, closed]} of ``train.epoch`` and what it
+        holds)."""
+        snap = snapshot()
+        with span("train.epoch"):
+            with span("train.batch"):
+                batches = self._train_batches(graphs)
+                n_iters = self.tcfg.num_iters or len(batches)
+                seq = [batches[k % len(batches)] for k in range(n_iters)]
+                count_rows(seq)
+            for _ in range(n_iters):
+                # the reference's per-iteration dropout key: drawn so
+                # that later epochs' shuffles stay in step with its stream
+                self.rng.randint(0, 2**31 - 1)
+            run = (self._train_runs if self.tcfg.scan_epochs
+                   else self._train_steps)
+            losses, step_s = run(state, seq)
+        spans, counts = since(snap)
+        hist: Dict[int, int] = {}
+        for s in step_s:
+            hist_add(hist, s)
+
+        def total(name):
+            return spans.get(name, (0.0,))[0]
+
         self.epoch_stats = dict(
-            epoch_s=time.perf_counter() - t_start, steps=len(seq),
-            host_batch_s=build_s + copy_s,
+            epoch_s=total("train.epoch"), steps=len(seq),
+            host_batch_s=total("train.batch") + total("train.copy"),
             step_median_s=statistics.median(step_s) if step_s else 0.0,
-            capture_s=capture_s)
+            capture_s=total("train.capture"), step_hist=hist,
+            **{k: counts.get(k, 0) for k in TRAIN_COUNTS}, spans=spans)
         state = dataclasses.replace(state, epoch=state.epoch + 1)
         return state, float(np.mean(losses)) if losses else 0.0
 
     def _train_steps(self, state: TrainState, seq: List[GraphBatch]):
         """Every step issued from Python, each loss read back: (losses,
-        copy seconds, each step's host seconds, 0)."""
-        losses, copy_s, step_s = [], 0.0, []
+        each step's host seconds, its launch and read)."""
+        losses, step_s = [], []
         for data in seq:
-            t0 = time.perf_counter()
-            data = self.to_device(data)
-            t1 = time.perf_counter()
-            state, loss = self.train_step(state, data)
-            losses.append(float(loss))   # waits for the step
-            copy_s += t1 - t0
-            step_s.append(time.perf_counter() - t1)
-        return losses, copy_s, step_s, 0.0
+            with span("train.copy"):
+                data = self.to_device(data)
+            with span("train.launch") as launch:
+                state, loss = self.train_step(state, data)
+            with span("train.read") as read:
+                losses.append(float(loss))   # waits for the step
+            step_s.append(launch.seconds + read.seconds)
+        return losses, step_s
 
     def _train_runs(self, state: TrainState, seq: List[GraphBatch]):
         """The runs of same-shape batches, each step a replay of the
         state's train graph for the run's signature (captured first
-        where there is none): (losses, copy seconds, step seconds, the
-        seconds of warm-up and capture)."""
+        where there is none): (losses, the timed steps' seconds: a
+        replay's CUDA-event time, on the CPU the eager step's)."""
         cuda = self.device.type == "cuda"
         losses, step_s = [], []
-        copy_s = capture_s = 0.0
-        sigs = [batch_sig(b) for b in seq]
-        self._check_runs(sigs)
+        with span("train.plan"):
+            sigs = [batch_sig(b) for b in seq]
+            self._check_runs(sigs)
         for i, j in runs(sigs):
-            t0 = time.perf_counter()
-            uniq, idxs = unique_slots(seq[i:j])
-            dev = [self.to_device(b) for b in uniq]
-            copy_s += time.perf_counter() - t0
+            count("train.runs")
+            with span("train.copy"):
+                uniq, idxs = unique_slots(seq[i:j])
+                dev = [self.to_device(b) for b in uniq]
             set_lr(state.optimizer, self.scheduler.lr)
             key = ("train", sigs[i], state_key(state, optimizer=True))
             gens = [g for g in (state.dropout_gen, state.node_gen)
@@ -311,29 +332,40 @@ class Trainer:
             graph = self._step_graph(key, state, self._train_loss,
                                      dev[idxs[0]], gens)
             out = torch.empty(j - i, dtype=torch.float32, device=self.device)
-            events = []
+            events = self._step_events(j - i) if cuda else None
+            timed = []
             for k, slot in enumerate(idxs):
-                graph.load(dev[slot])
-                t0 = time.perf_counter()
+                with span("train.load"):
+                    graph.load(dev[slot])
                 if cuda and not graph.captured:
-                    out[k] = graph.step(state)
-                    capture_s += time.perf_counter() - t0
+                    count("train.captures")
+                    with span("train.capture"):
+                        out[k] = graph.step(state)
                 elif cuda:
-                    ev = [torch.cuda.Event(enable_timing=True)
-                          for _ in range(2)]
-                    ev[0].record()
-                    out[k] = graph.step(state)
-                    ev[1].record()
-                    events.append(ev)
+                    with span("train.launch"):
+                        events[2 * k].record()
+                        out[k] = graph.step(state)
+                        events[2 * k + 1].record()
+                    timed.append(k)
                 else:
-                    out[k] = graph.step(state)
-                    step_s.append(time.perf_counter() - t0)
-            losses.extend(out.tolist())   # the run's one read
-            step_s.extend(a.elapsed_time(b) / 1e3 for a, b in events)
+                    with span("train.launch") as launch:
+                        out[k] = graph.step(state)
+                    step_s.append(launch.seconds)
+            with span("train.read"):
+                losses.extend(out.tolist())   # the run's one read
+                step_s.extend(events[2 * k].elapsed_time(events[2 * k + 1])
+                              / 1e3 for k in timed)
             # a state's first step makes Adam's moments: key on them
             self._rekey(key, ("train", sigs[i],
                               state_key(state, optimizer=True)))
-        return losses, copy_s, step_s, capture_s
+        return losses, step_s
+
+    def _step_events(self, n: int) -> List:
+        """At least ``2 n`` timing events (a run's steps' starts and
+        ends), made once and reused by every later run."""
+        while len(self._events) < 2 * n:
+            self._events.append(torch.cuda.Event(enable_timing=True))
+        return self._events
 
     def _step_graph(self, key, state: TrainState, fn, example: GraphBatch,
                     generators) -> StepGraph:
@@ -345,6 +377,7 @@ class Trainer:
             return graph
         while len(self._graphs) >= self.MAX_GRAPHS:
             self._graphs.popitem(last=False)
+            count("graphs.evicted")
         graph = self._graphs[key] = StepGraph(fn, example, generators)
         mid = id(state.model)
         if mid not in self._finalizers or not self._finalizers[mid].alive:
@@ -368,8 +401,9 @@ class Trainer:
         # eviction race (a new list reusing an evicted entry's id)
         if plan is not None and plan[0] is graphs:
             return plan[1], plan[2]
-        hosts = self._eval_batches(graphs, n_iters)
-        batches = [self.to_device(b) for b in hosts]
+        with span("eval.plan"):
+            hosts = self._eval_batches(graphs, n_iters)
+            batches = [self.to_device(b) for b in hosts]
         if len(self._eval_plans) >= 8:
             self._eval_plans.pop(next(iter(self._eval_plans)))
         self._eval_plans[key] = (graphs, hosts, batches)
@@ -406,6 +440,7 @@ class Trainer:
             raise ValueError(f"unknown evaluator {self.tcfg.evaluator!r}")
         state.model.eval()
         hosts, batches = self._eval_plan(graphs, n_iters)
+        count("eval.steps", len(batches))
         per_batch = (self._eval_runs(state, hosts, batches)
                      if self.tcfg.scan_epochs
                      else self._eval_steps(state, batches))
@@ -421,8 +456,9 @@ class Trainer:
                 y_pred_all.append(y_pred)
         avg_loss = total_loss / max(total_n, 1)
         if self.tcfg.evaluator == "rocauc":
-            return avg_loss, roc_auc_score(np.concatenate(y_true_all),
-                                           np.concatenate(y_pred_all))
+            with span("eval.metric"):
+                return avg_loss, roc_auc_score(np.concatenate(y_true_all),
+                                               np.concatenate(y_pred_all))
         return avg_loss, total_acc / max(total_n, 1)
 
     def _eval_steps(self, state: TrainState, batches: List[GraphBatch]):
@@ -430,15 +466,17 @@ class Trainer:
         two for the evaluator), each read back as it is computed."""
         out = []
         for data in batches:
-            y_hat = state.model(data)
-            n, acc = self._eval_sums(y_hat, data)
-            n, acc = int(n), float(acc)
-            loss = float(self._step_loss(y_hat, data))
-            y_true = y_pred = None
-            if self.tcfg.evaluator is not None:
-                y_hat, y, mask = (t.cpu().numpy()
-                                  for t in self._eval_pack(y_hat, data))
-                y_true, y_pred = y[mask], y_hat[mask]
+            with span("eval.launch"):
+                y_hat = state.model(data)
+                n, acc = self._eval_sums(y_hat, data)
+                loss = self._step_loss(y_hat, data)
+            with span("eval.read"):
+                n, acc, loss = int(n), float(acc), float(loss)
+                y_true = y_pred = None
+                if self.tcfg.evaluator is not None:
+                    y_hat, y, mask = (t.cpu().numpy()
+                                      for t in self._eval_pack(y_hat, data))
+                    y_true, y_pred = y[mask], y_hat[mask]
             out.append((loss, n, acc, y_true, y_pred))
         return out
 
@@ -473,34 +511,43 @@ class Trainer:
         the split's rows are read back at once (the same f32 values, so
         the host sums are the per-step path's; the evaluator's labels
         and mask come from the row, which holds every dp rank's)."""
+        cuda = self.device.type == "cuda"
         bufs = []
-        sigs = [batch_sig(b) for b in hosts]
-        self._check_runs(sigs)
+        with span("eval.plan"):
+            sigs = [batch_sig(b) for b in hosts]
+            self._check_runs(sigs)
         for i, j in runs(sigs):
             graph = self._step_graph(
                 ("eval", sigs[i], state_key(state, optimizer=False)), state,
                 self._eval_row, batches[i], ())
             buf = None
             for k in range(i, j):
-                graph.load(batches[k])
-                row = graph.step(state)
-                if buf is None:
-                    buf = row.new_empty(j - i, row.numel())
-                buf[k - i] = row
+                with span("eval.load"):
+                    graph.load(batches[k])
+                capture = cuda and not graph.captured
+                if capture:
+                    count("eval.captures")
+                with span("eval.capture" if capture else "eval.launch"):
+                    row = graph.step(state)
+                    if buf is None:
+                        buf = row.new_empty(j - i, row.numel())
+                    buf[k - i] = row
             bufs.append(buf)
         if not bufs:
             return []
-        flat = torch.cat([b.reshape(-1) for b in bufs]).cpu().numpy()
-        out, at = [], 0
-        for (i, j), buf in zip(runs(sigs), bufs):
-            rows = flat[at:at + buf.numel()].reshape(buf.shape)
-            at += buf.numel()
-            for data, row in zip(hosts[i:j], rows):
-                y_true = y_pred = None
-                if self.tcfg.evaluator is not None:
-                    y_true, y_pred = self._unpack(row[3:], data)
-                out.append((float(row[0]), int(row[1]), float(row[2]),
-                            y_true, y_pred))
+        with span("eval.read"):
+            flat = torch.cat([b.reshape(-1) for b in bufs]).cpu().numpy()
+        with span("eval.unpack"):
+            out, at = [], 0
+            for (i, j), buf in zip(runs(sigs), bufs):
+                rows = flat[at:at + buf.numel()].reshape(buf.shape)
+                at += buf.numel()
+                for data, row in zip(hosts[i:j], rows):
+                    y_true = y_pred = None
+                    if self.tcfg.evaluator is not None:
+                        y_true, y_pred = self._unpack(row[3:], data)
+                    out.append((float(row[0]), int(row[1]), float(row[2]),
+                                y_true, y_pred))
         return out
 
     def fit(self, state: TrainState, graphs_train: List[Dict],
@@ -517,59 +564,106 @@ class Trainer:
         checkpoint to ``checkpoint_file``; the loop stops once the lr
         falls below ``min_lr``.
 
+        The record of an evaluated epoch also holds ``eval_s`` (the
+        ``eval`` span), the epoch's ``epoch_stats`` and, over the whole
+        ``fit.epoch`` span, the counters ``FIT_COUNTS`` (``eval.steps``
+        and ``eval.captures`` besides the train epoch's) and its
+        ``spans``; it is logged once that span has closed, after the
+        checkpoint.
+
         Returns (state, history dict of per-eval losses/metrics)."""
         hist = {"train_losses": [], "train_accs": [], "test_losses": [],
                 "test_accs": [], "val_losses": [], "val_accs": []}
         t = self.tcfg
         for epoch in range(state.epoch, t.num_epochs):
-            state, _ = self.train_epoch(state, graphs_train)
-            if isinstance(self.scheduler, StepLR):
-                self.scheduler.step()
-
-            if epoch % t.eval_frequency == 0:
-                t0 = time.perf_counter()
-                train_loss, train_acc = self.evaluate(
-                    state, graphs_train, t.num_iters_test)
-                test_loss, test_acc = self.evaluate(
-                    state, graphs_test, t.num_iters_test)
-                hist["train_losses"].append(train_loss)
-                hist["train_accs"].append(train_acc)
-                hist["test_losses"].append(test_loss)
-                hist["test_accs"].append(test_acc)
-                if graphs_val is not None:
-                    val_loss, val_acc = self.evaluate(
-                        state, graphs_val, t.num_iters_test)
-                    hist["val_losses"].append(val_loss)
-                    hist["val_accs"].append(val_acc)
-                eval_s = time.perf_counter() - t0
-                if isinstance(self.scheduler, ReduceLROnPlateau):
-                    ref = (hist["val_losses"][-1] if graphs_val is not None
-                           else test_loss)
-                    self.scheduler.step(ref)
-                if logger is not None:
-                    rec = {"train_loss": train_loss, "train_acc": train_acc,
-                           "test_loss": test_loss, "test_acc": test_acc,
-                           "lr": self.scheduler.lr, "eval_s": eval_s,
-                           **self.epoch_stats}
-                    if graphs_val is not None:
-                        rec["val_loss"] = hist["val_losses"][-1]
-                        rec["val_acc"] = hist["val_accs"][-1]
-                    logger.log(rec, step=epoch)
-                if log_fn:
-                    msg = (f"Epoch: {epoch:03d}, Train: {train_acc:.4f}, "
-                           f"Test: {test_acc:.4f}")
-                    if graphs_val is not None:
-                        msg += (f", Val: {hist['val_accs'][-1]:.4f}, "
-                                f"Val Loss: {hist['val_losses'][-1]:.4f}")
-                    msg += f", lr: {self.scheduler.lr:.8f}"
-                    log_fn(msg)
-                if checkpoint_file:
-                    save_checkpoint(checkpoint_file, state, self.scheduler,
-                                    self.rng)
+            snap = snapshot()
+            rec = None
+            with span("fit.epoch"):
+                state, _ = self.train_epoch(state, graphs_train)
+                if isinstance(self.scheduler, StepLR):
+                    self.scheduler.step()
+                if epoch % t.eval_frequency == 0:
+                    rec = self._fit_eval(state, graphs_train, graphs_test,
+                                         graphs_val, hist, log_fn, epoch)
+                    if checkpoint_file:
+                        with span("fit.checkpoint"):
+                            save_checkpoint(checkpoint_file, state,
+                                            self.scheduler, self.rng)
+            if rec is not None and logger is not None:
+                spans, counts = since(snap)
+                rec.update(self.epoch_stats)
+                rec.update({k: counts.get(k, 0) for k in FIT_COUNTS})
+                rec["spans"] = spans
+                logger.log(rec, step=epoch)
 
             if self.scheduler.lr < t.min_lr:
                 break
         return state, hist
+
+    def _fit_eval(self, state: TrainState, graphs_train, graphs_test,
+                  graphs_val, hist: Dict, log_fn, epoch: int) -> Dict:
+        """``fit``'s evaluation of an epoch: the train, test and val
+        splits (the ``eval`` span), Plateau's step, the printed line;
+        returns the epoch's record so far."""
+        t = self.tcfg
+        with span("eval") as ev:
+            train_loss, train_acc = self.evaluate(
+                state, graphs_train, t.num_iters_test)
+            test_loss, test_acc = self.evaluate(
+                state, graphs_test, t.num_iters_test)
+            hist["train_losses"].append(train_loss)
+            hist["train_accs"].append(train_acc)
+            hist["test_losses"].append(test_loss)
+            hist["test_accs"].append(test_acc)
+            if graphs_val is not None:
+                val_loss, val_acc = self.evaluate(
+                    state, graphs_val, t.num_iters_test)
+                hist["val_losses"].append(val_loss)
+                hist["val_accs"].append(val_acc)
+        if isinstance(self.scheduler, ReduceLROnPlateau):
+            ref = (hist["val_losses"][-1] if graphs_val is not None
+                   else test_loss)
+            self.scheduler.step(ref)
+        rec = {"train_loss": train_loss, "train_acc": train_acc,
+               "test_loss": test_loss, "test_acc": test_acc,
+               "lr": self.scheduler.lr, "eval_s": ev.seconds}
+        if graphs_val is not None:
+            rec["val_loss"] = hist["val_losses"][-1]
+            rec["val_acc"] = hist["val_accs"][-1]
+        if log_fn:
+            msg = (f"Epoch: {epoch:03d}, Train: {train_acc:.4f}, "
+                   f"Test: {test_acc:.4f}")
+            if graphs_val is not None:
+                msg += (f", Val: {hist['val_accs'][-1]:.4f}, "
+                        f"Val Loss: {hist['val_losses'][-1]:.4f}")
+            msg += f", lr: {self.scheduler.lr:.8f}"
+            log_fn(msg)
+        return rec
+
+
+# the counters every epoch_stats holds (0 when nothing counted them)
+TRAIN_COUNTS = ("train.runs", "train.captures", "graphs.evicted",
+                "train.real_nodes", "train.node_slots", "train.real_edges",
+                "train.edge_slots", "train.real_graphs", "train.graph_slots")
+# and every record of fit
+FIT_COUNTS = TRAIN_COUNTS + ("eval.steps", "eval.captures")
+
+
+def count_rows(seq: List[GraphBatch]) -> None:
+    """Count the real rows and the slots of the steps' host batches
+    (``train.real_nodes`` / ``train.node_slots``, edges, graphs): from
+    the host masks and ``num_real_edges``, never a device tensor."""
+    nodes = graphs = edges = 0
+    for b in seq:
+        nodes += int(np.count_nonzero(b.node_mask))
+        graphs += int(np.count_nonzero(b.graph_mask))
+        edges += b.num_real_edges
+    count("train.real_nodes", nodes)
+    count("train.node_slots", sum(b.num_node_slots for b in seq))
+    count("train.real_edges", edges)
+    count("train.edge_slots", sum(b.num_edge_slots for b in seq))
+    count("train.real_graphs", graphs)
+    count("train.graph_slots", sum(b.num_graph_slots for b in seq))
 
 
 def _drop_graphs(trainer_ref, model_id: int) -> None:

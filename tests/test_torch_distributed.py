@@ -320,11 +320,13 @@ def test_two_processes_match_reference_train_steps(tmp_path):
 # ---------------------------------------------------------------------------
 
 def evals(run_dir):
-    """The metric records of a CLI run's log.jsonl (the time stamp and
-    the seconds dropped)."""
+    """The metric records of a CLI run's log.jsonl (the time stamp, the
+    seconds, the spans' seconds and the step histogram dropped)."""
     with open(os.path.join(run_dir, "log.jsonl")) as f:
         recs = [json.loads(line) for line in f]
-    return [{k: v for k, v in r.items() if k != "ts" and not k.endswith("_s")}
+    timed = ("ts", "spans", "step_hist")
+    return [{k: v for k, v in r.items()
+             if k not in timed and not k.endswith("_s")}
             for r in recs if "train_loss" in r]
 
 

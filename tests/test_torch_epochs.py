@@ -250,7 +250,8 @@ def scanned_and_looped(cfg, tcfg, train, test, epochs, model=None):
     assert_bit_equal(*out)
     stats = out[0][3]
     assert set(stats) == {"epoch_s", "steps", "host_batch_s",
-                          "step_median_s", "capture_s"}
+                          "step_median_s", "capture_s", "step_hist",
+                          "spans", *loop.TRAIN_COUNTS}
     assert stats["capture_s"] == 0.0   # no graphs on the CPU
     return out
 
