@@ -154,10 +154,12 @@ Phases (any failure is an uncaught exception and a nonzero exit):
     ``scripts/zinc_10_runs.py``'s flags at the 500K budget (d=150, 4
     layers, batch 128, Plateau, L1), 2 epochs with an evaluation each,
     on the card, launch counters zeroed just before and read just after:
-    exactly K3 5 (f32->f32) and K4 5 a train step and K3 5 an eval step
+    exactly K3 13 (f32->f32) and K4 5 a train step and K3 5 an eval step
     (``bn_mlp`` is on, so f32 messages take the per-edge path: each
     layer's messages are summed at their receivers by K3, backward K4,
-    and the one pool is K3, backward K4); finite
+    the backward of its two gathers, ``A[recv]`` and ``B[send]``, is K3
+    over the receivers and over the senders, and the one pool is K3,
+    backward K4); finite
     histories, the lr at each evaluation, ``log.jsonl``, ``params.json``
     and the checkpoint, each epoch's seconds, median step and host
     batching ms a step, peak memory, the ``watch`` count.  Then 1 epoch
@@ -171,8 +173,8 @@ Phases (any failure is an uncaught exception and a nonzero exit):
     messages' sum, the pools beside ``index_add`` and
     ``segment_reduce``, dB) and K4 at d=150 on one train batch against
     their plain versions, timed with bounds; K3's launches by form are
-    asserted too (a train step: warp 4 and block 1, the pool; bf16: warp
-    8, block 1; an eval step: warp 4 and block 1, or block 1 in bf16),
+    asserted too (a train step: warp 12 and block 1, the pool; bf16:
+    warp 8, block 1; an eval step: warp 4 and block 1, or block 1 in bf16),
     the pool f32 and each K3 row carry the form ``segment_sum_form``
     picked and the launch floor of its own grid (``floor_ms``, an empty
     kernel on ``blocks`` blocks; K1's and K2's rows on their grid; K2's
@@ -202,7 +204,8 @@ Phases (any failure is an uncaught exception and a nonzero exit):
     tolerances plus the worst-case rounding of two f32 sums of the row's
     terms (the long rows cancel).
 34. Repeatable receiver sums: ``zinc_cfg`` with ``aggr="mean"`` (per
-    step K3 9: the 4 receiver means and the 5 pools; K4 9) and
+    step K3 17: the 4 receiver means, the 8 gathers' backward and the 5
+    pools; K4 9) and
     ``bench_dgn`` with ``var`` and ``std`` added (K3 and K4 each 4 more a
     step than phase 10: two receiver means each) take C3_STEPS steps
     twice from seed 0; the losses must be equal bit for bit, and a
@@ -2414,13 +2417,15 @@ def zinc_cli_f32_launches():
     """Phase 30's launches (``cli_path``'s per train step, per eval step,
     and K3's forms a train and an eval step): in f32 each layer's
     per-edge messages are summed at the receivers (K3, backward K4) and
-    so is the one pool (K3, backward K4); the message sums take K3's
-    warp form, the pool its block form."""
+    so is the one pool (K3, backward K4); each layer's two per-edge
+    gathers (``A[recv]``, ``B[send]``) have K3 over the receivers and
+    over the senders as their backward.  The message sums and the
+    gathers' backward take K3's warp form, the pool its block form."""
     L = ZINC_CLI_LAYERS
-    return ({"segment_sum_sorted": {"f32->f32": L + 1},
+    return ({"segment_sum_sorted": {"f32->f32": 3 * L + 1},
              "segment_broadcast": {"f32": L + 1}},
             {"segment_sum_sorted": {"f32->f32": L + 1}},
-            ({"warp": L, "block": 1}, {"warp": L, "block": 1}))
+            ({"warp": 3 * L, "block": 1}, {"warp": L, "block": 1}))
 
 
 def zinc_cli_ep_launches():
@@ -3067,10 +3072,11 @@ def c3_phase(card, zinc, dgn):
     dcfg = dataclasses.replace(dcfg, aggregators=DGN_AGGS + ("var", "std"))
     Ld = dcfg.num_layers
     cases = (
-        # K3: each layer's per-edge messages averaged at their receivers
-        # and the L + 1 pools; K4: the backward of each
+        # K3: each layer's per-edge messages averaged at their receivers,
+        # the backward of its two per-edge gathers and the L + 1 pools;
+        # K4: the backward of the means and pools
         ("zinc-mean", dataclasses.replace(cfg, aggr="mean"), tcfg, graphs,
-         data, None, {"segment_sum_sorted": 2 * L + 1,
+         data, None, {"segment_sum_sorted": 4 * L + 1,
                       "segment_broadcast": 2 * L + 1}, 2 * L + 1),
         # phase 10's launches, and K3 (K4 backward) for the two receiver
         # means each of var and std takes a layer

@@ -43,7 +43,14 @@ segment layout (``receiver_sum`` / ``receiver_mean`` over ``recv_ptr``:
 K3 forward, K4 backward), each receiver's messages in one fixed order:
 the reference sums them with a segment sum (``gsn_tpu/nn/filters.py:581-
 586``), and a float-atomic ``index_add`` here made two runs of one seed
-part within an epoch on the card.
+part within an epoch on the card.  The per-edge gathers of node rows
+(``A[recv]``, ``B[send]``, the ``ogb`` and ``gin`` kinds' sender rows)
+take the same segments for their backward (``receiver_gather`` /
+``sender_gather``: K3 over ``recv_ptr``, and over ``send_ptr`` through
+``send_perm``), so the padding slots, all at node slot 0, are never
+walked; without a segment layout they are plain indexing.  Each gather
+built counts ``edge_gather.segment`` or ``edge_gather.index``
+(``spans.count``).
 
 Under edge partitioning (``ep_axis``, the batch a shard of
 ``parallel/ep.py::make_ep_batch``) the node rows are the shard's block,
@@ -69,9 +76,11 @@ from gsn_tpu_torch.ops.cuda.slab_message import (ACTS, EdgeSegments,
                                                  edge_message_aggregate)
 from gsn_tpu_torch.ops.norm import MaskedBatchNorm
 from gsn_tpu_torch.ops.segment import (masked_segment_mean,
-                                       masked_segment_sum, receiver_mean,
-                                       receiver_sum)
+                                       masked_segment_sum, receiver_gather,
+                                       receiver_mean, receiver_sum,
+                                       sender_gather)
 from gsn_tpu_torch.parallel.collectives import all_gather
+from gsn_tpu_torch.spans import count
 from .embedding import CentralEncoder
 from .mlp import MLP, choose_activation, dense
 
@@ -81,6 +90,20 @@ def _cat_promoted(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     promotes."""
     dtype = functools.reduce(torch.promote_types, [p.dtype for p in parts])
     return torch.cat([p.to(dtype) for p in parts], -1)
+
+
+def edge_gather(rows: torch.Tensor, idx: torch.Tensor,
+                seg: Optional[EdgeSegments], side: str) -> torch.Tensor:
+    """``rows[idx]`` over every edge slot, ``idx`` the receivers
+    (``side="recv"``) or the senders (``"send"``): with the batch's
+    segments ``seg`` its backward is K3 over them (``receiver_gather`` /
+    ``sender_gather``), else plain indexing."""
+    if seg is None:
+        count("edge_gather.index")
+        return rows[idx]
+    count("edge_gather.segment")
+    gather = receiver_gather if side == "recv" else sender_gather
+    return gather(rows, idx, seg)
 
 
 class EdgeMessageMLP(nn.Module):
@@ -179,11 +202,13 @@ class EdgeMessageMLP(nn.Module):
     def forward(self, node_parts, edge_parts, recv, send, edge_mask=None,
                 seg: Optional[EdgeSegments] = None,
                 in_degree: Optional[torch.Tensor] = None,
-                ep_axis: Optional[str] = None) -> torch.Tensor:
-        """``seg`` given: the fused kernel path, returning the aggregated
-        [N, d_out]; otherwise per-edge messages [E, d_out].  ``ep_axis``:
-        the send-side rows B are all-gathered over it (global sender
-        ids)."""
+                ep_axis: Optional[str] = None,
+                fused: bool = False) -> torch.Tensor:
+        """``fused`` (``seg`` given): the fused kernel path, returning the
+        aggregated [N, d_out]; otherwise per-edge messages [E, d_out],
+        gathered through ``seg`` when given (``edge_gather``).
+        ``ep_axis``: the send-side rows B are all-gathered over it
+        (global sender ids)."""
         dt = self.dtype
         A = B = pe = None   # node-level recv-/send-side sums, edge sum
         for arr, projs in zip(node_parts, self.node_proj):
@@ -200,7 +225,7 @@ class EdgeMessageMLP(nn.Module):
         if ep_axis is not None and B is not None:
             B = all_gather(B, ep_axis)
 
-        if seg is not None:
+        if fused:
             if not self.fusable_under(ep_axis is not None):
                 raise ValueError("this message MLP has no fused path")
             # a single-dense MLP has no hidden activation (reference
@@ -221,9 +246,10 @@ class EdgeMessageMLP(nn.Module):
 
         h = None
         if A is not None:
-            h = A[recv]
+            h = edge_gather(A, recv, seg, "recv")
         if B is not None:
-            h = B[send] if h is None else h + B[send]
+            b = edge_gather(B, send, seg, "send")
+            h = b if h is None else h + b
         if pe is not None:
             h = pe if h is None else h + pe
         h = h + bias.to(h.dtype)
@@ -331,7 +357,8 @@ class GSNLayer(nn.Module):
                 ep_axis: Optional[str] = None):
         """``seg``/``in_degree``: the batch's segment layout; the fused
         kernel path runs when it is given and the layer is eligible
-        (add aggregation and a fusable message MLP).  ``ep_axis``: the
+        (add aggregation and a fusable message MLP), else the per-edge
+        gathers' backward runs over it.  ``ep_axis``: the
         batch is an edge-partitioned shard (``edge_index`` row 0 the
         local receivers, row 1 the global senders)."""
         if self.degree_as_tag:
@@ -363,8 +390,8 @@ class GSNLayer(nn.Module):
         msg_fn = self.msg_fn
         fused = (seg is not None and self.aggr == "add"
                  and msg_fn.fusable_under(ep_axis is not None))
-        out = msg_fn(node_parts, edge_parts, recv, send, edge_mask,
-                     seg if fused else None, in_degree, ep_axis)
+        out = msg_fn(node_parts, edge_parts, recv, send, edge_mask, seg,
+                     in_degree, ep_axis, fused)
         # the fused path's aggregate stays in the compute dtype; per-edge
         # messages are summed in f32 (reference filters.py:385-394)
         agg = out if fused else self._aggregate(out.float(), recv, n_nodes,
@@ -424,10 +451,10 @@ class GSNLayer(nn.Module):
             def full(a):   # the sender rows of every shard under ep
                 return a if ep_axis is None else all_gather(a, ep_axis)
 
-            m = full(x)[send]
+            m = edge_gather(full(x), send, seg, "send")
             if ids is not None:
                 m = m + (ids if self.id_scope == "local"
-                         else full(ids)[send])
+                         else edge_gather(full(ids), send, seg, "send"))
             if ef is not None:
                 m = m + ef
             agg = self._aggregate(torch.relu(m), recv, x.shape[0],
@@ -485,8 +512,9 @@ class GSNLayer(nn.Module):
                     None, B, Pe, b1, seg, "identity"))
             agg = torch.cat(agg_parts, -1)
         else:
-            msgs = _cat_promoted([full(arr)[send] if level == "node"
-                                  else arr for arr, level in parts])
+            msgs = _cat_promoted([edge_gather(full(arr), send, seg, "send")
+                                  if level == "node" else arr
+                                  for arr, level in parts])
             agg = self._aggregate(msgs, recv, n_nodes, edge_mask,
                                   seg).to(msgs.dtype)
         # (1+ε) and the self message in the aggregate's dtype

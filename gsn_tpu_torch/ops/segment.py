@@ -12,6 +12,13 @@ in one fixed order, as the reference's ``jax.ops.segment_sum`` is on its
 chip.  The masked ``index_add`` sums serve only callers that have no
 segment layout.
 
+The per-edge gathers of node rows (``receiver_gather`` /
+``sender_gather``: ``A[recv]``, ``B[send]`` over every edge slot) have
+the same sums as their backward: K3 over ``recv_ptr``, and over
+``send_ptr`` through the sender-sorted ``send_perm``, in place of the
+sorted ``index_put_`` of ``x[idx]``'s backward, which walks the padding
+slots (all at node slot 0) as one serial run.
+
 Under edge partitioning (``axis``: the mesh axis of the node blocks) a
 pool sums its block's partial per-graph sums, and its node counts, over
 the ranks (``gsn_tpu/ops/segment.py:100-140``): a graph whose nodes lie
@@ -25,6 +32,8 @@ from typing import Optional
 import torch
 
 from gsn_tpu_torch.parallel.collectives import all_reduce
+from .cuda.slab_combine import segment_sum_sorted
+from .cuda.slab_message import EdgeSegments
 from .cuda.slab_pool import add_pool, graph_broadcast
 
 
@@ -71,6 +80,49 @@ def receiver_mean(data: torch.Tensor, recv_ptr: torch.Tensor
     total = receiver_sum(data, recv_ptr)
     denom = torch.clamp(recv_ptr.diff().to(torch.float32), min=1.0)
     return total / denom.reshape((-1,) + (1,) * (data.dim() - 1))
+
+
+class _SegmentGather(torch.autograd.Function):
+    """``rows[idx]``; backward the sums of the cotangent's rows over the
+    CSR segments ``ptr`` (through ``perm``), in ``rows``' dtype."""
+
+    @staticmethod
+    def forward(ctx, rows, idx, ptr, perm):
+        if ptr.numel() - 1 != rows.shape[0]:
+            raise ValueError(f"edge gather: {ptr.numel() - 1} segments, "
+                             f"{rows.shape[0]} rows")
+        ctx.save_for_backward(ptr, perm)
+        ctx.rows_dtype = rows.dtype
+        return rows[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        ptr, perm = ctx.saved_tensors
+        return (segment_sum_sorted(g.contiguous(), ptr, perm, ctx.rows_dtype),
+                None, None, None)
+
+
+def receiver_gather(rows: torch.Tensor, recv: torch.Tensor,
+                    seg: EdgeSegments) -> torch.Tensor:
+    """``rows[recv]`` [E, d] over every edge slot (the node rows
+    ``rows`` [N, d] at each edge's receiver); its backward sums the
+    cotangent's real rows over ``seg.recv_ptr`` (K3 on the card, its
+    plain version on the CPU).  Padding slots lie outside every segment,
+    so their cotangent is never read: the callers rely on it being 0,
+    as it is where the messages reach the output only through the
+    receiver sums over ``recv_ptr`` and batch statistics are taken under
+    the edge mask."""
+    return _SegmentGather.apply(rows, recv, seg.recv_ptr, None)
+
+
+def sender_gather(rows: torch.Tensor, send: torch.Tensor,
+                  seg: EdgeSegments) -> torch.Tensor:
+    """``rows[send]`` [E, d] over every edge slot (the sender rows, in
+    the all-gathered sender space under edge partitioning); its backward
+    sums the cotangent's real rows over ``seg.send_ptr`` through
+    ``seg.send_perm``, as the kernel path's dB.  Padding slots: as
+    ``receiver_gather``."""
+    return _SegmentGather.apply(rows, send, seg.send_ptr, seg.send_perm)
 
 
 class _TableLookup(torch.autograd.Function):

@@ -261,8 +261,9 @@ class Trainer:
         on the card, else the host's), ``capture_s`` (``train.capture``:
         warm-up and capture; 0 once cached), ``step_hist`` (every timed
         step's seconds, ``spans.hist_add``), the counters ``TRAIN_COUNTS``
-        (runs, captures, graphs evicted, and real rows against slots of
-        the steps' nodes, edges and graphs) and ``spans`` ({name:
+        (runs, captures, graphs evicted, real rows against slots of the
+        steps' nodes, edges and graphs, and the per-edge gathers built on
+        the segment and the index route) and ``spans`` ({name:
         [seconds, self seconds, closed]} of ``train.epoch`` and what it
         holds)."""
         snap = snapshot()
@@ -641,10 +642,13 @@ class Trainer:
         return rec
 
 
-# the counters every epoch_stats holds (0 when nothing counted them)
+# the counters every epoch_stats holds (0 when nothing counted them);
+# the per-edge gathers count as built (an eager step or a capture), not
+# per replay
 TRAIN_COUNTS = ("train.runs", "train.captures", "graphs.evicted",
                 "train.real_nodes", "train.node_slots", "train.real_edges",
-                "train.edge_slots", "train.real_graphs", "train.graph_slots")
+                "train.edge_slots", "train.real_graphs", "train.graph_slots",
+                "edge_gather.segment", "edge_gather.index")
 # and every record of fit
 FIT_COUNTS = TRAIN_COUNTS + ("eval.steps", "eval.captures")
 

@@ -985,6 +985,66 @@ def test_receiver_sums_repeat_bit_for_bit(dev):
                                                      runs[1][1]))
 
 
+def zinc_cli_gather_grads(dev, num_graphs):
+    """(prediction, {name: gradient}) of one train-mode L1 step of the
+    500K ZINC model (d=150, 4 layers, f32 ``bn_mlp`` messages on the
+    per-edge path) from one seed, on ``num_graphs`` molecules under
+    zinc-cli's caps (5,504 node and 13,184 edge slots, 128 graphs)."""
+    from gsn_tpu_torch.config import GSNConfig
+    from gsn_tpu_torch.data.synthetic import make_zinc_like
+    from gsn_tpu_torch.graphs.batching import iterate_batches
+    from gsn_tpu_torch.nn.models import build_model
+    from gsn_tpu_torch.train import metrics
+    graphs, d_id = make_zinc_like(num_graphs)
+    cfg = GSNConfig(
+        model_name="GSN_edge_sparse", num_layers=4, d_out=150,
+        out_features=1, msg_kind="general", id_scope="global",
+        bn_mlp=True, id_embedding="one_hot_encoder",
+        input_node_encoder="one_hot_encoder",
+        edge_encoder="one_hot_encoder", jk_mlp=True,
+        final_projection=[False], readout="sum", in_features=1,
+        d_in_node_encoder=[28], d_in_edge_encoder=[4], d_in_id=d_id)
+    batch = next(iterate_batches(graphs, num_graphs,
+                                 caps=(5504, 13184, 128),
+                                 y_dtype=np.float32)).to(dev)
+    model = build_model(cfg, torch.Generator().manual_seed(0))
+    model = model.to(dev).train()
+    out = model(batch)
+    metrics.l1_loss(out, batch.y, batch.graph_mask).backward()
+    return out.detach(), {n: p.grad for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("num_graphs", [128, 16])
+def test_edge_gathers_backward_on_zinc_cli_shapes(dev, monkeypatch,
+                                                  num_graphs):
+    """The per-edge gathers' backward through K3 over the batch's
+    segments, on a full batch and on an epoch's last batch of 16 graphs
+    (most slots padding): K3 13 a step (4 receiver sums, 8 gathers, the
+    pool), two runs of one seed with the same gradients bit for bit, and
+    the gradients of the index route (``x[idx]``'s own backward) at the
+    f32 tolerances, with the same prediction bits."""
+    from gsn_tpu_torch.nn import filters
+    before = k3.segment_sum_sorted.launches
+    out, got = zinc_cli_gather_grads(dev, num_graphs)
+    assert k3.segment_sum_sorted.launches - before == 13
+    out2, again = zinc_cli_gather_grads(dev, num_graphs)
+    assert torch.equal(out, out2)
+    for name, g in got.items():
+        assert torch.equal(g, again[name]), name
+    gather = filters.edge_gather
+    monkeypatch.setattr(filters, "edge_gather",
+                        lambda rows, idx, seg, side:
+                        gather(rows, idx, None, side))
+    before = k3.segment_sum_sorted.launches
+    out_i, want = zinc_cli_gather_grads(dev, num_graphs)
+    assert k3.segment_sum_sorted.launches - before == 5
+    assert torch.equal(out, out_i)
+    scale = max(float(w.abs().max()) for w in want.values())
+    for name, w in want.items():
+        torch.testing.assert_close(got[name], w, rtol=2e-3,
+                                   atol=1e-4 * scale, msg=name)
+
+
 def test_edge_partitioned_propagates_on_the_card(dev):
     """Both edge-partitioned propagates over an NCCL group of one
     (``parallel.distributed.initialize``) on a graph of 1,024 nodes with

@@ -244,7 +244,10 @@ def test_graphs_evicted_counted(data):
     assert trainer.epoch_stats["graphs.evicted"] == 0
     snap = spans.snapshot()
     trainer.evaluate(state, graphs[22:])
-    assert spans.since(snap)[1] == {"graphs.evicted": 1, "eval.steps": 3}
+    # each of the 3 eval steps gathers per edge at both ends in 2 layers
+    # (f32 bn_mlp messages), on the segment route
+    assert spans.since(snap)[1] == {"graphs.evicted": 1, "eval.steps": 3,
+                                    "edge_gather.segment": 3 * 2 * 2}
     trainer.train_epoch(state, graphs[:22])
     assert trainer.epoch_stats["graphs.evicted"] == 1
 
