@@ -82,6 +82,7 @@ def make_program(config, splits, seed: int, device, prepared=None):
     vocabulary the program's data path found."""
     ref = registry.module("reference", config["name"])
     common = registry.module("reference", "ref_common")
+    driver = registry.module("drivers", config["driver"])
     held = {}
 
     def init_params(dims):
@@ -89,9 +90,23 @@ def make_program(config, splits, seed: int, device, prepared=None):
                                           seed, device)
         return held["init"]
 
-    prog = Program(config["flags"], splits, seed32(seed), device,
+    prog = Program(driver, config["flags"], splits, seed32(seed), device,
                    init_params, prepared)
     return prog, held["init"]
+
+
+def context(config, traffic, splits, prog, records, window_s: float
+            ) -> Dict:
+    """What the metrics read of a window: its epochs' ``records`` and
+    seconds, the program's set-up readings and its driver's evaluated
+    splits and hyperparameters (``run`` adds the set-up time and the
+    profiled slice)."""
+    return {"config": config, "traffic": traffic, "splits": splits,
+            "window_s": window_s, "records": records,
+            "prepare_s": prog.prepare_s, "capture_s": prog.capture_s,
+            "dims": list(prog.dims), "eval_splits": prog.driver.EVAL_SPLITS,
+            "hyper": prog.driver.hyper(config["flags"]),
+            "work": registry.module("work", config["name"])}
 
 
 def run(workload: str, seed: int, seconds: float, trace: bool, device,
@@ -116,7 +131,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device,
         fault(prog)
     first = first_steps(prog, config, splits, s32)
     prog_ids = prog.ids()
-    prog_dims = list(prog.cfg.d_in_id)
+    prog_dims = list(prog.dims)
     log(t_start, "first steps")
     runlog = RunLog()
     for _ in range(traffic["window"].get("warmup", 1)):
@@ -139,11 +154,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device,
                     for r in records) + ")")
     peak = torch.cuda.max_memory_allocated() if cuda else 0
 
-    ctx = {"config": config, "traffic": traffic, "splits": splits,
-           "window_s": window_s, "records": records,
-           "prepare_s": prog.prepare_s, "capture_s": prog.capture_s,
-           "dims": prog_dims,
-           "work": registry.module("work", config["name"])}
+    ctx = context(config, traffic, splits, prog, records, window_s)
     if trace:
         p = traffic["profile"]
         train_sub, eval_sub = prog.slice_subsets(

@@ -98,7 +98,8 @@ def reference_readings(config, splits, ids, dims, init, masks, seed: int,
               for n in names}
         train, val = splits["train"], splits["val"]
         steps = len(masks)
-        batch = int(flags["--batch_size"])
+        hyper = registry.module("drivers", config["driver"]).hyper(flags)
+        batch = hyper["batch_size"]
         batches = []
         for rows in batch_orders(step_rows(len(train), batch, seed, steps),
                                  seed):
@@ -109,7 +110,8 @@ def reference_readings(config, splits, ids, dims, init, masks, seed: int,
         losses, grad1, after, stats1, stats = common.train_steps(
             model, params, batches,
             [[m.to(device) for m in ms] for ms in masks]
-            if any(masks) else None, float(flags["--lr"]), steps)
+            if any(masks) else None, hyper["lr"], steps,
+            hyper["weight_decay"])
         ev_params, ev_stats = after, stats
         if state is not None:
             ev_params = {n: p.to(device) for n, p in state["params"].items()}

@@ -1,17 +1,14 @@
-"""The system under test, driven as its CLI drives it.
+"""The system under test, driven as its configuration's driver drives
+it (``drivers/<driver>.py``: the program's data path, its trainer and
+one epoch as its CLI runs them, the only place that knows the CLI).
 
-Everything the benchmark takes from the program goes through here: the
-port's data path (substructure counting and id encoding, as
-``gsn_tpu_torch.cli.prepare`` runs them after a loader), its model
-configuration and ``Trainer`` (``cli.trainer_config``), and
-``Trainer.fit`` one epoch at a time.  Set-up drives the trainer from
-the seed through its first steps with the window's own call
-(``train_epoch``, one batch a call) and reads what the comparison
-needs: each step's loss, the first gradient from Adam's moments, the
-batch-norm statistics after the first step, the parameters and
-statistics after the steps, the dropout masks the steps drew and an
-evaluation of the val split with what each of its batches read back.
-The same trainer and state then go into the window.
+Set-up drives the trainer from the seed through its first steps with
+the window's own call (``train_epoch``, one batch a call) and reads
+what the comparison needs: each step's loss, the first gradient from
+Adam's moments, the batch-norm statistics after the first step, the
+parameters and statistics after the steps, the dropout masks the steps
+drew and an evaluation of the val split with what each of its batches
+read back.  The same trainer and state then go into the window.
 """
 
 from __future__ import annotations
@@ -24,57 +21,6 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 ADAM_BETA1 = 0.9
-
-
-def argv_of(flags: Dict[str, str], seed: int) -> List[str]:
-    out = []
-    for k, v in flags.items():
-        out += [k, str(v)]
-    return out + ["--seed", str(seed)]
-
-
-def prepare(flags: Dict[str, str], splits: Dict[str, List[Dict]],
-            seed: int):
-    """(args, {split: graphs}, model config, num_classes): the CLI's
-    ``prepare`` on graphs a loader returned (``cli.prepare`` minus the
-    file read and the cache), then its splits."""
-    from gsn_tpu_torch.cli import _model_config, build_parser
-    from gsn_tpu_torch.data.encoding import encode
-    from gsn_tpu_torch.data.pipeline import generate_dataset
-    from gsn_tpu_torch.graphs.patterns import resolve_pattern_vocabulary
-
-    args = vars(build_parser().parse_args(argv_of(flags, seed)))
-    names = list(splits)
-    graphs = [g for n in names for g in splits[n]]
-    vocab = resolve_pattern_vocabulary(
-        args["id_type"], args["k"], root_folder=args["root_folder"],
-        custom_edge_list=args["custom_edge_list"])
-    graphs, _sizes = generate_dataset(
-        graphs, vocab, id_scope=args["id_scope"], induced=args["induced"],
-        directed_orbits=args["directed_orbits"],
-        num_processes=(args["num_processes"] if args["multiprocessing"]
-                       else 1))
-    num_classes = int(np.asarray(graphs[0]["y"]).size)
-    in_features = graphs[0]["x"].shape[1] if graphs[0]["x"].ndim > 1 else 1
-    ef = graphs[0]["edge_features"]
-    in_edge_features = ef.shape[1] if ef.ndim > 1 else 1
-    if args["dataset"] == "chemical" and args["dataset_name"] == "ZINC":
-        d_in_node, d_in_edge = [28], [4]
-    else:
-        d_in_node, d_in_edge = [in_features], [in_edge_features]
-    degree_encoding = (args["degree_encoding"] if args["degree_as_tag"]
-                       else None)
-    id_encoding = (args["id_encoding"] if args["id_encoding"] != "None"
-                   else None)
-    graphs, _e, d_id, _ed, d_degree = encode(graphs, id_encoding,
-                                             degree_encoding)
-    cfg = _model_config(args, num_classes, in_features, in_edge_features,
-                        d_in_node, d_in_edge, d_id, d_degree)
-    out, at = {}, 0
-    for n in names:
-        out[n] = graphs[at:at + len(splits[n])]
-        at += len(splits[n])
-    return args, out, cfg
 
 
 def _buffers(model) -> Dict[str, torch.Tensor]:
@@ -124,25 +70,24 @@ class Program:
     """One cell's trainer and state, from set-up to the end of the
     window."""
 
-    def __init__(self, flags, splits, seed: int, device, init_params,
-                 prepared=None):
-        """``prepared``: another Program's data path, reused."""
-        from gsn_tpu_torch.cli import trainer_config
-        from gsn_tpu_torch.train.loop import Trainer
-
+    def __init__(self, driver, flags, splits, seed: int, device,
+                 init_params, prepared=None):
+        """``driver``: the configuration's driver module; ``prepared``:
+        another Program's data path, reused."""
         t0 = time.perf_counter()
-        self.args, self.splits, self.cfg = (
-            prepared.args, prepared.splits, prepared.cfg) if prepared \
-            else prepare(flags, splits, seed)
+        self.driver = driver
+        self.args, self.splits, self.cfg, self.dims = (
+            prepared.args, prepared.splits, prepared.cfg, prepared.dims) \
+            if prepared else driver.prepare(flags, splits, seed)
         self.prepare_s = time.perf_counter() - t0
         self.train = self.splits["train"]
-        self.tcfg = trainer_config(self.args)
-        self.trainer = Trainer(self.cfg, self.tcfg, self.train,
-                               device=device)
+        self.trainer = driver.trainer(self.args, self.cfg, self.train,
+                                      device)
+        self.tcfg = self.trainer.tcfg
         t1 = time.perf_counter()
-        self.state = self.trainer.init_state(seed=self.args["seed"])
+        self.state = self.trainer.init_state(seed=seed)
         t2 = time.perf_counter()
-        self._load(init_params(self.cfg.d_in_id))
+        self._load(init_params(self.dims))
         self.timings = {"trainer": t1 - t0 - self.prepare_s,
                         "init_state": t2 - t1,
                         "load": time.perf_counter() - t2}
@@ -218,14 +163,9 @@ class Program:
         return out
 
     def epoch(self, logger: RunLog) -> None:
-        """One epoch of ``fit``: train, evaluate train, test and val,
-        the scheduler's step."""
-        t = self.trainer
-        t.tcfg.num_epochs = self.state.epoch + 1
-        self.state, _hist = t.fit(
-            self.state, self.train, self.splits["test"],
-            graphs_val=self.splits["val"], checkpoint_file=None,
-            log_fn=None, logger=logger)
+        """One epoch as the driver's CLI runs it, its record logged."""
+        self.state = self.driver.epoch(self.trainer, self.state,
+                                       self.splits, logger)
 
     def slice_subsets(self, train_batches: int, eval_batches: int,
                       seed: int):

@@ -33,7 +33,7 @@ def seed_readings(workload, seed, device, sizes=None, faults=FAULTS):
     config, _traffic, splits = cell.inputs(workload, seed, sizes)
     s32 = cell.seed32(seed)
     sound, init = cell.make_program(config, splits, seed, device)
-    prog_ids, dims_p = sound.ids(), list(sound.cfg.d_in_id)
+    prog_ids, dims_p = sound.ids(), list(sound.dims)
     counted = compare.count_ids(config, splits, device)
     first = cell.first_steps(sound, config, splits, s32)
     out = {"sound": compare.check(config, splits, first, init, s32, device,

@@ -1,8 +1,9 @@
 """Finds the benchmark's files by the names in ``BENCHMARK.json``:
 ``configs/<config>.json``, ``traffic/<traffic>.json``,
-``reference/<config>.py``, ``work/<config>.py`` and
-``metrics/<metric>.py``.  A later cell, configuration or metric is a new
-file and a new entry, never an edit here."""
+``reference/<config>.py``, ``work/<config>.py``,
+``metrics/<metric>.py`` and, by the ``driver`` a configuration file
+names, ``drivers/<driver>.py``.  A later cell, configuration, driver or
+metric is a new file and a new entry, never an edit here."""
 
 from __future__ import annotations
 

@@ -21,7 +21,7 @@ def port_time(kernels):
 def read(ctx):
     peaks = registry.module("work", "peaks")
     work, flags = ctx["work"], ctx["config"]["flags"]
-    b = int(flags["--batch_size"])
+    b = ctx["hyper"]["batch_size"]
     least = 0.0
     for part, train in (("train", True), ("eval", False)):
         graphs = ctx["slice"][part]

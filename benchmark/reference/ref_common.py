@@ -115,13 +115,21 @@ def roc_auc(y: np.ndarray, score: np.ndarray) -> float:
     return float((ranks[y == 1].sum() - pos * (pos + 1) / 2) / (pos * neg))
 
 
+def decayed(g: torch.Tensor, p: torch.Tensor,
+            weight_decay: float) -> torch.Tensor:
+    """The gradient Adam's moments take under torch's L2 weight decay:
+    ``g + weight_decay * p`` (``g`` itself at 0)."""
+    return g.add(p, alpha=weight_decay) if weight_decay else g
+
+
 def adam_step(params: Dict[str, torch.Tensor], grads, moments, step: int,
-              lr: float) -> None:
-    """One Adam step (L2 weight decay 0) in place of ``params``."""
+              lr: float, weight_decay: float = 0.0) -> None:
+    """One Adam step in place of ``params``, with torch's L2 weight decay
+    (added to the gradient before the moments)."""
     b1, b2, eps = ADAM["beta1"], ADAM["beta2"], ADAM["eps"]
     with torch.no_grad():
         for name, p in params.items():
-            g = grads[name]
+            g = decayed(grads[name], p, weight_decay)
             m, v = moments.setdefault(name, (torch.zeros_like(p),
                                              torch.zeros_like(p)))
             m = b1 * m + (1 - b1) * g
@@ -171,11 +179,13 @@ def init_params(spec: List[Tuple[str, Tuple[int, ...], str]], seed: int,
     return out
 
 
-def train_steps(model, params, batches, masks, lr: float, steps: int):
+def train_steps(model, params, batches, masks, lr: float, steps: int,
+                weight_decay: float = 0.0):
     """``steps`` steps of ``model`` (its ``forward(params, stats, batch,
-    train, masks)`` and ``loss``) from ``params``: (losses, the first
-    step's gradients, the parameters after the steps, BN statistics
-    after the first step and after the last)."""
+    train, masks)`` and ``loss``) from ``params`` under Adam with L2
+    ``weight_decay``: (losses, the first step's gradients as Adam's
+    moments take them, the decay added, the parameters after the steps,
+    BN statistics after the first step and after the last)."""
     params = {k: v.detach().clone() for k, v in params.items()}
     stats, moments = {}, {}
     losses, first, stats1 = [], None, None
@@ -191,9 +201,10 @@ def train_steps(model, params, batches, masks, lr: float, steps: int):
                  for (n, p), g in zip(leaves.items(), grads)}
         losses.append(float(loss.detach()))
         if first is None:
-            first = {n: g.detach().clone() for n, g in grads.items()}
+            first = {n: decayed(g, params[n], weight_decay).detach().clone()
+                     for n, g in grads.items()}
             stats1 = dict(stats)
-        adam_step(params, grads, moments, k + 1, lr)
+        adam_step(params, grads, moments, k + 1, lr, weight_decay)
     return losses, first, params, stats1, stats
 
 

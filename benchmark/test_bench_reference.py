@@ -75,6 +75,150 @@ def test_reference_follows_the_program(workload, sizes):
     assert n["loss1_gap"] < 1e-5 and n["stats1_gap"] < 1e-5
 
 
+# compare.check's numbers at the sizes above on one CPU thread (its
+# reductions split by the thread count), as commit fcb11be computed them
+# before the CLI's code moved into drivers/gsn_cli.py
+BEFORE_THE_DRIVERS = {
+    "zinc-gsn-ef-500k.fit": {
+        "change_gap": 0.031180917317064693,
+        "eval_loss_gap": 3.2691217880265474e-07,
+        "eval_metric_gap": 3.2691217880265474e-07,
+        "eval_row_gap": 3.2691217880265474e-07,
+        "grad_gap": 0.0012178849235208234,
+        "grad_med_gap": 5.301851568427679e-05,
+        "id_mismatch": 0.0,
+        "loss1_gap": 0.0,
+        "loss_gap": 0.008113735363970878,
+        "stats1_gap": 6.357580291532042e-07,
+        "stats_gap": 0.007968214578852838},
+    "molhiv-gsn-vn-af.fit": {
+        "change_gap": 0.004542744525493441,
+        "eval_loss_gap": 0.0,
+        "eval_metric_gap": 0.0,
+        "eval_row_gap": 7.864383633204852e-07,
+        "grad_gap": 2.6630462292097595e-05,
+        "grad_med_gap": 2.263526663113914e-06,
+        "id_mismatch": 0.0,
+        "loss1_gap": 8.134086180968451e-08,
+        "loss_gap": 0.001623917556150111,
+        "mask_keep_gap": 0.008437514305114746,
+        "stats1_gap": 5.72483326900844e-07,
+        "stats_gap": 0.0018497191562581873}}
+# ref_common.train_steps with no weight decay, as fcb11be computed it:
+# the three losses and a digest of the first gradients, the parameters
+# after and both sets of batch-norm statistics
+STEPS_BEFORE = (["0.9129307270050049", "0.9230300784111023",
+                 "0.7281273603439331"],
+                "4b8bdbb53f3b002cca27626a42d8435d"
+                "912b1b4dd5c81cf6028eac4d83a6ccd2")
+
+
+@pytest.fixture
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("workload,sizes", [
+    ("zinc-gsn-ef-500k.fit", {"train": 400, "val": 64, "test": 64}),
+    ("molhiv-gsn-vn-af.fit", {"train": 128, "val": 64, "test": 32})])
+def test_the_check_reads_as_before_the_drivers(one_thread, workload, sizes):
+    """Every number of the check, bit for bit the parent's: the move of
+    the CLI's code into its driver changed nothing it computes."""
+    import readings
+    torch.manual_seed(0)
+    out = readings.seed_readings(workload, 2 ** 31 + 5, "cpu", sizes,
+                                 faults={})
+    assert out["sound"] == BEFORE_THE_DRIVERS[workload]
+
+
+def _bn_leaves(stats):
+    return {f"{n}.{k}": t for n, pair in stats.items()
+            for k, t in zip(("mean", "var"), pair)}
+
+
+def _zinc_steps(weight_decay=None):
+    """Three reference steps of a small zinc model on 24 molecules."""
+    import hashlib
+    common = registry.module("reference", "ref_common")
+    ref = registry.module("reference", "zinc-gsn-ef-500k")
+    traffic = registry.data("traffic", "zinc-epochs")
+    traffic = dict(traffic, data=dict(traffic["data"],
+                                      splits={"train": 24}))
+    graphs = registry.module("traffic", "molecules").make_splits(
+        traffic, 2 ** 33 + 1)["train"]
+    ids, dims = CYC.one_hot_unique(CYC.count_cycles(graphs, 8, "global",
+                                                    False))
+    flags = {"--num_layers": "2", "--d_out": "16"}
+    params = common.init_params(ref.spec(flags, dims), 11, "cpu")
+    batches = [common.Batch(graphs[k:k + 8], ids[k:k + 8], "cpu")
+               for k in range(0, 24, 8)]
+    extra = () if weight_decay is None else (weight_decay,)
+    losses, first, after, stats1, stats = common.train_steps(
+        ref.Model(flags, dims), params, batches, None, 1e-3, 3, *extra)
+    h = hashlib.sha256()
+    for leaves in (first, after, _bn_leaves(stats1), _bn_leaves(stats)):
+        for n in sorted(leaves):
+            h.update(n.encode())
+            h.update(leaves[n].detach().contiguous().numpy().tobytes())
+    return [repr(x) for x in losses], h.hexdigest()
+
+
+def test_train_steps_without_decay_as_before(one_thread):
+    assert _zinc_steps() == STEPS_BEFORE
+    assert _zinc_steps(0.0) == STEPS_BEFORE
+
+
+def test_weight_decay_is_torchs_l2():
+    """``train_steps`` with weight decay against torch's Adam (the
+    program's optimizer) on a linear model over three steps: the
+    parameters after, and the first gradient as the program reads it,
+    from Adam's first moment; AdamW's decoupled decay lies far off."""
+    from types import SimpleNamespace
+    common = registry.module("reference", "ref_common")
+    gen = torch.Generator().manual_seed(4)
+    p0 = {"w": torch.randn(6, 1, generator=gen),
+          "b": torch.randn(1, generator=gen)}
+    batches = [SimpleNamespace(x=torch.randn(8, 6, generator=gen),
+                               y=torch.randn(8, 1, generator=gen))
+               for _ in range(3)]
+
+    class Linear:
+        def forward(self, P, stats, b, train, masks):
+            return b.x @ P["w"] + P["b"]
+
+        def loss(self, pred, y):
+            return ((pred - y) ** 2).mean()
+
+    wd, lr = 0.5, 1e-2
+
+    def torch_run(cls):
+        leaves = {n: torch.nn.Parameter(p.clone()) for n, p in p0.items()}
+        opt = cls(leaves.values(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                  weight_decay=wd)
+        read = None
+        for b in batches:
+            opt.zero_grad()
+            Linear().loss(Linear().forward(leaves, {}, b, True, None),
+                          b.y).backward()
+            opt.step()
+            if read is None:
+                read = {n: opt.state[p]["exp_avg"] / (1 - 0.9)
+                        for n, p in leaves.items()}
+        return {n: p.detach() for n, p in leaves.items()}, read
+
+    _losses, first, after, _s1, _s = common.train_steps(
+        Linear(), p0, batches, None, lr, 3, wd)
+    want, read = torch_run(torch.optim.Adam)
+    other, _ = torch_run(torch.optim.AdamW)
+    for n in p0:
+        torch.testing.assert_close(after[n], want[n], rtol=1e-6, atol=1e-7)
+        torch.testing.assert_close(first[n], read[n], rtol=1e-6, atol=1e-7)
+        assert (after[n] - other[n]).abs().max() > 1e-4
+
+
 def rows(n, e, g):
     return [{"x": np.zeros((n // g, 1)), "edge_index": np.zeros((2, e // g))}
             for _ in range(g)]

@@ -72,6 +72,10 @@ def test_every_name_finds_its_files(spec):
         for kind, ext in (("reference", "py"), ("work", "py")):
             assert os.path.exists(os.path.join(HERE, kind,
                                                f"{c['name']}.{ext}"))
+        # every configuration names its driver: no default
+        assert NAME.match(body["driver"]), body["driver"]
+        assert os.path.exists(os.path.join(HERE, "drivers",
+                                           f"{body['driver']}.py"))
         assert os.path.exists(os.path.join(HERE, "traffic",
                                            f"{w['traffic']}.json"))
     for m in spec["per_layer"]:
@@ -84,3 +88,33 @@ def test_a_full_check_of_24_cells_fits(spec):
     total = runs * (spec["run_seconds"] + 60) + 24 * 2 * 90 + 1200
     assert total <= 43200
     assert math.isfinite(total)
+
+
+# an import of the CLI module itself, not of ``cli_directional``
+CLI_IMPORT = re.compile(
+    r"^\s*(from\s+gsn_tpu_torch\.cli\b|import\s+gsn_tpu_torch\.cli\b"
+    r"|from\s+gsn_tpu_torch\s+import\s+.*\bcli\b)", re.M)
+
+
+def test_one_file_imports_the_cli():
+    """Nothing of the harness outside ``drivers/gsn_cli.py`` imports
+    ``gsn_tpu_torch.cli``."""
+    found = []
+    for folder, _dirs, files in os.walk(HERE):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(folder, name)
+                with open(path) as f:
+                    if CLI_IMPORT.search(f.read()):
+                        found.append(os.path.relpath(path, HERE))
+    assert found == [os.path.join("drivers", "gsn_cli.py")]
+
+
+@pytest.mark.parametrize("name", ["program", "cell", "compare", "readings"])
+def test_the_core_knows_no_cli(name):
+    """The generic core names no CLI flag and no model field: both are
+    the driver's."""
+    with open(os.path.join(HERE, "core", f"{name}.py")) as f:
+        text = f.read()
+    assert "d_in_id" not in text
+    assert not re.search(r"[\"']--[a-z]", text), name
