@@ -1,5 +1,6 @@
 """Epoch batching with static-shape buckets (a copy of
-``gsn_tpu/graphs/batching.py``).
+``gsn_tpu/graphs/batching.py``, its batches also kept as an
+``EpochBatches`` that builds each when first asked for).
 
 Shuffled mini-batches are padded to bucket capacities rounded up to
 coarse multiples, so a dataset sees a handful of distinct batch shapes
@@ -8,6 +9,7 @@ instead of one per batch.
 
 from __future__ import annotations
 
+from collections.abc import Sequence
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -57,6 +59,44 @@ def tight_epoch_caps(order: np.ndarray, graphs: List[Dict],
             pad_cap(batch_size, 8))
 
 
+class EpochBatches(Sequence):
+    """An epoch's batches in an order drawn when it is made (``rng``'s
+    shuffle; 'tight' caps, where ``caps`` is None, from that order),
+    each built by ``batch_graphs`` when first indexed and kept, so an
+    epoch can build a batch while the steps before it run."""
+
+    def __init__(self, graphs: List[Dict], batch_size: int,
+                 shuffle: bool = False,
+                 rng: Optional[np.random.RandomState] = None,
+                 caps: Optional[Tuple[int, int, int]] = None,
+                 y_shape: tuple = (), y_dtype=np.int64,
+                 flow: str = "source_to_target"):
+        order = np.arange(len(graphs))
+        if shuffle:
+            (rng or np.random).shuffle(order)
+        if caps is None:
+            caps = tight_epoch_caps(order, graphs, batch_size)
+        self.graphs, self.caps = graphs, caps
+        self.chunks = [order[i:i + batch_size]
+                       for i in range(0, len(order), batch_size)]
+        self._spec = dict(y_shape=y_shape, y_dtype=y_dtype, flow=flow)
+        self._built: Dict[int, GraphBatch] = {}
+
+    def __len__(self) -> int:
+        return len(self.chunks)
+
+    def __getitem__(self, k: int) -> GraphBatch:
+        k = range(len(self.chunks))[k]
+        if k not in self._built:
+            self._built[k] = self.build(k)
+        return self._built[k]
+
+    def build(self, k: int) -> GraphBatch:
+        """Batch ``k``, built anew."""
+        return batch_graphs([self.graphs[j] for j in self.chunks[k]],
+                            *self.caps, **self._spec)
+
+
 def iterate_batches(
     graphs: List[Dict],
     batch_size: int,
@@ -68,19 +108,14 @@ def iterate_batches(
     drop_last: bool = False,
     flow: str = "source_to_target",
 ) -> Iterator[GraphBatch]:
-    order = np.arange(len(graphs))
-    if shuffle:
-        (rng or np.random).shuffle(order)
-    if caps is None:
-        caps = tight_epoch_caps(order, graphs, batch_size)
-    node_cap, edge_cap, graph_cap = caps
-    for i in range(0, len(order), batch_size):
-        idx = order[i:i + batch_size]
+    """``EpochBatches``' batches in turn, none kept; the order is drawn
+    at the first ``next``."""
+    batches = EpochBatches(graphs, batch_size, shuffle, rng, caps, y_shape,
+                           y_dtype, flow)
+    for k, idx in enumerate(batches.chunks):
         if drop_last and len(idx) < batch_size:
             break
-        yield batch_graphs([graphs[j] for j in idx], node_cap, edge_cap,
-                           graph_cap, y_shape=y_shape, y_dtype=y_dtype,
-                           flow=flow)
+        yield batches.build(k)
 
 
 def infer_y_spec(graphs: List[Dict]) -> Tuple[tuple, type]:

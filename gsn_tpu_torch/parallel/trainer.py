@@ -45,7 +45,10 @@ same order: every dp shard of a batch is built at the same caps, every
 ep shard at one edge slot count with a high-water mark carried across
 batches (``_ep_ecap``), and before an epoch's or an evaluation's first
 run the ranks compare a digest of its signatures (a host all-gather
-over ``collectives.host_group``) and raise if they differ.  An
+over ``collectives.host_group``) and raise if they differ; so a rank
+builds its whole epoch before the first replay, where the
+single-device trainer builds each batch while the replays before it
+run.  An
 evaluation's counts and metric sums are all-reduced on the device, and
 under dp its evaluator rows are all-gathered there, so a split is still
 read once.
@@ -61,8 +64,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from gsn_tpu_torch.graphs.batching import epoch_caps
+from gsn_tpu_torch.graphs.batching import epoch_caps, iterate_batches
 from gsn_tpu_torch.graphs.container import GraphBatch
+from gsn_tpu_torch.spans import span
+from gsn_tpu_torch.train.graphs import batch_sig
 from gsn_tpu_torch.train.loop import Trainer, TrainerConfig, TrainState
 from .collectives import (all_gather_rows, all_reduce, broadcast_module,
                           host_group)
@@ -173,10 +178,23 @@ class ParallelTrainer(Trainer):
                 f"{[t.tolist() for t in every]}); their captured "
                 f"collectives would not pair up")
 
+    def _train_runs(self, state: TrainState, seq):
+        """The single-device trainer's runs over the epoch's every step,
+        built up front (``_train_batches``) and their signatures checked
+        across the ranks before the first replay (module docstring)."""
+        seq = list(seq)
+        with span("train.plan"):
+            self._check_runs([batch_sig(b) for b in seq])
+        return super()._train_runs(state, seq)
+
     # ---- batches -------------------------------------------------------
     def _train_batches(self, graphs: List[Dict]) -> List[GraphBatch]:
+        """The epoch's shards, every one built now."""
         if self.mode == "ep":
-            return self._ep_shards(super()._train_batches(graphs))
+            return self._ep_shards(list(iterate_batches(
+                graphs, self.tcfg.batch_size, shuffle=self.tcfg.shuffle,
+                rng=self.rng, caps=self.caps, y_shape=self.y_shape,
+                y_dtype=self.y_dtype, flow=self.flow)))
         order = np.arange(len(graphs))
         if self.tcfg.shuffle:
             self.rng.shuffle(order)

@@ -75,19 +75,6 @@ def runs(sigs: Sequence) -> Iterator[Tuple[int, int]]:
         i = j
 
 
-def unique_slots(batches: Sequence) -> Tuple[List, List[int]]:
-    """(the distinct batch objects in first-seen order, each position's
-    slot among them): a wrap-around iteration reuses its batch's slot
-    (reference ``train_epoch``'s ``uniq``/``idxs``)."""
-    uniq, idxs, slot = [], [], {}
-    for b in batches:
-        if id(b) not in slot:
-            slot[id(b)] = len(uniq)
-            uniq.append(b)
-        idxs.append(slot[id(b)])
-    return uniq, idxs
-
-
 def tensor_fields(data: GraphBatch) -> List[str]:
     return [f.name for f in dataclasses.fields(data)
             if isinstance(getattr(data, f.name), torch.Tensor)]

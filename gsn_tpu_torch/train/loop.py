@@ -20,7 +20,9 @@ its batches fall into runs of one shape signature, a run's distinct
 batches go to the device once, and each step of a run is one replay of
 a CUDA graph of the whole step, captured for its (state, signature)
 at the start of the first run that needs it (``train/graphs.py``).
-The losses of a run stay on the device and are read once a run; an
+Each batch is built, signed and copied after the step before it was
+launched, so the host makes it while the card runs the replays before
+it.  The losses of a run stay on the device and are read once a run; an
 evaluation reads its per-batch numbers once a split.  A capture that
 fails raises.  On the CPU the same runs drive the eager step.
 ``scan_epochs=False`` issues every step's launches from Python and
@@ -38,20 +40,21 @@ import copy
 import dataclasses
 import statistics
 import weakref
-from typing import Callable, Dict, List, Optional
+from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
 
-from gsn_tpu_torch.graphs.batching import (epoch_caps, infer_y_spec,
-                                           iterate_batches,
+from gsn_tpu_torch.graphs.batching import (EpochBatches, epoch_caps,
+                                           infer_y_spec, iterate_batches,
                                            tight_epoch_caps)
 from gsn_tpu_torch.graphs.container import GraphBatch
 from gsn_tpu_torch.nn.init import init_parameters
 from gsn_tpu_torch.nn.models import DropoutStreams, build_model
 from gsn_tpu_torch.spans import count, hist_add, since, snapshot, span
 from .checkpoint import save_checkpoint
-from .graphs import StepGraph, batch_sig, runs, state_key, unique_slots
+from .graphs import StepGraph, batch_sig, runs, state_key
 from .metrics import LOSSES, PREDICTION_FNS, roc_auc_score
 from .optim import (ReduceLROnPlateau, StepLR, make_optimizer,
                     make_scheduler, set_lr)
@@ -241,15 +244,17 @@ class Trainer:
         return y_hat, data.y, data.graph_mask
 
     def _check_runs(self, sigs) -> None:
-        """Before an epoch's or an evaluation's first run: nothing on one
-        device (the parallel trainer checks that its ranks agree)."""
+        """Before an evaluation's first run: nothing on one device (the
+        parallel trainer checks that its ranks agree, and before its
+        epochs' runs too)."""
 
-    def _train_batches(self, graphs: List[Dict]) -> List[GraphBatch]:
-        """One epoch's (shuffled) host batches."""
-        return list(iterate_batches(
+    def _train_batches(self, graphs: List[Dict]) -> Sequence[GraphBatch]:
+        """One epoch's host batches, their order drawn now; each is
+        built when a step first asks for it (``EpochBatches``)."""
+        return EpochBatches(
             graphs, self.tcfg.batch_size, shuffle=self.tcfg.shuffle,
             rng=self.rng, caps=self.caps, y_shape=self.y_shape,
-            y_dtype=self.y_dtype, flow=self.flow))
+            y_dtype=self.y_dtype, flow=self.flow)
 
     def train_epoch(self, state: TrainState, graphs: List[Dict]):
         """One epoch of ``num_iters`` steps (default: every batch once;
@@ -262,24 +267,26 @@ class Trainer:
         warm-up and capture; 0 once cached), ``step_hist`` (every timed
         step's seconds, ``spans.hist_add``), the counters ``TRAIN_COUNTS``
         (runs, captures, graphs evicted, real rows against slots of the
-        steps' nodes, edges and graphs, and the per-edge gathers built on
-        the segment and the index route) and ``spans`` ({name:
-        [seconds, self seconds, closed]} of ``train.epoch`` and what it
-        holds)."""
+        steps' nodes, edges and graphs, the per-edge gathers built on
+        the segment and the index route, and the steps fed after a
+        replay, ``_train_runs``) and ``spans`` ({name: [seconds, self
+        seconds, closed]} of ``train.epoch`` and what it holds).
+
+        The host stream draws the epoch's shuffle, then one number a
+        step; the batches are built after both, each as its step comes
+        (``EpochSteps``)."""
         snap = snapshot()
         with span("train.epoch"):
             with span("train.batch"):
                 batches = self._train_batches(graphs)
-                n_iters = self.tcfg.num_iters or len(batches)
-                seq = [batches[k % len(batches)] for k in range(n_iters)]
-                count_rows(seq)
+            n_iters = self.tcfg.num_iters or len(batches)
             for _ in range(n_iters):
                 # the reference's per-iteration dropout key: drawn so
                 # that later epochs' shuffles stay in step with its stream
                 self.rng.randint(0, 2**31 - 1)
             run = (self._train_runs if self.tcfg.scan_epochs
                    else self._train_steps)
-            losses, step_s = run(state, seq)
+            losses, step_s = run(state, EpochSteps(batches, n_iters))
         spans, counts = since(snap)
         hist: Dict[int, int] = {}
         for s in step_s:
@@ -289,7 +296,7 @@ class Trainer:
             return spans.get(name, (0.0,))[0]
 
         self.epoch_stats = dict(
-            epoch_s=total("train.epoch"), steps=len(seq),
+            epoch_s=total("train.epoch"), steps=n_iters,
             host_batch_s=total("train.batch") + total("train.copy"),
             step_median_s=statistics.median(step_s) if step_s else 0.0,
             capture_s=total("train.capture"), step_hist=hist,
@@ -297,7 +304,7 @@ class Trainer:
         state = dataclasses.replace(state, epoch=state.epoch + 1)
         return state, float(np.mean(losses)) if losses else 0.0
 
-    def _train_steps(self, state: TrainState, seq: List[GraphBatch]):
+    def _train_steps(self, state: TrainState, seq: Iterable[GraphBatch]):
         """Every step issued from Python, each loss read back: (losses,
         each step's host seconds, its launch and read)."""
         losses, step_s = [], []
@@ -311,55 +318,86 @@ class Trainer:
             step_s.append(launch.seconds + read.seconds)
         return losses, step_s
 
-    def _train_runs(self, state: TrainState, seq: List[GraphBatch]):
+    def _train_runs(self, state: TrainState, seq: Iterable[GraphBatch]):
         """The runs of same-shape batches, each step a replay of the
         state's train graph for the run's signature (captured first
         where there is none): (losses, the timed steps' seconds: a
-        replay's CUDA-event time, on the CPU the eager step's)."""
+        replay's CUDA-event time, on the CPU the eager step's).
+
+        ``seq`` (with a length) is taken a step at a time: a step's
+        batch is built (where ``seq`` builds it), signed and copied once
+        the step before it has been launched, so on the card it is made
+        while the replays before it run.  A batch whose signature
+        differs from its run's ends that run, with the run's one read,
+        and opens the next; a wrap-around step reuses its batch's copy
+        in the run.  A step fed after a replay of the epoch was launched
+        counts as ``train.overlapped_batches``."""
         cuda = self.device.type == "cuda"
         losses, step_s = [], []
-        with span("train.plan"):
-            sigs = [batch_sig(b) for b in seq]
-            self._check_runs(sigs)
-        for i, j in runs(sigs):
-            count("train.runs")
-            with span("train.copy"):
-                uniq, idxs = unique_slots(seq[i:j])
-                dev = [self.to_device(b) for b in uniq]
-            set_lr(state.optimizer, self.scheduler.lr)
-            key = ("train", sigs[i], state_key(state, optimizer=True))
-            gens = [g for g in (state.dropout_gen, state.node_gen)
-                    if g is not None]
-            graph = self._step_graph(key, state, self._train_loss,
-                                     dev[idxs[0]], gens)
-            out = torch.empty(j - i, dtype=torch.float32, device=self.device)
-            events = self._step_events(j - i) if cuda else None
-            timed = []
-            for k, slot in enumerate(idxs):
-                with span("train.load"):
-                    graph.load(dev[slot])
-                if cuda and not graph.captured:
-                    count("train.captures")
-                    with span("train.capture"):
-                        out[k] = graph.step(state)
-                elif cuda:
-                    with span("train.launch"):
-                        events[2 * k].record()
-                        out[k] = graph.step(state)
-                        events[2 * k + 1].record()
-                    timed.append(k)
-                else:
-                    with span("train.launch") as launch:
-                        out[k] = graph.step(state)
-                    step_s.append(launch.seconds)
+        out = torch.empty(len(seq), dtype=torch.float32, device=self.device)
+        events = self._step_events(len(seq)) if cuda else None
+
+        def read(run: _Run) -> None:
             with span("train.read"):
-                losses.extend(out.tolist())   # the run's one read
+                losses.extend(out[run.start:run.end].tolist())
                 step_s.extend(events[2 * k].elapsed_time(events[2 * k + 1])
-                              / 1e3 for k in timed)
+                              / 1e3 for k in run.timed)
             # a state's first step makes Adam's moments: key on them
-            self._rekey(key, ("train", sigs[i],
-                              state_key(state, optimizer=True)))
+            self._rekey(run.key, ("train", run.sig,
+                                  state_key(state, optimizer=True)))
+
+        run = None
+        replayed = False
+        for k, data in enumerate(seq):
+            if replayed:
+                count("train.overlapped_batches")
+            with span("train.plan"):
+                sig = batch_sig(data)
+            if run is not None and sig != run.sig:
+                read(run)
+                run = None
+            with span("train.copy"):
+                dev = run.dev.get(id(data)) if run is not None else None
+                if dev is None:
+                    dev = self.to_device(data)
+            if run is None:
+                run = self._start_run(state, sig, dev, k)
+            run.dev[id(data)] = dev
+            graph = run.graph
+            replayed = replayed or graph.captured   # this step replays
+            with span("train.load"):
+                graph.load(dev)
+            if cuda and not graph.captured:
+                count("train.captures")
+                with span("train.capture"):
+                    out[k] = graph.step(state)
+            elif cuda:
+                with span("train.launch"):
+                    events[2 * k].record()
+                    out[k] = graph.step(state)
+                    events[2 * k + 1].record()
+                run.timed.append(k)
+            else:
+                with span("train.launch") as launch:
+                    out[k] = graph.step(state)
+                step_s.append(launch.seconds)
+            run.end = k + 1
+        if run is not None:
+            read(run)
         return losses, step_s
+
+    def _start_run(self, state: TrainState, sig, example: GraphBatch,
+                   start: int) -> "_Run":
+        """A run of signature ``sig`` from step ``start``: the rate set,
+        the state's train graph for it (``example`` on the device)."""
+        count("train.runs")
+        set_lr(state.optimizer, self.scheduler.lr)
+        key = ("train", sig, state_key(state, optimizer=True))
+        gens = [g for g in (state.dropout_gen, state.node_gen)
+                if g is not None]
+        graph = self._step_graph(key, state, self._train_loss, example,
+                                 gens)
+        return _Run(sig, key, graph, start)
 
     def _step_events(self, n: int) -> List:
         """At least ``2 n`` timing events (a run's steps' starts and
@@ -648,26 +686,57 @@ class Trainer:
 TRAIN_COUNTS = ("train.runs", "train.captures", "graphs.evicted",
                 "train.real_nodes", "train.node_slots", "train.real_edges",
                 "train.edge_slots", "train.real_graphs", "train.graph_slots",
-                "edge_gather.segment", "edge_gather.index")
+                "edge_gather.segment", "edge_gather.index",
+                "train.overlapped_batches")
 # and every record of fit
 FIT_COUNTS = TRAIN_COUNTS + ("eval.steps", "eval.captures")
 
 
-def count_rows(seq: List[GraphBatch]) -> None:
-    """Count the real rows and the slots of the steps' host batches
-    (``train.real_nodes`` / ``train.node_slots``, edges, graphs): from
-    the host masks and ``num_real_edges``, never a device tensor."""
-    nodes = graphs = edges = 0
-    for b in seq:
-        nodes += int(np.count_nonzero(b.node_mask))
-        graphs += int(np.count_nonzero(b.graph_mask))
-        edges += b.num_real_edges
-    count("train.real_nodes", nodes)
-    count("train.node_slots", sum(b.num_node_slots for b in seq))
-    count("train.real_edges", edges)
-    count("train.edge_slots", sum(b.num_edge_slots for b in seq))
-    count("train.real_graphs", graphs)
-    count("train.graph_slots", sum(b.num_graph_slots for b in seq))
+class EpochSteps:
+    """An epoch's ``n`` steps over ``batches``, wrapping around to the
+    first: iterating gives each step's host batch as its step comes,
+    got from ``batches`` there (which builds it the first time, for
+    ``EpochBatches``) and its rows counted, in a ``train.batch``
+    span."""
+
+    def __init__(self, batches: Sequence[GraphBatch], n: int):
+        self.batches, self.n = batches, n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __iter__(self) -> Iterator[GraphBatch]:
+        for k in range(self.n):
+            with span("train.batch"):
+                data = self.batches[k % len(self.batches)]
+                count_rows(data)
+            yield data
+
+
+@dataclasses.dataclass
+class _Run:
+    """A run of ``Trainer._train_runs`` while it is open: its signature,
+    graph key and graph, its steps [start, end), the steps it timed and
+    its batches' device copies by host batch."""
+    sig: Tuple
+    key: Tuple
+    graph: StepGraph
+    start: int
+    end: int = 0
+    timed: List[int] = dataclasses.field(default_factory=list)
+    dev: Dict[int, GraphBatch] = dataclasses.field(default_factory=dict)
+
+
+def count_rows(data: GraphBatch) -> None:
+    """Count a step's real rows and slots (``train.real_nodes`` /
+    ``train.node_slots``, edges, graphs): from the host batch's masks
+    and ``num_real_edges``, never a device tensor."""
+    count("train.real_nodes", int(np.count_nonzero(data.node_mask)))
+    count("train.node_slots", data.num_node_slots)
+    count("train.real_edges", data.num_real_edges)
+    count("train.edge_slots", data.num_edge_slots)
+    count("train.real_graphs", int(np.count_nonzero(data.graph_mask)))
+    count("train.graph_slots", data.num_graph_slots)
 
 
 def _drop_graphs(trainer_ref, model_id: int) -> None:

@@ -1173,6 +1173,33 @@ def test_graphed_epochs_equal_per_step(dev):
     assert counts[0] == counts[1] and counts[0][0][0] > 0
 
 
+def test_graphed_epoch_builds_between_replays(dev, monkeypatch):
+    """On the card a graphed epoch builds batch k+1 after step k is
+    issued; every step fed after a replay counts as overlapped: all but
+    the first two of the capturing epoch (its first step captures), all
+    but the first once the graph is cached, none per step."""
+    from gsn_tpu_torch.graphs import batching
+    from gsn_tpu_torch.train import loop
+    graphs, _cfg = graphed_zinc()
+    order = []
+    build_batch, step = batching.batch_graphs, loop.StepGraph.step
+    monkeypatch.setattr(batching, "batch_graphs", lambda *a, **k: (
+        order.append("build"), build_batch(*a, **k))[1])
+    monkeypatch.setattr(loop.StepGraph, "step", lambda g, st: (
+        order.append("step"), step(g, st))[1])
+    got = []
+    for scan in (True, False):
+        trainer = zinc_epochs(dev, scan, epochs=1)[3]
+        state = trainer.init_state(seed=0)
+        for _ in range(2):
+            order.clear()
+            state, _ = trainer.train_epoch(state, graphs[:40])
+            got.append(trainer.epoch_stats["train.overlapped_batches"])
+            if scan:
+                assert order == ["build", "step"] * 5
+    assert got == [3, 4, 0, 0]
+
+
 def test_graphed_plateau_rate_reaches_replays(dev):
     """A rate set on the Plateau scheduler between epochs reaches the
     replayed Adam: the graphed run equals the per-step run bit for bit

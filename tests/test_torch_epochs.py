@@ -92,6 +92,26 @@ def zinc_tcfg(**over):
 # runs and signatures
 # ---------------------------------------------------------------------------
 
+def assert_same_stream(got, want):
+    """Two ``np.random.RandomState``s at the same point of one stream."""
+    a, b = got.get_state(), want.get_state()
+    assert a[0] == b[0] and a[2:] == b[2:]
+    np.testing.assert_array_equal(a[1], b[1])
+
+
+def drawn_stream(tcfg, num_graphs, epochs):
+    """The host stream of ``tcfg.seed`` after ``epochs`` epochs of the
+    reference's draws: each epoch's shuffle of its graphs, then one
+    number per iteration."""
+    rng = np.random.RandomState(tcfg.seed)
+    for _ in range(epochs):
+        rng.shuffle(np.arange(num_graphs))
+        n_iters = tcfg.num_iters or -(-num_graphs // tcfg.batch_size)
+        for _ in range(n_iters):
+            rng.randint(0, 2**31 - 1)
+    return rng
+
+
 def epoch_seq(batches, num_iters, rng):
     """``train_epoch``'s sequence of batch objects (wrap-around included)
     and its dropout-key draws."""
@@ -103,11 +123,12 @@ def epoch_seq(batches, num_iters, rng):
 
 
 @pytest.mark.parametrize("caps_mode", ["worst", "tight"])
-@pytest.mark.parametrize("num_iters", [None, 8])
+@pytest.mark.parametrize("num_iters", [3, None, 8])
 def test_runs_match_reference(zinc, caps_mode, num_iters):
     """Two epochs' [i, j) runs of equal signature, the port's against
     ``gsn_tpu``'s ``Trainer._runs(_batch_sig(...))`` on the same graphs
-    and seed (num_iters 8 wraps around the 5 batches); then a sequence of
+    and seed (num_iters 3 stops short of the 5 batches, 8 wraps around
+    them), and the host streams' states after them; then a sequence of
     batches at two caps, alternating in blocks, in both packages."""
     graphs, d_id = zinc
     tcfg = zinc_tcfg(caps_mode=caps_mode, num_iters=num_iters)
@@ -124,6 +145,7 @@ def test_runs_match_reference(zinc, caps_mode, num_iters):
         assert got == want
         assert [b.num_real_edges for b in tseq] == [
             int(b.edge_mask.sum()) for b in jseq]
+        assert_same_stream(tt.rng, jt.rng)
     caps = [(640, 1536, 8), (768, 2048, 8)]
     pick = [0, 0, 1, 1, 1, 0, 1]
     chunks = [graphs[8 * (k % 5):8 * (k % 5) + 8] for k in range(len(pick))]
@@ -220,11 +242,17 @@ def test_shapes_static_per_signature(zinc):
 # scanned against looped
 # ---------------------------------------------------------------------------
 
-def run_trainer(cfg, tcfg, train, test, epochs, model=None, seed=0):
-    """(epoch losses, final parameters and buffers, evaluate on train and
-    test, epoch_stats) of a CPU trainer."""
+def run_trainer(cfg, tcfg, train, test, epochs, model=None, seed=0,
+                up_front=False):
+    """(epoch losses, final parameters and buffers with Adam's moments
+    and steps, evaluate on train and test, epoch_stats, the host
+    stream) of a CPU trainer; ``up_front`` builds each epoch's every
+    batch before its first step."""
     trainer = loop.Trainer(cfg, tcfg, copy.deepcopy(train), device="cpu",
                            model=model)
+    if up_front:
+        lazy = trainer._train_batches
+        trainer._train_batches = lambda graphs: list(lazy(graphs))
     state = trainer.init_state(seed=seed)
     losses = []
     for _ in range(epochs):
@@ -232,7 +260,11 @@ def run_trainer(cfg, tcfg, train, test, epochs, model=None, seed=0):
         losses.append(loss)
     evals = [trainer.evaluate(state, split) for split in (train, test)]
     params = {k: v.clone() for k, v in state.model.state_dict().items()}
-    return losses, params, evals, trainer.epoch_stats
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    for p, moments in state.optimizer.state.items():
+        for k, v in moments.items():
+            params[f"adam.{names[id(p)]}.{k}"] = v.clone()
+    return losses, params, evals, trainer.epoch_stats, trainer.rng
 
 
 def assert_bit_equal(got, want):
@@ -241,30 +273,44 @@ def assert_bit_equal(got, want):
     for k in got[1]:
         assert torch.equal(got[1][k], want[1][k]), k
     assert got[2] == want[2]
+    assert_same_stream(got[4], want[4])
 
 
 def scanned_and_looped(cfg, tcfg, train, test, epochs, model=None):
+    """Graphed, per step, and graphed over epochs built before their
+    first step (the order of work before steps fed their own batches),
+    bit for bit, each host stream where the reference's draws leave
+    it."""
     out = [run_trainer(cfg, dataclasses.replace(tcfg, scan_epochs=scan),
-                       train, test, epochs, copy.deepcopy(model))
-           for scan in (True, False)]
-    assert_bit_equal(*out)
+                       train, test, epochs, copy.deepcopy(model),
+                       up_front=up_front)
+           for scan, up_front in ((True, False), (False, False),
+                                  (True, True))]
+    assert_bit_equal(out[0], out[1])
+    assert_bit_equal(out[0], out[2])
+    assert_same_stream(out[0][4], drawn_stream(tcfg, len(train), epochs))
+    assert any(k.endswith(".exp_avg_sq") for k in out[0][1])
     stats = out[0][3]
     assert set(stats) == {"epoch_s", "steps", "host_batch_s",
                           "step_median_s", "capture_s", "step_hist",
                           "spans", *loop.TRAIN_COUNTS}
     assert stats["capture_s"] == 0.0   # no graphs on the CPU
+    assert stats["train.overlapped_batches"] == 0   # nor replays
     return out
 
 
-def test_scanned_equals_looped_zinc(zinc):
-    """zinc GSN-EF (d=16, 2 layers): 3 epochs and ``evaluate`` on two
-    splits, scanned and per step, bit for bit; and with a num_iters that
-    wraps around."""
+@pytest.mark.parametrize("caps_mode", ["worst", "tight"])
+@pytest.mark.parametrize("num_iters", [2, None, 6],
+                         ids=["short", "epoch", "wrapped"])
+def test_scanned_equals_looped_zinc(zinc, caps_mode, num_iters):
+    """zinc GSN-EF (d=16, 2 layers): 3 epochs of 3 batches, stopping
+    short of them, at them and wrapping around them, and ``evaluate`` on
+    two splits, scanned and per step, bit for bit."""
     graphs, d_id = zinc
     cfg = GSNConfig(**zinc_kwargs(d_id))
-    scanned_and_looped(cfg, zinc_tcfg(), graphs[:32], graphs[32:], 3)
-    scanned_and_looped(cfg, zinc_tcfg(num_iters=6, caps_mode="tight"),
-                       graphs[:24], graphs[24:], 2)
+    scanned_and_looped(cfg, zinc_tcfg(num_iters=num_iters,
+                                      caps_mode=caps_mode),
+                       graphs[:24], graphs[24:], 3)
 
 
 def test_scanned_equals_looped_molhiv():
@@ -305,12 +351,17 @@ def numpy_tree(tree):
     return jax.tree_util.tree_map(np.asarray, flax.core.unfreeze(tree))
 
 
-def test_scanned_epochs_match_reference(zinc):
+@pytest.mark.parametrize("caps_mode", ["worst", "tight"])
+@pytest.mark.parametrize("num_iters", [2, None, 5],
+                         ids=["short", "epoch", "wrapped"])
+def test_scanned_epochs_match_reference(zinc, caps_mode, num_iters):
     """zinc GSN-EF with BN (d=16, 2 layers; MSE, whose gradient has no
     jump where a residual crosses zero, as L1's has): three scanned
-    epochs of both packages from the same carried weights give the same
-    epoch losses (rtol 2e-4 / atol 2e-5) and parameters (rtol 2e-3, atol
-    1e-4 · max|p|; the biases ahead of a BN two lr a step more); then
+    epochs of 3 batches (stopping short of them, at them, wrapping
+    around them) of both packages from the same carried weights give
+    the same epoch losses (rtol 2e-4 / atol 2e-5), host streams and
+    parameters (rtol 2e-3, atol 1e-4 · max|p|; the biases ahead of a BN
+    two lr a step more); then
     the port's scanned ``evaluate`` of the reference's trained weights
     and statistics equals the reference's (rtol 2e-4 / atol 2e-5).  (The
     noise steps of those biases reach an evaluation through the BN's
@@ -319,7 +370,8 @@ def test_scanned_epochs_match_reference(zinc):
     graphs, d_id = zinc
     train, test = graphs[:24], graphs[24:]
     kw = zinc_kwargs(d_id)
-    tcfg = zinc_tcfg(loss_fn="MSELoss", prediction_fn="MSELoss")
+    tcfg = zinc_tcfg(loss_fn="MSELoss", prediction_fn="MSELoss",
+                     num_iters=num_iters, caps_mode=caps_mode)
     jt = jax_loop.Trainer(JaxConfig(**kw), jax_loop.TrainerConfig(
         **dataclasses.asdict(tcfg)), train)
     example = next(jax_batches(train, 8, caps=jt.caps))
@@ -337,6 +389,8 @@ def test_scanned_epochs_match_reference(zinc):
         tstate, loss = tt.train_epoch(tstate, train)
         tl.append(loss)
     np.testing.assert_allclose(tl, jl, **FWD)
+    assert_same_stream(tt.rng, jt.rng)
+    assert_same_stream(tt.rng, drawn_stream(tcfg, len(train), 3))
     steps = 3 * tt.epoch_stats["steps"]
     want = flax_to_state_dict(numpy_tree(jstate.params))
     model = tstate.model
@@ -402,6 +456,65 @@ def test_new_state_gets_fresh_graphs(zinc, tmp_path):
     gc.collect()
     assert not [k for k in trainer._graphs if k[2][0] == mid]
     assert len(trainer._graphs) == 2   # s2's, before and after the load
+
+
+@pytest.mark.parametrize("num_iters", [None, 5], ids=["epoch", "wrapped"])
+def test_batches_built_between_steps(zinc, monkeypatch, num_iters):
+    """A graphed epoch builds batch k+1 after step k is issued (a
+    wrap-around step builds nothing); nothing runs ahead on the CPU, so
+    ``train.overlapped_batches`` is 0, and where each step reports a
+    replay launched (a stub of a captured graph) every step after the
+    first counts.  ``ParallelTrainer`` still builds its whole epoch and
+    checks every step's signature before its runs begin."""
+    from gsn_tpu_torch.graphs import batching
+    graphs, d_id = zinc
+    order = []
+    build_batch = batching.batch_graphs
+
+    def recording_build(*args, **kwargs):
+        order.append("build")
+        return build_batch(*args, **kwargs)
+
+    step = loop.StepGraph.step
+
+    def recording_step(self, state):
+        order.append("step")
+        return step(self, state)
+
+    monkeypatch.setattr(batching, "batch_graphs", recording_build)
+    monkeypatch.setattr(loop.StepGraph, "step", recording_step)
+    trainer = loop.Trainer(GSNConfig(**zinc_kwargs(d_id)),
+                           zinc_tcfg(num_iters=num_iters), graphs[:24],
+                           device="cpu")
+    state = trainer.init_state(seed=0)
+    state, _ = trainer.train_epoch(state, graphs[:24])
+    steps = trainer.epoch_stats["steps"]
+    assert steps == (num_iters or 3)
+    assert order == ["build", "step"] * 3 + ["step"] * (steps - 3)
+    assert trainer.epoch_stats["train.overlapped_batches"] == 0
+
+    monkeypatch.setattr(loop.StepGraph, "captured", property(lambda g: True))
+    trainer.train_epoch(state, graphs[:24])
+    assert trainer.epoch_stats["train.overlapped_batches"] == steps - 1
+    monkeypatch.undo()
+
+    for mode in ("dp", "ep"):
+        par = ParallelTrainer(GSNConfig(**zinc_kwargs(d_id)),
+                              zinc_tcfg(num_iters=num_iters), graphs[:24],
+                              mesh=Mesh(mode, 1, 0, torch.device("cpu")),
+                              mode=mode)
+        calls = []
+        monkeypatch.setattr(par, "_check_runs",
+                            lambda sigs: calls.append(("check", sigs)))
+        monkeypatch.setattr(loop.Trainer, "_train_runs",
+                            lambda self, st, seq: calls.append(
+                                ("runs", seq)) or ([0.0] * len(seq), []))
+        par.train_epoch(loop.Trainer.init_state(par, seed=0), graphs[:24])
+        (check, sigs), (runs_, seq) = calls
+        assert (check, runs_) == ("check", "runs")
+        assert isinstance(seq, list) and len(seq) == steps
+        assert sigs == [batch_sig(b) for b in seq]
+        monkeypatch.undo()
 
 
 @build.counted
